@@ -1,0 +1,164 @@
+"""Reuse-interval extraction as sorting, on ``[T, n]`` batches of windows.
+
+The reuse interval of an access is the gap to the previous position of the
+same cache line.  Sorting a window of the stream by ``(line, position)``
+places every line's accesses consecutively in position order, so one
+vectorized subtraction yields every reuse at once.  The window is sorted
+together with one *ghost* entry per covered line that carries the line's
+carried ``last_pos`` value (-1 if never touched), so every real access finds
+its predecessor — carried or in-window — as its left neighbour.
+
+Every function here works on a leading batch dimension of simulated threads
+(the JAX package's ``vmap`` axis, written out): rows are independent windows.
+Counterparts of ``pluss/ops/reuse.py``, equal to them on the same inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pluss_torch.config import NBINS
+
+#: line id that sorts after every real line (invalid entries).
+LINE_SENTINEL = 2**31 - 1
+
+#: share keys pack (thread, reuse) as ``thread << SHARE_SHIFT | reuse``;
+#: share reuses are positive and below 2**47 (the NBINS range), so the pack
+#: is exact for up to 2**15 threads.
+SHARE_SHIFT = 48
+
+_INT32_MIN = -(2**31)
+
+
+def share_mask(reuse, span):
+    """Cross-thread classification ``2*reuse > span`` written division-sided
+    (``reuse > span//2``, equal for integers of either parity) so a reuse
+    near the int32 ceiling cannot overflow.  Works on tensors and numpy
+    arrays alike."""
+    return (span > 0) & (reuse > span // 2)
+
+
+def log2_bin(reuse: torch.Tensor) -> torch.Tensor:
+    """Slot of the reference's log2 binning: reuse in [2^e, 2^{e+1}) -> 1+e
+    (slot 0 is the cold key).  ``frexp``'s exponent of ``max(reuse, 1)`` is
+    exactly 1+e for every integer below 2**53."""
+    return torch.frexp(torch.clamp(reuse, min=1).to(torch.float64)).exponent
+
+
+def sort_stream(line, pos, span, valid):
+    """Sort each row by (line, position); invalid entries sort last.
+
+    int32 positions pack with the line into one int64 key (line in the high
+    word, ``pos + 2**31`` in the low word), so one sort realizes the two-key
+    order.  int64 positions take two stable sorts, position then line.
+    Returns ``(key_s int32, pos_s, span_s int32, valid_s bool)``.
+    """
+    key = torch.where(valid, line, LINE_SENTINEL)
+    if pos.dtype == torch.int32:
+        packed = (key.to(torch.int64) << 32) | (pos.to(torch.int64)
+                                                 - _INT32_MIN)
+        packed, order = torch.sort(packed, dim=-1)
+        key_s = (packed >> 32).to(torch.int32)
+        pos_s = ((packed & 0xFFFFFFFF) + _INT32_MIN).to(torch.int32)
+    else:
+        _, order = torch.sort(pos, dim=-1, stable=True)
+        key_s, by_key = torch.sort(key.gather(-1, order), dim=-1, stable=True)
+        order = order.gather(-1, by_key)
+        pos_s = pos.gather(-1, order)
+    return key_s, pos_s, span.gather(-1, order), key_s != LINE_SENTINEL
+
+
+def ghost_entries(last_pos: torch.Tensor, line0: int):
+    """(line, pos, span, valid) ghost block for lines [line0, line0+c) of a
+    ``[T, c]`` slice of the carried table: ``pos`` is the slice itself,
+    ``span`` 0 (ghosts never classify events), ``valid`` all True."""
+    T, c = last_pos.shape
+    line = torch.arange(line0, line0 + c, dtype=torch.int32,
+                        device=last_pos.device).expand(T, c)
+    return (line, last_pos,
+            torch.zeros((T, c), dtype=torch.int32, device=last_pos.device),
+            torch.ones((T, c), dtype=torch.bool, device=last_pos.device))
+
+
+def carried_events(key_s, pos_s, span_s, valid_s, win_start):
+    """Reuse events of ghost-merged sorted windows.
+
+    ``win_start`` (``[T]`` or a scalar) is each row's smallest stream
+    position; entries below it are ghosts.  A real entry whose same-line
+    left neighbour has ``pos >= 0`` is an event with ``reuse = pos - prev``;
+    one whose same-line left neighbour is a ``pos < 0`` ghost is cold.
+    """
+    ws = torch.as_tensor(win_start, device=pos_s.device)
+    if ws.ndim:
+        ws = ws[..., None]
+    real = valid_s & (pos_s >= ws)
+    same = torch.cat([torch.zeros_like(valid_s[..., :1]),
+                      key_s[..., 1:] == key_s[..., :-1]], dim=-1)
+    prev_pos = torch.cat([pos_s[..., :1], pos_s[..., :-1]], dim=-1)
+    is_evt = real & same & (prev_pos >= 0)
+    cold = real & same & (prev_pos < 0)
+    reuse = torch.where(is_evt, pos_s - prev_pos, 0).to(pos_s.dtype)
+    return {
+        "reuse": reuse,
+        "is_evt": is_evt,
+        "share": is_evt & share_mask(reuse, span_s),
+        "cold": cold,
+    }
+
+
+def extract_tails(key_s, pos_s, valid_s, n_lines: int) -> torch.Tensor:
+    """New ``last_pos`` values of ghost-merged sorted windows, in line order.
+
+    The last entry of each line's segment holds the line's latest position
+    (a real access, or the ghost itself when the window left the line
+    untouched).  With ghosts covering ``n_lines`` lines, each row has
+    exactly that many segment-last valid entries, already in ascending line
+    order: they are compacted into ``[T, n_lines]`` by their running count.
+    """
+    seg_last = torch.cat([key_s[..., 1:] != key_s[..., :-1],
+                          torch.ones_like(valid_s[..., :1])], dim=-1)
+    keep = seg_last & valid_s
+    # one scan over the flattened batch, rebased per row: a scan along the
+    # last dim of a few long rows runs far slower on CUDA (measured on the
+    # H100, PERF.md)
+    run = torch.cumsum(keep.reshape(-1), 0).view(keep.shape)
+    slot = run - (run[..., -1:] - keep.sum(-1, keepdim=True)) - 1
+    slot = torch.where(keep & (slot < n_lines), slot, n_lines)
+    out = torch.zeros(key_s.shape[:-1] + (n_lines + 1,), dtype=pos_s.dtype,
+                      device=pos_s.device)
+    # non-tail entries all land in the dump column, sliced off below
+    out.scatter_(-1, slot, pos_s)
+    return out[..., :n_lines]
+
+
+def bin_histogram(bins: torch.Tensor, wgt: torch.Tensor,
+                  num_segments: int = NBINS) -> torch.Tensor:
+    """``[..., num_segments]`` int64 histogram of integer weights over the
+    last dim.  Bins outside ``[0, num_segments)`` weigh nothing (as in the
+    JAX one-hot form); integer adds keep it exact in any order."""
+    ok = (bins >= 0) & (bins < num_segments)
+    idx = torch.where(ok, bins, num_segments).to(torch.int64)
+    out = torch.zeros(bins.shape[:-1] + (num_segments + 1,),
+                      dtype=torch.int64, device=bins.device)
+    out.scatter_add_(-1, idx, wgt.to(torch.int64))
+    return out[..., :num_segments]
+
+
+def share_keys(reuse: torch.Tensor, share: torch.Tensor) -> torch.Tensor:
+    """Packed ``thread << SHARE_SHIFT | reuse`` keys of the share events of a
+    ``[T, n]`` batch (row index = simulated thread), as a 1-D int64 tensor."""
+    tid = torch.arange(reuse.shape[0], dtype=torch.int64,
+                       device=reuse.device)[:, None].expand(reuse.shape)
+    return ((tid << SHARE_SHIFT) | reuse.to(torch.int64))[share]
+
+
+def share_unique(keys: torch.Tensor, counts: torch.Tensor | None = None):
+    """Exact ``(unique keys, counts)`` of packed share keys; ``counts``
+    weighs each key (default 1).  The reference keeps share reuses raw until
+    the racetrack post-pass, so values must be exact — no capacity, so no
+    overflow and no retry."""
+    if counts is None:
+        return torch.unique(keys, return_counts=True)
+    uniq, inv = torch.unique(keys, return_inverse=True)
+    tot = torch.zeros(uniq.shape, dtype=torch.int64, device=keys.device)
+    return uniq, tot.scatter_add_(0, inv, counts.to(torch.int64))
