@@ -5,9 +5,12 @@ held against): per-thread reuse-interval histograms of OpenMP-parallel
 affine loop nests, the CRI post-pass, and the AET miss-ratio curve.  It
 imports torch, numpy and scipy, never jax and never the ``pluss`` package.
 
-This slice covers rectangular nests end to end: ``engine.run`` (static
-template and ghost-merged sort windows, with the hand-written CUDA
+Two slices are ported.  Rectangular nests end to end: ``engine.run``
+(static template and ghost-merged sort windows, with the hand-written CUDA
 carried-event histogram kernel) -> ``cri.distribute`` -> ``mrc.aet_mrc`` ->
-the reference's ``acc`` block (``python -m pluss_torch.cli``).  Runs go to
-the CUDA card unless the caller asks for the CPU.
+the reference's ``acc`` block (``python -m pluss_torch.cli acc``).  And the
+single-device streamed trace replay: ``trace.replay_file`` (with the CUDA
+d24v wire decode and masked event histogram kernels) -> the ``trace``
+block (``python -m pluss_torch.cli trace``).  Runs go to the CUDA card
+unless the caller asks for the CPU.
 """

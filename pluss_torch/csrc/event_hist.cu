@@ -19,12 +19,11 @@
 // (blockIdx.y = row); each CUDA thread reads its entry and its left
 // neighbour directly (the neighbour is the previous thread's entry, so the
 // second read hits L1) and masks the ragged tail itself.  Each block keeps a
-// shared-memory histogram, fed by warp-aggregated atomics (lanes with the
-// same bin elect one leader, so the common case of a warp full of equal
-// short reuses is one atomic, not 32), and flushes it with one integer
-// atomicAdd per bin.  Integer atomics make the result exact and independent
-// of order: it is bit-identical to the plain torch version
-// (pluss_torch/ops/event_hist.py:event_histogram_plain).
+// shared-memory histogram fed by warp-aggregated atomics and flushes it
+// with one integer atomicAdd per bin (hist_common.cuh).  Integer atomics
+// make the result exact and independent of order: it is bit-identical to
+// the plain torch version (pluss_torch/ops/event_hist.py:
+// event_histogram_plain).
 //
 // Bound.  The kernel reads each entry once: key (4 B) + pos (4 or 8 B) +
 // span (4 B) + valid (1 B) = 13 or 17 B, and does ~20 integer operations.
@@ -38,27 +37,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hist_common.cuh"
+
 namespace {
 
-constexpr int kNBins = 49;      // pluss_torch.config.NBINS
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSM = 8; // 8 x 256 threads fill an SM's 2048 slots
+using pluss::kHistThreads;
+using pluss::kNBins;
+using pluss::log2_slot;
 
 template <typename P>
-__device__ __forceinline__ int log2_slot(P reuse);
-
-template <>
-__device__ __forceinline__ int log2_slot<int32_t>(int32_t reuse) {
-  return 32 - __clz(reuse);
-}
-
-template <>
-__device__ __forceinline__ int log2_slot<int64_t>(int64_t reuse) {
-  return 64 - __clzll(reuse);
-}
-
-template <typename P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kHistThreads)
 carried_event_hist(const int32_t* __restrict__ key,
                    const P* __restrict__ pos,
                    const int32_t* __restrict__ span,
@@ -67,17 +55,15 @@ carried_event_hist(const int32_t* __restrict__ key,
                    int64_t L,
                    unsigned long long* __restrict__ out) {
   __shared__ unsigned int s_hist[kNBins];
-  for (int b = threadIdx.x; b < kNBins; b += blockDim.x) s_hist[b] = 0;
-  __syncthreads();
+  pluss::hist_init(s_hist);
 
   const int t = blockIdx.y;
   const int64_t row = static_cast<int64_t>(t) * L;
   const P ws = win_start[t];
-  const int lane = threadIdx.x & 31;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
 
   // `base` is uniform across the block, so every lane of a warp runs the
-  // same number of iterations and the full-mask warp vote below is legal.
+  // same number of iterations and the full-mask warp vote is legal.
   for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x;
        base < L; base += stride) {
     const int64_t i = base + threadIdx.x;
@@ -93,23 +79,14 @@ carried_event_hist(const int32_t* __restrict__ key,
           const P reuse = p - prev;
           const int32_t sp = span[j];
           if (!(sp > 0 && reuse > static_cast<P>(sp / 2))) {
-            const int s = log2_slot<P>(reuse > 0 ? reuse : P(1));
-            bin = s < kNBins ? s : -1;
+            bin = log2_slot<P>(reuse > 0 ? reuse : P(1));
           }
         }
       }
     }
-    const unsigned peers = __match_any_sync(0xffffffffu, bin);
-    if (bin >= 0 && lane == __ffs(peers) - 1) {
-      atomicAdd(&s_hist[bin], static_cast<unsigned int>(__popc(peers)));
-    }
+    pluss::hist_add(s_hist, bin);
   }
-  __syncthreads();
-  for (int b = threadIdx.x; b < kNBins; b += blockDim.x) {
-    const unsigned int c = s_hist[b];
-    if (c) atomicAdd(&out[static_cast<int64_t>(t) * kNBins + b],
-                     static_cast<unsigned long long>(c));
-  }
+  pluss::hist_flush(s_hist, out + static_cast<int64_t>(t) * kNBins);
 }
 
 template <typename P>
@@ -118,17 +95,12 @@ int launch(const void* key, const void* pos, const void* span,
            long long L, void* out, void* stream) {
   if (T <= 0 || L <= 0) return 0;  // nothing to count
   if (T > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  unsigned gx = 0;
+  const cudaError_t err =
+      pluss::hist_grid_x((L + kHistThreads - 1) / kHistThreads, T, &gx);
   if (err != cudaSuccess) return static_cast<int>(err);
-  long long want = static_cast<long long>(sms) * kBlocksPerSM / T;
-  if (want < 1) want = 1;
-  const long long need = (L + kThreads - 1) / kThreads;
-  const dim3 grid(static_cast<unsigned>(need < want ? need : want),
-                  static_cast<unsigned>(T));
-  carried_event_hist<P><<<grid, kThreads, 0,
+  const dim3 grid(gx, static_cast<unsigned>(T));
+  carried_event_hist<P><<<grid, kHistThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(key), static_cast<const P*>(pos),
       static_cast<const int32_t*>(span), static_cast<const uint8_t*>(valid),

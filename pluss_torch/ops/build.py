@@ -1,12 +1,14 @@
-"""Build the port's CUDA kernel from ``pluss_torch/csrc`` at first use.
+"""Build the port's CUDA kernels from ``pluss_torch/csrc`` at first use.
 
-``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, loaded with ``ctypes``: a file
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
+a shared library with a plain C interface, loaded with ``ctypes``: a file
 that does not include PyTorch's headers builds in seconds, where a PyTorch
 extension takes minutes.  Libraries land in ``pluss_torch/_build/``
-(git-ignored), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing is built when a
-module is imported; :func:`load` builds on the first launch.
+(git-ignored), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused.  Nothing is built when a module is imported;
+:func:`load` builds on the first launch, and :func:`build` compiles
+several sources at once, one ``nvcc`` each, all started together.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,28 +40,49 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(f.encode() + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(name: str) -> list[str]:
-    """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the
-    compiler's ``ptxas info`` lines (empty when nothing was compiled);
-    raises ``RuntimeError`` with the compiler's output if the build fails."""
-    lib = library_path(name)
-    if os.path.exists(lib):
-        return []
+def build(*names: str) -> dict[str, dict]:
+    """Compile each ``csrc/<name>.cu`` that is not built already, one
+    ``nvcc`` process per source, all started together.  Returns, per name,
+    the seconds from the start to that compiler's exit and its ``ptxas
+    info`` lines (0 and empty when nothing was compiled); raises
+    ``RuntimeError`` with the compilers' output if a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.tmp{os.getpid()}"
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"kernel build failed: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, lib)
-    return [ln for ln in proc.stdout.splitlines() if "ptxas info" in ln]
+    todo = [n for n in names if not os.path.exists(library_path(n))]
+    out = {n: {"seconds": 0.0, "ptxas": []} for n in names}
+    t0 = time.perf_counter()
+
+    def compile_one(name: str):
+        lib = library_path(name)
+        tmp = f"{lib}.tmp{os.getpid()}"
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        seconds = time.perf_counter() - t0
+        if not proc.returncode:
+            os.replace(tmp, lib)
+        return proc, seconds
+
+    failed = []
+    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+        for name, (proc, seconds) in zip(todo, pool.map(compile_one, todo)):
+            if proc.returncode:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n"
+                              f"{proc.stdout}")
+                continue
+            out[name] = {"seconds": seconds,
+                         "ptxas": [ln for ln in proc.stdout.splitlines()
+                                   if "ptxas info" in ln]}
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return out
 
 
 @functools.cache

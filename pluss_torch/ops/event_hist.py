@@ -1,15 +1,21 @@
-"""Fused carried-event histogram of ghost-merged sorted windows.
+"""The two event-histogram kernels of the port.
 
-Counterpart of ``pluss/ops/pallas_events.py:event_histogram_fused`` (the
-TPU kernel ``_kernel``): boundary detection, carried/cold classification,
-reuse differences, share masking, log2 binning and the ``[NBINS]``
-accumulation in one pass over each sorted window.  The CUDA kernel lives in
-``pluss_torch/csrc/event_hist.cu``; :func:`event_histogram_plain` is the
-same function in plain torch ops.
+- :func:`event_histogram`: counterpart of
+  ``pluss/ops/pallas_events.py:event_histogram_fused`` (the TPU kernel
+  ``_kernel``): boundary detection, carried/cold classification, reuse
+  differences, share masking, log2 binning and the ``[NBINS]``
+  accumulation in one pass over each ghost-merged sorted window (the
+  engine's sort windows).  CUDA source ``pluss_torch/csrc/event_hist.cu``.
+- :func:`masked_histogram`: counterpart of
+  ``pluss/ops/pallas_events.py:fused_event_histogram`` (the TPU kernel
+  ``_hist_kernel``): log2 binning and the ``[NBINS]`` accumulation of an
+  already classified event stream (the trace replay's batches).  CUDA
+  source ``pluss_torch/csrc/masked_hist.cu``.
 
-:func:`event_histogram` takes the plain version only for tensors on the
-CPU.  For CUDA tensors it launches the kernel, and a kernel that fails to
-build or launch raises — nothing falls back.
+``*_plain`` are the same functions in plain torch ops.  Each wrapper takes
+its plain version only for tensors on the CPU.  For CUDA tensors it
+launches its kernel, and a kernel that fails to build or launch raises —
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -103,4 +109,85 @@ def _launch(key_s, pos_s, span_s, valid_s, win_start):
         raise RuntimeError(f"carried_event_hist launch failed: CUDA error "
                            f"{err}")
     event_histogram.launches += 1
+    return out
+
+
+def masked_histogram_plain(reuse, is_evt, share, cold,
+                           include_cold: bool = True):
+    """``[NBINS]`` int64 histogram of a classified event stream in plain
+    torch ops: the JAX package's ``event_histogram`` epilogue (no-share
+    events binned at log2, cold weighed in slot 0 when ``include_cold``)."""
+    evt = is_evt & ~share
+    bins = torch.where(evt, log2_bin(reuse), 0)
+    return bin_histogram(bins, (cold | evt) if include_cold else evt)
+
+
+def _check_masked(reuse, is_evt, share, cold) -> None:
+    if reuse.numel() == 0:
+        # a launch over nothing would be counted without running
+        raise ValueError("empty event stream")
+    if reuse.dtype not in _POS_DTYPES:
+        raise ValueError(f"reuse must be int32 or int64, got {reuse.dtype}")
+    for name, t in (("reuse", reuse), ("is_evt", is_evt), ("share", share),
+                    ("cold", cold)):
+        if name != "reuse" and t.dtype != torch.bool:
+            raise ValueError(f"{name} must be bool, got {t.dtype}")
+        if t.ndim != 1 or t.shape != reuse.shape:
+            raise ValueError(f"{name} must have shape {tuple(reuse.shape)} "
+                             f"(1-D), got {tuple(t.shape)}")
+        if t.device != reuse.device:
+            raise ValueError(f"{name} is on {t.device}, reuse on "
+                             f"{reuse.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def masked_histogram(reuse, is_evt, share, cold, include_cold: bool = True):
+    """``[NBINS]`` int64 histogram of a classified 1-D event stream:
+    ``reuse`` int32|int64 and the ``is_evt``/``share``/``cold`` bool masks
+    of ``window_events``.
+
+    CPU tensors take :func:`masked_histogram_plain`; CUDA tensors launch
+    the kernel on the current stream, counted in
+    ``masked_histogram.launches``.
+    """
+    _check_masked(reuse, is_evt, share, cold)
+    if reuse.device.type == "cpu":
+        return masked_histogram_plain(reuse, is_evt, share, cold,
+                                      include_cold)
+    if reuse.device.type != "cuda":
+        raise ValueError(f"no masked-histogram kernel for device "
+                         f"{reuse.device}")
+    return _launch_masked(reuse, is_evt, share, cold, include_cold)
+
+
+masked_histogram.launches = 0
+
+
+def _masked_library() -> ctypes.CDLL:
+    lib = build.load("masked_hist")
+    for fn in (lib.pluss_masked_hist_i32, lib.pluss_masked_hist_i64):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                               ctypes.c_longlong,
+                                               ctypes.c_void_p,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_masked(reuse, is_evt, share, cold, include_cold):
+    """Launch the CUDA kernel (one launch for the whole stream) and count
+    it."""
+    lib = _masked_library()
+    fn = lib.pluss_masked_hist_i32 if reuse.dtype == torch.int32 \
+        else lib.pluss_masked_hist_i64
+    out = torch.zeros(NBINS, dtype=torch.int64, device=reuse.device)
+    with torch.cuda.device(reuse.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(reuse.data_ptr(), is_evt.data_ptr(), share.data_ptr(),
+                 cold.data_ptr(), int(bool(include_cold)), reuse.numel(),
+                 out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"masked_hist launch failed: CUDA error {err}")
+    masked_histogram.launches += 1
     return out

@@ -8,9 +8,12 @@ together with one *ghost* entry per covered line that carries the line's
 carried ``last_pos`` value (-1 if never touched), so every real access finds
 its predecessor — carried or in-window — as its left neighbour.
 
-Every function here works on a leading batch dimension of simulated threads
-(the JAX package's ``vmap`` axis, written out): rows are independent windows.
-Counterparts of ``pluss/ops/reuse.py``, equal to them on the same inputs.
+The engine's functions work on a leading batch dimension of simulated
+threads (the JAX package's ``vmap`` axis, written out): rows are
+independent windows.  The trace replay's (:func:`window_events`,
+:func:`batch_events`, :func:`event_histogram`) work on one 1-D stream
+slice resolved against a carried ``last_pos`` table.  Counterparts of
+``pluss/ops/reuse.py``, equal to them on the same inputs.
 """
 
 from __future__ import annotations
@@ -162,3 +165,61 @@ def share_unique(keys: torch.Tensor, counts: torch.Tensor | None = None):
     uniq, inv = torch.unique(keys, return_inverse=True)
     tot = torch.zeros(uniq.shape, dtype=torch.int64, device=keys.device)
     return uniq, tot.scatter_add_(0, inv, counts.to(torch.int64))
+
+
+def window_events(key_s, pos_s, valid_s, last_pos):
+    """Reuse events of one sorted 1-D stream slice, resolved against the
+    carried table, which this call advances IN PLACE.
+
+    ``last_pos`` holds each line's latest stream position before the slice
+    (-1 if never touched) in ``last_pos[:-1]``; its last slot is a dump
+    slot.  A segment head (first in-slice touch of a line) reads its
+    carried value with one gather: an event when it is >= 0, cold
+    otherwise.  Other valid entries are in-slice reuses of their left
+    neighbour.  Segment tails (last in-slice touch) then write their
+    positions with one scatter, and every other entry writes into the dump
+    slot, so the scatter needs no compaction and no host sync; only the
+    dump slot ever sees more than one write.
+
+    Returns the event dict ``{reuse (pos dtype), is_evt, share, cold}``;
+    a trace stream has no share classification, so ``share`` is all
+    False.
+    """
+    dump = last_pos.shape[0] - 1
+    same = key_s[1:] == key_s[:-1]
+    prev_same = torch.cat([same.new_zeros(1), same])
+    next_same = torch.cat([same, same.new_zeros(1)])
+    local_evt = prev_same & valid_s
+    head = valid_s & ~prev_same
+    tail = valid_s & ~next_same
+    carried = last_pos.gather(0, torch.where(head, key_s, dump).long())
+    head_evt = head & (carried >= 0)
+    prev_pos = torch.cat([pos_s[:1], pos_s[:-1]])
+    reuse = torch.where(local_evt, pos_s - prev_pos,
+                        torch.where(head_evt, pos_s - carried, 0))
+    last_pos.scatter_(0, torch.where(tail, key_s, dump).long(), pos_s)
+    is_evt = local_evt | head_evt
+    return {"reuse": reuse.to(pos_s.dtype), "is_evt": is_evt,
+            "share": torch.zeros_like(is_evt), "cold": head & (carried < 0)}
+
+
+def batch_events(line, pos, valid, last_pos):
+    """Whole-slice segmented reuse extraction of a stream in position
+    order: one stable sort on the line key (invalid entries last) keeps the
+    position order within each line, then one carried gather and one tail
+    scatter (``last_pos`` advances in place, see :func:`window_events`)."""
+    key_s, order = torch.sort(torch.where(valid, line, LINE_SENTINEL),
+                              stable=True)
+    return window_events(key_s, pos.gather(0, order),
+                         key_s != LINE_SENTINEL, last_pos)
+
+
+def event_histogram(ev: dict, include_cold: bool = True,
+                    hist_fn=None) -> torch.Tensor:
+    """``[NBINS]`` int64 histogram of one event dict: slot 0 = cold, slot
+    1+e = no-share reuses in [2^e, 2^{e+1}).  ``hist_fn`` is the masked
+    histogram: the kernel wrapper by default, or its plain version."""
+    if hist_fn is None:
+        from pluss_torch.ops.event_hist import masked_histogram as hist_fn
+    return hist_fn(ev["reuse"], ev["is_evt"], ev["share"], ev["cold"],
+                   include_cold)

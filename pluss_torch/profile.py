@@ -1,44 +1,55 @@
-"""Where one sampler run's time goes on the CUDA card.
+"""Where one sampler run's, or one trace replay's, time goes on the CUDA card.
 
     python -m pluss_torch.profile --model mvt --n 4000
+    python -m pluss_torch.profile --trace trace.bin
 
 Prints one JSON object per model: the host plan's seconds, the wall
 seconds of the device part (``engine._execute``, which ends in the copy of
 the result to the host), the device busy seconds (the sum of every kernel,
 copy and memset the run put on the card, from ``torch.profiler``), the
-idle share ``1 - busy/wall``, and the device's top operations by time.
+idle share ``1 - busy/wall``, the device's top operations by time, and
+the device time and launches of each of the port's own kernels.
 The profiled run follows one unprofiled warm-up run (kernel build,
-allocator growth).  Needs a CUDA card.
+allocator growth).
+
+With ``--trace FILE``, one object per file for ``trace.replay_file`` with
+its defaults: wall seconds, refs/s, device busy seconds and idle share,
+the replay's own main-thread split (feed stall, staging, device dispatch
+and final wait), the peak device memory, the top device operations and
+the port's kernels.
+The warm-up replays one batch.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
 
 import torch
 
-from pluss_torch import engine
+from pluss_torch import engine, trace
 from pluss_torch.config import SamplerConfig
 from pluss_torch.models import REGISTRY
 
+#: symbol prefixes of the port's CUDA kernels (pluss_torch/csrc/*.cu)
+PORT_KERNELS = ("carried_event_hist", "masked_hist", "d24v_")
 
-def profile_run(spec, cfg: SamplerConfig, top: int = 8) -> dict:
+
+def profiled(fn, top: int):
+    """``fn()`` under ``torch.profiler``, ending in a device sync: its
+    result, wall seconds, device busy seconds (None when the profiler saw
+    no device time), top device operations and the port's kernels among
+    all of them (device seconds and launches by symbol prefix)."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    pl = engine.plan(spec, cfg)
-    plan_s = time.perf_counter() - t0
-    engine._execute(pl, dev)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine._execute(pl, dev)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ops = [(e.key, e.self_device_time_total / 1e6, e.count)
@@ -46,14 +57,52 @@ def profile_run(spec, cfg: SamplerConfig, top: int = 8) -> dict:
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0]
     ops.sort(key=lambda o: -o[1])
-    busy = sum(o[1] for o in ops)
+    busy = sum(o[1] for o in ops) if ops else None
+    kernels = {}
+    for k, s, c in ops:
+        for sym in PORT_KERNELS:
+            if sym in k:
+                got = kernels.setdefault(sym, {"s": 0.0, "count": 0})
+                got["s"] += s
+                got["count"] += c
+    return out, wall, busy, [{"name": k[:90], "s": s, "count": c}
+                             for k, s, c in ops[:top]], kernels
+
+
+def profile_run(spec, cfg: SamplerConfig, top: int = 8) -> dict:
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    pl = engine.plan(spec, cfg)
+    plan_s = time.perf_counter() - t0
+    engine._execute(pl, dev)
+    torch.cuda.synchronize()
+    _, wall, busy, ops, kernels = profiled(lambda: engine._execute(pl, dev),
+                                           top)
     return {
         "model": spec.name, "refs": pl.total_count, "plan_s": plan_s,
         "device_part_wall_s": wall,
-        "device_busy_s": busy if ops else None,
-        "device_idle_share": 1 - busy / wall if ops else None,
-        "top_device_ops": [{"name": k[:90], "s": s, "count": c}
-                           for k, s, c in ops[:top]],
+        "device_busy_s": busy,
+        "device_idle_share": None if busy is None else 1 - busy / wall,
+        "top_device_ops": ops, "port_kernels": kernels,
+    }
+
+
+def profile_trace(path: str, top: int = 8) -> dict:
+    trace.replay_file(path, limit_refs=trace.WINDOWS_PER_BATCH
+                      * trace.TRACE_WINDOW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rep, wall, busy, ops, kernels = profiled(
+        lambda: trace.replay_file(path), top)
+    return {
+        "trace": os.path.basename(path), "refs": rep.total_count,
+        "wall_s": wall, "refs_per_s": rep.total_count / wall,
+        "device_busy_s": busy,
+        "device_idle_share": None if busy is None else 1 - busy / wall,
+        "split": rep.timing, "wire": rep.wire,
+        "feed_workers": rep.feed_workers, "n_lines": rep.n_lines,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "top_device_ops": ops, "port_kernels": kernels,
     }
 
 
@@ -65,10 +114,12 @@ def main(argv: list[str] | None = None) -> int:
                    help="model to profile (repeatable; default gemm)")
     p.add_argument("--n", type=int, action="append",
                    help="problem size, one per --model (default 1024)")
+    p.add_argument("--trace", action="append", default=[],
+                   help="u64 trace file to replay (repeatable)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         p.error("no CUDA device is available")
-    models = args.model or ["gemm"]
+    models = args.model or ([] if args.trace else ["gemm"])
     sizes = args.n or [1024] * len(models)
     if len(sizes) != len(models):
         p.error("give one --n per --model")
@@ -80,6 +131,8 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({"card": card,
                           **profile_run(REGISTRY[m](n), SamplerConfig())}),
               flush=True)
+    for path in args.trace:
+        print(json.dumps({"card": card, **profile_trace(path)}), flush=True)
     return 0
 
 

@@ -2,13 +2,16 @@
 
 ``python -m pluss_torch.cli acc --cpu`` must print, line for line below the
 timing banner, what ``python -m pluss.cli acc --cpu --backends vmap``
-prints for the same model (the reference's differential ``acc`` test).
+prints for the same model (the reference's differential ``acc`` test);
+``trace --cpu`` must print what ``python -m pluss.cli trace --cpu`` prints
+below its banner and write the same MRC CSV, byte for byte.
 """
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,7 +23,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def body(text: str) -> list[str]:
     lines = text.splitlines()
-    assert lines[0].split(":")[0] in ("TPU VMAP", "TORCH CPU", "TORCH CUDA")
+    assert lines[0].split(":")[0] in ("TPU VMAP", "TORCH CPU", "TORCH CUDA",
+                                      "TPU TRACE", "TORCH CPU TRACE",
+                                      "TORCH CUDA TRACE")
     return lines[1:]
 
 
@@ -70,3 +75,79 @@ def test_cli_without_cuda_or_cpu_flag_stops(monkeypatch, capsys):
         cli.main(["acc", "--n", "8"])
     assert e.value.code == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def write_trace(tmp_path, fmt):
+    """A seeded two-region trace (hot/warm lines, then a far sweep)."""
+    rng = np.random.default_rng(0)
+    lines = np.concatenate([rng.integers(0, 1 << 12, 6000),
+                            (1 << 30) + np.arange(3000) // 8])
+    addrs = lines << 6
+    if fmt == "u64":
+        path = tmp_path / "t.bin"
+        addrs.astype("<u8").tofile(path)
+    else:
+        path = tmp_path / "t.txt"
+        path.write_text("\n".join(hex(int(a)) for a in addrs) + "\n")
+    return str(path)
+
+
+TRACE_GEO = ["--window", "2048", "--batch-windows", "2"]
+
+
+@pytest.mark.parametrize("fmt,extra", [
+    ("u64", []), ("u64", ["--wire", "d24v", "--feed-workers", "3"]),
+    ("text", [])])
+def test_trace_block_and_csv_match_jax_cli(tmp_path, capsys, fmt, extra):
+    path = write_trace(tmp_path, fmt)
+    out = str(tmp_path / "mrc.csv")
+    args = ["trace", "--cpu", "--file", path, "--fmt", fmt, "--out", out,
+            *TRACE_GEO]
+    jax_cli.main(args + extra)
+    want, want_csv = capsys.readouterr().out, open(out).read()
+    os.unlink(out)
+    assert cli.main(args + extra) == 0
+    got = capsys.readouterr().out
+    assert got.startswith("TORCH CPU TRACE: ")
+    assert body(got) == body(want)
+    assert body(got)[-1].startswith("9000 refs over ")
+    assert open(out).read() == want_csv
+
+
+def test_trace_journal_checkpoints_and_retires(tmp_path, capsys):
+    path = write_trace(tmp_path, "u64")
+    ckpt = str(tmp_path / "j.npz")
+    assert cli.main(["trace", "--cpu", "--file", path, "--journal", ckpt,
+                     "--resume", "--out", str(tmp_path / "m.csv"),
+                     *TRACE_GEO]) == 0
+    captured = capsys.readouterr()
+    assert f"trace checkpoint at {ckpt} (resume on)" in captured.err
+    assert "refs/s" in captured.err
+    assert not os.path.exists(ckpt)   # the finished run retired it
+
+
+def test_trace_without_file_stops(capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["trace", "--cpu"])
+    assert e.value.code == 2
+    assert "requires --file" in capsys.readouterr().err
+
+
+def test_trace_module_entry_runs_with_jax_and_pluss_blocked(tmp_path,
+                                                            capsys):
+    path = write_trace(tmp_path, "u64")
+    out = str(tmp_path / "mrc.csv")
+    argv = ["pluss_torch.cli", "trace", "--cpu", "--file", path, "--out",
+            out, *TRACE_GEO]
+    code = ("import runpy, sys; sys.modules['jax'] = None; "
+            "sys.modules['pluss'] = None; "
+            f"sys.argv = {argv!r}; "
+            "runpy.run_module('pluss_torch.cli', run_name='__main__')")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    got_csv = open(out).read()
+    jax_cli.main(["trace", "--cpu", "--file", path, "--out", out,
+                  *TRACE_GEO])
+    assert body(run.stdout) == body(capsys.readouterr().out)
+    assert got_csv == open(out).read()

@@ -201,4 +201,8 @@ def test_port_imports_no_jax_and_no_pluss():
                 if top in ("jax", "jaxlib", "pluss"):
                     bad.append(f"{os.path.relpath(path, REPO)}: {name}")
     assert not bad, bad
-    assert len(list(_port_sources())) > 10
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert len(scanned) > 10
+    assert {"pluss_torch/trace.py", "pluss_torch/tracegen.py",
+            "pluss_torch/errors.py", "pluss_torch/ops/wirecodec.py",
+            "pluss_torch/ops/decode.py"} <= scanned
