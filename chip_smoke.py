@@ -18,12 +18,15 @@ so the script exits non-zero and prints no result line.  Phases:
    kernel, plain and ``torch.sort`` times beside the bound;
 3. masked_hist: the masked event histogram kernel vs its plain version on
    one 2^24-entry trace batch of random events, int32 and int64 reuse,
-   ``include_cold`` both ways, bit for bit; times beside the bound;
+   ``include_cold`` both ways, bit for bit; wrapper times (CUDA events),
+   the kernel's device time (``torch.profiler``) and the plain version's
+   beside the bound;
 4. d24v_decode: the wire decode kernel vs its plain version and the
    original ids on a 2^24-id stream mixing raw blocks of widths 1-6, delta
-   blocks of widths 0-5, descending runs and raw resets of delta chains;
-   then vs its plain version on random width maps and payloads (delta
-   blocks of every width 0-7, block sums that wrap 32 bits);
+   blocks of widths 0-5, descending runs and raw resets of delta chains,
+   timed as in phase 3; then vs its plain version on random width maps and
+   payloads (delta blocks of every width 0-7, block sums that wrap 32
+   bits);
 5. gemm128: the analytical goldens, exact (template path);
 6. gemm1024: the north star (template path, 4,297,064,448 refs);
 7. mvt4000: template + sort windows, through the kernel in every window;
@@ -37,7 +40,11 @@ so the script exits non-zero and prints no result line.  Phases:
    batches of 2^24), held against an independent golden (a replay of the
    hot/warm part alone plus the sweeps' hand-worked histogram), a rerun
    with the plain versions forced, the ``pack`` wire, a checkpoint/resume
-   split, and (on a 2^24-ref prefix) the CPU;
+   split, and (on a 2^24-ref prefix) the CPU; kernels 2 and 3 are also
+   held against their plain versions and timed on the inputs the replay
+   fed them for one real batch of each part (part A: raw 6-nibble d24v
+   blocks; part B: mostly 1-nibble delta blocks), captured in the part-A
+   golden replay and in the resumed leg;
 10. trace_cli: ``python -m pluss_torch.cli trace`` on the card, in process;
 11. the kernels line, the card's name and power limit, and the result line.
 
@@ -97,6 +104,36 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, prefix: str) -> tuple:
+    """Per-call device milliseconds of ``fn()`` over ``reps`` calls after
+    one warm-up, by ``torch.profiler``: the kernels whose symbol contains
+    ``prefix`` (summed over a call's passes, as ``pluss_torch.profile``
+    reads ``port_kernels``), and every device operation of the calls
+    (kernels, memsets, copies).  The profiler now and then hands back no
+    device events for a window: that window is profiled again, up to
+    three times, and then both times are None (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ours = every = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                every += e.self_device_time_total
+                if prefix in e.key:
+                    ours += e.self_device_time_total
+        if ours > 0:
+            return ours / reps / 1e3, every / reps / 1e3
+    return None, None
 
 
 def random_windows(T: int, n_real: int, n_lines: int, span: int, seed: int):
@@ -196,6 +233,85 @@ def random_wire(n_blocks: int, seed: int):
     return (torch.from_numpy(payload).cuda(), torch.from_numpy(wm).cuda())
 
 
+class FirstCall:
+    """Replay kernels that run the real kernel wrappers and keep a copy of
+    the inputs of each one's first call: one real batch's events and its
+    d24v wire, as the main path feeds them."""
+
+    def __init__(self):
+        self.events = None
+        self.wire = None
+
+    def histogram(self, reuse, is_evt, share, cold, include_cold=True):
+        from pluss_torch.ops.event_hist import masked_histogram
+
+        if self.events is None:
+            self.events = tuple(t.clone() for t in (reuse, is_evt, share,
+                                                     cold))
+        return masked_histogram(reuse, is_evt, share, cold, include_cold)
+
+    def decode(self, payload, wm):
+        from pluss_torch.ops.decode import decode_d24v
+
+        if self.wire is None:
+            self.wire = (payload.clone(), wm.clone())
+        return decode_d24v(payload, wm)
+
+    def kernels(self):
+        from pluss_torch.trace import TraceKernels
+
+        return TraceKernels(self.histogram, self.decode)
+
+
+def time_trace_batch(cap: FirstCall) -> tuple[dict, dict]:
+    """Kernels 2 and 3 on one captured trace batch, each against its plain
+    version bit for bit and timed beside its bytes bound."""
+    import numpy as np
+    import torch
+
+    from pluss_torch.config import NBINS
+    from pluss_torch.ops import wirecodec
+    from pluss_torch.ops.decode import decode_d24v
+    from pluss_torch.ops.event_hist import (masked_histogram,
+                                            masked_histogram_plain)
+
+    ev = cap.events
+    got, want = masked_histogram(*ev), masked_histogram_plain(*ev)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "masked_hist != plain (trace batch)")
+    n = ev[0].numel()
+    ms = cuda_ms(lambda: masked_histogram(*ev), 20)
+    dev_ms, all_ms = device_ms(lambda: masked_histogram(*ev), 20,
+                               "masked_hist")
+    mh = {"n": n, "reuse_dtype": str(ev[0].dtype).removeprefix("torch."),
+          "events": int(want[1:].sum()), "cold": int(want[0]),
+          "nonzero_bins": int((want > 0).sum()),
+          "max_abs_err": int((got - want).abs().max()),
+          "ms": ms, "device_ms": dev_ms, "device_all_ms": all_ms,
+          "plain_ms": cuda_ms(lambda: masked_histogram_plain(*ev), 3),
+          "bound_ms": (n * (ev[0].element_size() + 3) + NBINS * 8)
+          / HBM_BYTES_PER_S * 1e3}
+    payload, wm = cap.wire
+    got = decode_d24v(payload, wm)
+    want = wirecodec.decode_d24v_plain(payload, wm)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "d24v_decode != plain (trace batch)")
+    wm_np = wm.cpu().numpy()
+    kinds, counts = np.unique(wm_np, return_counts=True)
+    ms = cuda_ms(lambda: decode_d24v(payload, wm), 20)
+    dev_ms, all_ms = device_ms(lambda: decode_d24v(payload, wm), 20, "d24v_")
+    dec = {"blocks": int(wm.numel()),
+           "wm_kinds": dict(zip(map(int, kinds), map(int, counts))),
+           "payload_bytes": int(payload.numel()),
+           "max_abs_err": int((got.long() - want.long()).abs().max()),
+           "ms": ms, "device_ms": dev_ms, "device_all_ms": all_ms,
+           "plain_ms": cuda_ms(
+               lambda: wirecodec.decode_d24v_plain(payload, wm), 3),
+           "bound_ms": (wirecodec.used_bytes(wm_np) + wm.numel()
+                        + 4 * got.numel()) / HBM_BYTES_PER_S * 1e3}
+    return mh, dec
+
+
 def counted(fn):
     """Run ``fn()`` with every kernel's launch count set to 0 just before
     it; return its result and the counts read just after it."""
@@ -266,8 +382,11 @@ def main() -> int:
         check(torch.equal(got, want), f"kernel != plain ({pdt})")
         check(int(want.sum()) > 0, "random windows produced no events")
         pos_bytes = 4 if pdt == torch.int32 else 8
+        ms = cuda_ms(lambda: event_histogram(*args), 20)
         kern.update({
-            f"ms{tag}": cuda_ms(lambda: event_histogram(*args), 20),
+            f"ms{tag}": ms,
+            f"device_ms{tag}": device_ms(lambda: event_histogram(*args), 20,
+                                         "carried_event_hist")[0],
             f"plain_ms{tag}": cuda_ms(lambda: event_histogram_plain(*args), 3),
             f"bound_ms{tag}": (T * L * (4 + pos_bytes + 4 + 1)
                                + T * 49 * 8) / HBM_BYTES_PER_S * 1e3,
@@ -292,8 +411,12 @@ def main() -> int:
                   f"masked_hist != plain ({ev[0].dtype}, cold={cold_on})")
             check(int(want[1:].sum()) > 0 and (int(want[0]) > 0) == cold_on,
                   "random events missed the bins")
+        ms = cuda_ms(lambda: masked_histogram(*ev), 20)
+        dev_ms, all_ms = device_ms(lambda: masked_histogram(*ev), 20,
+                                   "masked_hist")
         mh.update({
-            f"ms{tag}": cuda_ms(lambda: masked_histogram(*ev), 20),
+            f"ms{tag}": ms, f"device_ms{tag}": dev_ms,
+            f"device_all_ms{tag}": all_ms,
             f"plain_ms{tag}": cuda_ms(lambda: masked_histogram_plain(*ev), 3),
             f"bound_ms{tag}": (n * (ev[0].element_size() + 3) + NBINS * 8)
             / HBM_BYTES_PER_S * 1e3,
@@ -321,6 +444,8 @@ def main() -> int:
            "wm_kinds": kinds.tolist(),
            "payload_bytes": int(payload.numel()),
            "ms": cuda_ms(lambda: decode_d24v(payload, wm), 20),
+           **dict(zip(("device_ms", "device_all_ms"), device_ms(
+               lambda: decode_d24v(payload, wm), 20, "d24v_"))),
            "plain_ms": cuda_ms(
                lambda: wirecodec.decode_d24v_plain(payload, wm), 3),
            "bound_ms": (wirecodec.used_bytes(wm_np) + wm.numel() + 4 * n)
@@ -432,7 +557,7 @@ def main() -> int:
     # 9-10. the trace replay's main path, on a 2^28-ref trace ---------------
     tmp = tempfile.mkdtemp(prefix="pluss_torch_smoke_")
     try:
-        trace_phases(tmp, by_path)
+        batches = trace_phases(tmp, by_path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -442,12 +567,17 @@ def main() -> int:
 
     def row(name, source, replaces, m, err):
         lb = launches_of(name)
+        per_batch = {part: b[name] for part, b in batches.items()
+                     if name in b}
+        err = max([err] + [b["max_abs_err"] for b in per_batch.values()])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(lb.values()),
                 "launches_by_path": lb, "match": True, "max_abs_err": err,
-                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "ms": m["ms"], "device_ms": m["device_ms"],
+                "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": "bytes",
-                "library_ms": None}
+                "library_ms": None,
+                **({"trace_batch": per_batch} if per_batch else {})}
 
     emit({"kernels": [
         row("carried_event_hist", "pluss_torch/csrc/event_hist.cu",
@@ -463,8 +593,10 @@ def main() -> int:
     return 0
 
 
-def trace_phases(tmp: str, by_path: dict):
-    """Phases 9 and 10: the streamed replay on the card, and its CLI."""
+def trace_phases(tmp: str, by_path: dict) -> dict:
+    """Phases 9 and 10: the streamed replay on the card, and its CLI.
+    Returns kernels 2 and 3's measurements on one real batch of each part
+    of the trace."""
     import numpy as np
     import torch
 
@@ -496,7 +628,11 @@ def trace_phases(tmp: str, by_path: dict):
               and other.n_lines == rep.n_lines, f"trace: {what}")
 
     # an independent golden: part A alone + part B worked out by hand
-    part_a = trace.replay_file(path, limit_refs=layout["part_a_refs"])
+    # part A's first batch (raw d24v blocks) and, in the resumed leg below,
+    # part B's first (delta blocks) are captured as the main path feeds them
+    cap_a, cap_b = FirstCall(), FirstCall()
+    part_a = trace.replay_file(path, limit_refs=layout["part_a_refs"],
+                               _kernels=cap_a.kernels())
     check(np.array_equal(rep.hist, part_a.hist + layout["part_b_hist"]),
           "trace != part A replay + part B's hand-worked histogram")
     t1 = time.perf_counter()
@@ -530,8 +666,15 @@ def trace_phases(tmp: str, by_path: dict):
         trace._extent_reader = reader
     with np.load(ckpt) as z:
         check(int(z["b_next"]) == 8, "checkpoint not at batch 8")
-    same(trace.replay_file(path, checkpoint_path=ckpt, resume=True),
+    same(trace.replay_file(path, checkpoint_path=ckpt, resume=True,
+                           _kernels=cap_b.kernels()),
          "checkpoint/resume split")
+    batches = {}
+    for part, cap in (("part_a", cap_a), ("part_b", cap_b)):
+        mh, dec = time_trace_batch(cap)
+        batches[part] = {"masked_hist": mh, "d24v_decode": dec}
+    del cap_a, cap_b
+    emit({"phase": "trace_batch", **batches, "ok": True})
 
     prefix = trace.replay_file(path, limit_refs=batch)
     t1 = time.perf_counter()
@@ -573,6 +716,7 @@ def trace_phases(tmp: str, by_path: dict):
           f"cli trace block / launches {counts}")
     emit({"phase": "trace_cli", "lines": len(lines), "launches": counts,
           "ok": True})
+    return batches
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
-// Shared-memory, warp-aggregated [NBINS] histogram epilogue of the event
-// kernels (event_hist.cu, masked_hist.cu).
+// The histogram slot rule of the event kernels (event_hist.cu,
+// masked_hist.cu), and the carried-event kernel's shared-memory,
+// warp-aggregated [NBINS] histogram epilogue (masked_hist.cu has its own,
+// with privatised per-thread bins).
 //
 // Each block keeps its own shared-memory bins.  Lanes of a warp that land
 // in the same bin elect one leader (__match_any_sync), which adds the

@@ -13,6 +13,7 @@ several sources at once, one ``nvcc`` each, all started together.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -79,7 +80,7 @@ def build(*names: str) -> dict[str, dict]:
                 continue
             out[name] = {"seconds": seconds,
                          "ptxas": [ln for ln in proc.stdout.splitlines()
-                                   if "ptxas info" in ln]}
+                                   if "ptxas info" in ln or "spill" in ln]}
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return out
@@ -91,3 +92,14 @@ def load(name: str) -> ctypes.CDLL:
     needed."""
     build(name)
     return ctypes.CDLL(library_path(name))
+
+
+def launch_context(dev):
+    """The context a kernel launch on CUDA device ``dev`` runs in: ``dev``
+    made the current device, or nothing to do when it already is (the
+    common case, which then costs no device switch)."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

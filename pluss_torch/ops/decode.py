@@ -13,6 +13,7 @@ or launch raises — nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,7 +46,7 @@ def decode_d24v(payload: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take :func:`decode_d24v_plain`; CUDA tensors launch the
     kernel on the current stream, counted in ``decode_d24v.launches`` (one
-    per call: the kernel runs as four dependent passes).
+    per call: one kernel after one memset of its scratch).
     """
     _check(payload, wm)
     if payload.device.type == "cpu":
@@ -59,29 +60,52 @@ def decode_d24v(payload: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
 decode_d24v.launches = 0
 
 
+#: wire blocks per tile of the CUDA decode: one CTA, one warp per block
+TILE_BLOCKS = 8
+
+#: most wire blocks per call: block start words stay below 2^32
+MAX_BLOCKS = 1 << 22
+
+
+def tiles(nb: int) -> int:
+    """Tiles (CTAs) of the decode of ``nb`` wire blocks."""
+    return -(-nb // TILE_BLOCKS)
+
+
+def scratch_bytes(nb: int) -> int:
+    """Bytes of the decode's look-back scratch: the tile counter (16 B),
+    then a start-word flag and a carry flag (8 B each) per tile."""
+    return 16 + 16 * tiles(nb)
+
+
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("d24v_decode")
     fn = lib.pluss_d24v_decode
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def _launch(payload, wm):
-    """Launch the CUDA decode (four passes on the current stream) and
-    count it."""
+    """Launch the CUDA decode (one memset of the scratch, one kernel, on
+    the current stream) and count it."""
     if payload.data_ptr() % 4:
         raise ValueError("payload must start on a 4-byte boundary")
-    fn = _library().pluss_d24v_decode
     nb = wm.numel()
+    if nb > MAX_BLOCKS:
+        raise ValueError(f"{nb} wire blocks in one call; the decode takes "
+                         f"at most {MAX_BLOCKS}")
+    fn = _library().pluss_d24v_decode
     out = torch.empty(nb * BLOCK, dtype=torch.int32, device=payload.device)
-    scratch = torch.empty(3 * nb, dtype=torch.int32, device=payload.device)
-    with torch.cuda.device(payload.device):
+    scratch = torch.empty(scratch_bytes(nb), dtype=torch.uint8,
+                          device=payload.device)
+    with build.launch_context(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(payload.data_ptr(), payload.numel() // 4, wm.data_ptr(), nb,
-                 out.data_ptr(), scratch.data_ptr(), stream)
+                 out.data_ptr(), scratch.data_ptr(), scratch.numel(), stream)
     if err:
         raise RuntimeError(f"d24v_decode launch failed: CUDA error {err}")
     decode_d24v.launches += 1

@@ -21,6 +21,7 @@ nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -164,11 +165,49 @@ def masked_histogram(reuse, is_evt, share, cold, include_cold: bool = True):
 masked_histogram.launches = 0
 
 
+#: entries each thread of the masked-histogram kernel takes per step
+RUN = 16
+
+#: ``vec`` bits of :func:`masked_vector_plan`: the arrays the kernel reads
+#: with 16-byte vector loads after the head
+VEC_EVT, VEC_SHARE, VEC_COLD, VEC_REUSE = 1, 2, 4, 8
+
+
+def masked_vector_plan(addrs, reuse_size: int, n: int) -> tuple[int, int]:
+    """``(head, vec)`` of the masked-histogram kernel for the device
+    addresses ``addrs = (reuse, is_evt, share, cold)`` of an ``n``-entry
+    stream with ``reuse_size``-byte reuses.
+
+    The kernel bins ``head`` (< :data:`RUN`) entries one at a time, then
+    runs of :data:`RUN` entries from entry ``head`` on, reading each array
+    whose bit is set in ``vec`` with 16-byte vector loads (the others with
+    scalar loads), then a tail of fewer than :data:`RUN` entries one at a
+    time.  The head is the one that puts the most bytes per entry on
+    16-byte boundaries (the smallest such head on a tie); views that start
+    on the same 16-byte phase, as fresh allocations do, all align at once.
+    """
+    if not any(a % 16 for a in addrs):
+        return 0, VEC_REUSE | VEC_EVT | VEC_SHARE | VEC_COLD
+    sizes = (reuse_size, 1, 1, 1)
+    bits = (VEC_REUSE, VEC_EVT, VEC_SHARE, VEC_COLD)
+    best = (-1, 0, 0)
+    for h in range(min(RUN, n + 1)):
+        ok = [(a + h * sz) % 16 == 0 for a, sz in zip(addrs, sizes)]
+        score = sum(sz for sz, o in zip(sizes, ok) if o)
+        vec = sum(b for b, o in zip(bits, ok) if o)
+        if score > best[0]:
+            best = (score, h, vec)
+    return best[1], best[2]
+
+
+@functools.cache
 def _masked_library() -> ctypes.CDLL:
     lib = build.load("masked_hist")
     for fn in (lib.pluss_masked_hist_i32, lib.pluss_masked_hist_i64):
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
                                                ctypes.c_longlong,
+                                               ctypes.c_longlong,
+                                               ctypes.c_int,
                                                ctypes.c_void_p,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -176,16 +215,22 @@ def _masked_library() -> ctypes.CDLL:
 
 
 def _launch_masked(reuse, is_evt, share, cold, include_cold):
-    """Launch the CUDA kernel (one launch for the whole stream) and count
-    it."""
+    """Launch the CUDA kernel (one launch for the whole stream, after one
+    memset of the output) and count it."""
+    if reuse.data_ptr() % reuse.element_size():
+        raise ValueError("reuse must start on an element boundary")
     lib = _masked_library()
     fn = lib.pluss_masked_hist_i32 if reuse.dtype == torch.int32 \
         else lib.pluss_masked_hist_i64
-    out = torch.zeros(NBINS, dtype=torch.int64, device=reuse.device)
-    with torch.cuda.device(reuse.device):
+    n = reuse.numel()
+    head, vec = masked_vector_plan(
+        (reuse.data_ptr(), is_evt.data_ptr(), share.data_ptr(),
+         cold.data_ptr()), reuse.element_size(), n)
+    out = torch.empty(NBINS, dtype=torch.int64, device=reuse.device)
+    with build.launch_context(reuse.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(reuse.data_ptr(), is_evt.data_ptr(), share.data_ptr(),
-                 cold.data_ptr(), int(bool(include_cold)), reuse.numel(),
+                 cold.data_ptr(), int(bool(include_cold)), n, head, vec,
                  out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"masked_hist launch failed: CUDA error {err}")

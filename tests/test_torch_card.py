@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from pluss_torch import trace
+from pluss_torch.config import NBINS
+from pluss_torch.ops import decode as decode_mod
 from pluss_torch.ops import wirecodec
 from pluss_torch.ops.decode import decode_d24v
 from pluss_torch.ops.event_hist import (event_histogram,
@@ -136,3 +138,204 @@ def test_replay_on_the_card_matches_the_cpu(tmp_path, cuda_device, wire):
     np.testing.assert_array_equal(card.hist, cpu.hist)
     assert (card.total_count, card.n_lines) == (cpu.total_count,
                                                 cpu.n_lines)
+
+
+# ---------------------------------------------------------------- kernel 2
+# edge cases of the redesigned masked histogram: runs of 16 with a scalar
+# head and tail, 16-byte vector loads where a view allows them,
+# privatised per-thread bins
+
+
+def _masked_matches(dev, reuse, is_evt, share, cold):
+    """Kernel on ``dev`` == plain version on the CPU, both ways of
+    ``include_cold``."""
+    for include_cold in (True, False):
+        got = masked_histogram(reuse.to(dev), is_evt.to(dev), share.to(dev),
+                               cold.to(dev), include_cold=include_cold)
+        want = masked_histogram_plain(reuse, is_evt, share, cold,
+                                      include_cold=include_cold)
+        assert torch.equal(got.cpu(), want), (include_cold, got, want)
+
+
+@pytest.mark.parametrize("n,wide", [
+    *((n, w) for n in (1, 15, 16, 17, 4095) for w in (False, True)),
+    ((1 << 24) + 7, False)])
+def test_masked_hist_ragged_lengths(cuda_device, n, wide):
+    _masked_matches(cuda_device, *random_events(10 + n % 97, n, wide))
+
+
+@pytest.mark.parametrize("offsets", [
+    (1, 1, 1, 1), (5, 5, 5, 1), (15, 15, 15, 3), (0, 0, 0, 1),
+    (1, 2, 3, 2), (7, 0, 13, 3), (0, 9, 0, 0), (3, 3, 11, 1)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_masked_hist_misaligned_views(cuda_device, offsets, wide):
+    """Contiguous views that start 1-15 bytes into a mask and one or more
+    elements (4-24 bytes) into the reuse, co-aligned or not."""
+    oe, os_, oc, orr = offsets
+    n = 10_007
+    reuse, is_evt, share, cold = random_events(4, n + 16, wide)
+    views = (reuse.to(cuda_device)[orr:orr + n],
+             is_evt.to(cuda_device)[oe:oe + n],
+             share.to(cuda_device)[os_:os_ + n],
+             cold.to(cuda_device)[oc:oc + n])
+    for include_cold in (True, False):
+        got = masked_histogram(*views, include_cold=include_cold)
+        want = masked_histogram_plain(*(v.cpu() for v in views),
+                                      include_cold=include_cold)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_masked_hist_one_bin(cuda_device, wide):
+    """Every entry in one bin: per-thread and per-block counts pass 2^16."""
+    n = (1 << 22) + 3
+    dt = torch.int64 if wide else torch.int32
+    reuse = torch.full((n,), 5, dtype=dt)
+    ones = torch.ones(n, dtype=torch.bool)
+    zeros = torch.zeros(n, dtype=torch.bool)
+    _masked_matches(cuda_device, reuse, ones, zeros, zeros)
+    _masked_matches(cuda_device, reuse, zeros, zeros, ones)   # all cold
+    got = masked_histogram(reuse.to(cuda_device), ones.to(cuda_device),
+                           zeros.to(cuda_device), zeros.to(cuda_device))
+    assert int(got[3]) == n
+
+
+def test_masked_hist_int64_bins_past_nbins(cuda_device):
+    """int64 reuses whose bins reach NBINS and beyond weigh nothing."""
+    rng = np.random.default_rng(5)
+    n = 70_001
+    e = rng.integers(40, 63, n)
+    reuse = torch.from_numpy((np.int64(1) << e) + rng.integers(0, 9, n))
+    is_evt = torch.from_numpy(rng.random(n) < 0.9)
+    share = torch.from_numpy(rng.random(n) < 0.1)
+    cold = torch.from_numpy(rng.random(n) < 0.5) & ~is_evt
+    _masked_matches(cuda_device, reuse, is_evt, share, cold)
+    got = masked_histogram(reuse.to(cuda_device), is_evt.to(cuda_device),
+                           share.to(cuda_device), cold.to(cuda_device))
+    assert got.shape == (NBINS,)
+    assert int(got.sum()) < int((is_evt & ~share | cold).sum())
+
+
+# ---------------------------------------------------------------- kernel 3
+# edge cases of the single-pass decode: tiles of TILE_BLOCKS wire blocks,
+# decoupled look-back over the tiles, one write
+
+
+def _random_wire(rng, nb, raw_share=0.3, widths=(0, 8)):
+    k = rng.integers(widths[0], widths[1], nb)
+    wm = (k | np.where(rng.random(nb) < raw_share, wirecodec.RAW_MODE, 0)) \
+        .astype(np.uint8)
+    payload = rng.integers(0, 256, wirecodec.pad_len(
+        wirecodec.used_bytes(wm)), dtype=np.uint8)
+    return payload, wm
+
+
+def _decode_matches(dev, payload, wm):
+    p = torch.as_tensor(payload).to(dev)
+    w = torch.as_tensor(wm).to(dev)
+    got = decode_d24v(p, w)
+    assert torch.equal(got, wirecodec.decode_d24v_plain(p, w))
+    return got
+
+
+T = decode_mod.TILE_BLOCKS
+
+
+@pytest.mark.parametrize("nb", [1, T - 1, T, T + 1, 16_384 + 5])
+def test_decode_tile_edges(cuda_device, nb):
+    rng = np.random.default_rng(nb)
+    _decode_matches(cuda_device, *_random_wire(rng, nb))
+    # an encoder stream: short steps (delta blocks) and noise (raw blocks)
+    n = nb * wirecodec.BLOCK - 11
+    ids = np.cumsum(rng.integers(0, 3, n)) % (1 << 24)
+    noise = (np.arange(n) // wirecodec.BLOCK) % 3 == 1
+    ids = np.where(noise, rng.integers(0, 1 << 24, n), ids).astype(np.int32)
+    got = _decode_matches(cuda_device, *wirecodec.encode_d24v(ids))
+    assert torch.equal(got[:n].cpu(), torch.from_numpy(ids))
+
+
+def test_decode_all_raw(cuda_device):
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, 1 << 24, 77 * wirecodec.BLOCK).astype(np.int32)
+    payload, wm = wirecodec.encode_d24v(ids)
+    assert (wm & wirecodec.RAW_MODE).all()
+    got = _decode_matches(cuda_device, payload, wm)
+    assert torch.equal(got.cpu(), torch.from_numpy(ids))
+
+
+def test_decode_one_delta_chain_that_wraps(cuda_device):
+    """No raw block at all: one delta chain through every tile boundary,
+    7-nibble zigzag deltas whose sums wrap 2^32 many times."""
+    rng = np.random.default_rng(7)
+    payload, wm = _random_wire(rng, 40 * T + 3, raw_share=0.0, widths=(7, 8))
+    got = _decode_matches(cuda_device, payload, wm)
+    sums = got.view(-1, wirecodec.BLOCK)[:, -1].cpu().numpy()
+    assert len(set(sums.tolist())) > 1
+
+
+def test_decode_zero_width_delta_blocks(cuda_device):
+    """Zero-width delta blocks repeat the chain's last id; zero-width raw
+    blocks are all 0."""
+    rng = np.random.default_rng(8)
+    nb = 5 * T + 2
+    wm = np.zeros(nb, np.uint8)
+    wm[::7] = 3
+    wm[3::11] = wirecodec.RAW_MODE | 4
+    wm[5::13] = wirecodec.RAW_MODE
+    payload = rng.integers(0, 256, wirecodec.pad_len(
+        wirecodec.used_bytes(wm)), dtype=np.uint8)
+    _decode_matches(cuda_device, payload, wm)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_decode_random_wire_widths(cuda_device, seed):
+    """``chip_smoke.random_wire``'s shape: widths 0-7, raw or delta."""
+    rng = np.random.default_rng(100 + seed)
+    _decode_matches(cuda_device, *_random_wire(rng, 3 * T * 37 + seed))
+
+
+def test_decode_twice_on_one_scratch(cuda_device):
+    """Two decodes in a row on one scratch, the first over a scratch full
+    of stale flags: the entry point's memset resets the look-back state."""
+    rng = np.random.default_rng(9)
+    nb = 20 * T + 1
+    fn = decode_mod._library().pluss_d24v_decode
+    scratch = torch.full((decode_mod.scratch_bytes(nb),), 0xFF,
+                         dtype=torch.uint8, device=cuda_device)
+    for _ in range(2):
+        payload, wm = (torch.from_numpy(a).to(cuda_device)
+                       for a in _random_wire(rng, nb))
+        out = torch.empty(nb * wirecodec.BLOCK, dtype=torch.int32,
+                          device=cuda_device)
+        err = fn(payload.data_ptr(), payload.numel() // 4, wm.data_ptr(), nb,
+                 out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        assert torch.equal(out, wirecodec.decode_d24v_plain(payload, wm))
+
+
+def test_decode_payload_not_16_byte_aligned(cuda_device):
+    """A payload view 4 bytes into its buffer takes the scalar staging."""
+    rng = np.random.default_rng(11)
+    payload, wm = _random_wire(rng, 3 * T + 5)
+    buf = torch.zeros(payload.shape[0] + 4, dtype=torch.uint8)
+    buf[4:] = torch.from_numpy(payload)
+    p = buf.to(cuda_device)[4:]
+    assert p.data_ptr() % 16
+    w = torch.from_numpy(wm).to(cuda_device)
+    assert torch.equal(decode_d24v(p, w), wirecodec.decode_d24v_plain(p, w))
+
+
+def test_decode_refuses_short_scratch(cuda_device):
+    rng = np.random.default_rng(12)
+    nb = 3 * T
+    payload, wm = (torch.from_numpy(a).to(cuda_device)
+                   for a in _random_wire(rng, nb))
+    fn = decode_mod._library().pluss_d24v_decode
+    scratch = torch.zeros(decode_mod.scratch_bytes(nb) - 16,
+                          dtype=torch.uint8, device=cuda_device)
+    out = torch.empty(nb * wirecodec.BLOCK, dtype=torch.int32,
+                      device=cuda_device)
+    assert fn(payload.data_ptr(), payload.numel() // 4, wm.data_ptr(), nb,
+              out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+              torch.cuda.current_stream().cuda_stream) != 0

@@ -176,3 +176,77 @@ def test_empty_stream_is_refused_before_any_launch(monkeypatch):
         with pytest.raises(ValueError, match="empty event stream"):
             masked_histogram(*args)
     assert masked_histogram.launches == before
+
+
+# ------------------------------------------------ the kernel's alignment plan
+
+def _csrc_constant(name: str) -> int:
+    """An integer constant of pluss_torch/csrc/masked_hist.cu."""
+    import re
+    from pluss_torch.ops import build
+
+    src = open(f"{build.CSRC}/masked_hist.cu").read()
+    return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+
+def test_vector_plan_constants_match_the_kernel():
+    assert event_hist.RUN == _csrc_constant("kRun")
+    for bit, name in ((event_hist.VEC_EVT, "kVecEvt"),
+                      (event_hist.VEC_SHARE, "kVecShare"),
+                      (event_hist.VEC_COLD, "kVecCold"),
+                      (event_hist.VEC_REUSE, "kVecReuse")):
+        assert bit == _csrc_constant(name)
+
+
+ALL_VEC = (event_hist.VEC_REUSE | event_hist.VEC_EVT | event_hist.VEC_SHARE
+           | event_hist.VEC_COLD)
+
+
+@pytest.mark.parametrize("addrs,size,n,want", [
+    # fresh allocations: no head, every array vector-loaded
+    ((4096, 8192, 8448, 8704), 4, 1 << 24, (0, ALL_VEC)),
+    ((4096, 8192, 8448, 8704), 8, 1 << 24, (0, ALL_VEC)),
+    # t[5:] of every array: a head of 11 realigns all four at once
+    ((4096 + 20, 8192 + 5, 8448 + 5, 8704 + 5), 4, 1000, (11, ALL_VEC)),
+    # int64 reuse one element in, masks 15 bytes in: a head of 1
+    ((4096 + 8, 8192 + 15, 8448 + 15, 8704 + 15), 8, 1000, (1, ALL_VEC)),
+    # masks on three phases: the reuse's bytes win, masks go scalar
+    ((4096, 8192 + 1, 8448 + 2, 8704 + 3), 4, 1000,
+     (0, event_hist.VEC_REUSE)),
+    # two masks share a phase the reuse can reach
+    ((4096 + 4, 8192 + 13, 8448 + 13, 8704), 4, 1000,
+     (3, event_hist.VEC_REUSE | event_hist.VEC_EVT | event_hist.VEC_SHARE)),
+    # fewer entries than the head that aligns all four: the head never
+    # passes n (here it aligns the reuse alone)
+    ((4096 + 20, 8192 + 5, 8448 + 5, 8704 + 5), 4, 3,
+     (3, event_hist.VEC_REUSE)),
+])
+def test_vector_plan_cases(addrs, size, n, want):
+    assert event_hist.masked_vector_plan(addrs, size, n) == want
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_vector_plan_is_honoured_and_best(seed):
+    """For random views: every array the plan vector-loads is 16-byte
+    aligned at the head, the head stays below RUN and within n, and no
+    other head puts more bytes per entry on 16-byte boundaries."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        size = int(rng.choice([4, 8]))
+        addrs = (int(rng.integers(0, 1 << 20)) * size,
+                 *(int(a) for a in rng.integers(0, 1 << 20, 3)))
+        n = int(rng.integers(1, 40))
+        head, vec = event_hist.masked_vector_plan(addrs, size, n)
+        assert 0 <= head < event_hist.RUN and head <= n
+        sizes = (size, 1, 1, 1)
+        bits = (event_hist.VEC_REUSE, event_hist.VEC_EVT,
+                event_hist.VEC_SHARE, event_hist.VEC_COLD)
+
+        def aligned(h):
+            return [(a + h * sz) % 16 == 0 for a, sz in zip(addrs, sizes)]
+
+        assert vec == sum(b for b, ok in zip(bits, aligned(head)) if ok)
+        score = sum(sz for sz, ok in zip(sizes, aligned(head)) if ok)
+        for h in range(min(event_hist.RUN, n + 1)):
+            assert sum(sz for sz, ok in zip(sizes, aligned(h)) if ok) \
+                <= score

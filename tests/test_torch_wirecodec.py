@@ -215,3 +215,41 @@ def test_cuda_branch_never_reaches_plain_version(monkeypatch):
                    tw.encode_d24v(PATTERNS["sequential"]))
     with pytest.raises(ValueError, match="no d24v decode kernel"):
         decode_d24v(payload, wm)
+
+
+# ------------------------------------------- the kernel's tiles and scratch
+
+def _csrc_constant(name: str) -> int:
+    """An integer constant of pluss_torch/csrc/d24v_decode.cu."""
+    import re
+    from pluss_torch.ops import build
+
+    src = open(f"{build.CSRC}/d24v_decode.cu").read()
+    return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+
+def test_tile_geometry_matches_the_kernel():
+    assert decode_mod.TILE_BLOCKS == _csrc_constant("kTileBlocks")
+    assert decode_mod.scratch_bytes(1) - 16 == 16   # two flags per tile
+    assert _csrc_constant("kScratchHead") == 16
+
+
+@pytest.mark.parametrize("nb,tiles", [
+    (1, 1), (7, 1), (8, 1), (9, 2), (16, 2), (16_384, 2048),
+    (16_384 + 5, 2049), (decode_mod.MAX_BLOCKS, decode_mod.MAX_BLOCKS // 8)])
+def test_tiles_and_scratch_bytes(nb, tiles):
+    assert decode_mod.tiles(nb) == tiles
+    assert decode_mod.scratch_bytes(nb) == 16 + 16 * tiles
+    assert decode_mod.scratch_bytes(nb) % 16 == 0
+
+
+def test_launch_refuses_more_blocks_than_the_kernel_takes():
+    """Past MAX_BLOCKS block start words would leave 32 bits: the launcher
+    raises before it builds or launches anything."""
+    before = decode_mod.decode_d24v.launches
+    payload = torch.empty(64, dtype=torch.uint8, device="meta")
+    wm = torch.empty(decode_mod.MAX_BLOCKS + 1, dtype=torch.uint8,
+                     device="meta")
+    with pytest.raises(ValueError, match="at most"):
+        decode_mod._launch(payload, wm)
+    assert decode_mod.decode_d24v.launches == before
