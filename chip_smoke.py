@@ -13,9 +13,11 @@ so the script exits non-zero and prints no result line.  Phases:
 1. build: compile the three kernels from ``pluss_torch/csrc`` with one
    ``nvcc`` each, all at once; report each one's seconds and ptxas lines;
 2. kernel: the carried-event histogram kernel vs its plain version on
-   random ghost-merged sorted windows at the main path's shape
-   (mvt-4000's sort window, T=4), int32 and int64 positions, bit for bit;
-   kernel, plain and ``torch.sort`` times beside the bound;
+   random ghost-merged sorted windows at the main paths' shapes
+   (mvt-4000's sort window, T=4, int32 and int64 positions; cholesky-
+   2000's largest window, int64 positions past 2^32), bit for bit; kernel,
+   plain and ``torch.sort`` (at cholesky's shape the window's two-pass
+   stable ``sort_stream``) times beside the bound;
 3. masked_hist: the masked event histogram kernel vs its plain version on
    one 2^24-entry trace batch of random events, int32 and int64 reuse,
    ``include_cold`` both ways, bit for bit; wrapper times (CUDA events),
@@ -33,8 +35,18 @@ so the script exits non-zero and prints no result line.  Phases:
    then again with the plain version in place of the kernel (an argument
    of the engine's internals), which must agree exactly; then a small mvt
    with ragged windows, card vs CPU, exactly;
-8. cli: ``python -m pluss_torch.cli acc`` on the card, in process;
-9. trace: a 2^28-ref trace (``pluss_torch.tracegen.smoke_trace``: 2^27
+8. cholesky2000: PolyBench LARGE cholesky (quad nest, 5,339,333,000
+   refs, int64 positions, 125 sort windows in 4 size buckets, kernel 1
+   in every one); then again with the plain version in place of the
+   kernel (at n=1000 when the script's time would not allow n=2000);
+9. trmm1000: varying starts, int32 positions, a sort in each of its 63
+   windows;
+10. syrk_tri1000: every array on the row-private / sweep-group closed
+    forms: no sort and no kernel launch;
+11. families: every one of the 29 registry families at n=16, on the card
+    and on the CPU, exactly;
+12. cli: ``python -m pluss_torch.cli acc`` on the card, in process;
+13. trace: a 2^28-ref trace (``pluss_torch.tracegen.smoke_trace``: 2^27
    hot/warm refs, then 8 sequential sweeps over a second memory region)
    replayed with ``replay_file``'s defaults (d24v wire, feed pool; 16
    batches of 2^24), held against an independent golden (a replay of the
@@ -45,15 +57,17 @@ so the script exits non-zero and prints no result line.  Phases:
    fed them for one real batch of each part (part A: raw 6-nibble d24v
    blocks; part B: mostly 1-nibble delta blocks), captured in the part-A
    golden replay and in the resumed leg;
-10. trace_cli: ``python -m pluss_torch.cli trace`` on the card, in process;
-11. the kernels line, the card's name and power limit, and the result line.
+14. trace_cli: ``python -m pluss_torch.cli trace`` on the card, in process;
+15. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
-(phases 5-7 and 9-10's first replay) and read just after it: the event
-kernel must launch once per sort-path window of the plan (0 for GEMM,
-every window for mvt-4000); the masked histogram and the decode once per
-trace batch.  The comparison launches of phases 2-4 and the cross-checks
-of phases 7 and 9 are not counted.  Exits non-zero, printing no result,
+(phases 5-11 and 13-14's first replay) and read just after it: the event
+kernel must launch once per plan window that sorts something (0 for GEMM
+and syrk_tri, every window for mvt-4000, cholesky and trmm); the masked
+histogram and the decode once per trace batch.  Every sampler run must
+conserve its accesses (cold + no-share events + share events = refs).
+The comparison launches of phases 2-4 and the cross-checks of phases 7, 8
+and 13 are not counted.  Exits non-zero, printing no result,
 when there is no CUDA device or when run outside the repository.
 """
 
@@ -136,15 +150,16 @@ def device_ms(fn, reps: int, prefix: str) -> tuple:
     return None, None
 
 
-def random_windows(T: int, n_real: int, n_lines: int, span: int, seed: int):
-    """Ghost-merged, sorted ``[T, n_real + n_lines]`` windows shaped like a
-    main-path sort window: ``n_real`` accesses per row at distinct positions
-    from ``win_start`` on, over ``n_lines`` lines; one ghost per line (a
-    third never touched, pos -1; the rest carried from before the window);
-    a third of the accesses carry a share span; a few are invalid."""
+def random_unsorted(T: int, n_real: int, n_lines: int, span: int,
+                    seed: int, pos64: bool = False):
+    """Unsorted ``(line, pos, span, valid)`` rows shaped like a main-path
+    sort window, and ``win_start [T]``: ``n_real`` accesses per row at
+    distinct positions from ``win_start`` on, over ``n_lines`` lines; one
+    ghost per line (a third never touched, pos -1; the rest carried from
+    before the window); a third of the accesses carry a share span; a few
+    are invalid.  ``pos64``: int64 positions shifted past 2^32, as a
+    stream with more than 2^31 accesses per thread has them."""
     import torch
-
-    from pluss_torch.ops.reuse import sort_stream
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     win_start = 1 << 26
@@ -159,11 +174,49 @@ def random_windows(T: int, n_real: int, n_lines: int, span: int, seed: int):
     gpos = torch.where(torch.rand((T, n_lines), **kw) < 1 / 3, -1, gpos)
     gline = torch.arange(n_lines, dtype=torch.int32,
                          device="cuda").expand(T, n_lines)
-    return sort_stream(
-        torch.cat([line, gline], 1), torch.cat([pos, gpos], 1),
-        torch.cat([spn, torch.zeros_like(gpos)], 1),
-        torch.cat([valid, torch.ones_like(gline, dtype=torch.bool)], 1)), \
-        torch.full((T,), win_start, dtype=torch.int32, device="cuda")
+    pos = torch.cat([pos, gpos], 1)
+    ws = torch.full((T,), win_start, dtype=torch.int32, device="cuda")
+    if pos64:
+        pos = torch.where(pos >= 0, pos.to(torch.int64) + (1 << 32), -1)
+        ws = ws.to(torch.int64) + (1 << 32)
+    return (torch.cat([line, gline], 1), pos,
+            torch.cat([spn, torch.zeros_like(gpos)], 1),
+            torch.cat([valid, torch.ones_like(gline, dtype=torch.bool)], 1)), ws
+
+
+def random_windows(T: int, n_real: int, n_lines: int, span: int, seed: int,
+                   pos64: bool = False):
+    """:func:`random_unsorted`'s rows ghost-merged and sorted by (line,
+    pos), as ``engine._sort_window`` hands them to the kernel."""
+    from pluss_torch.ops.reuse import sort_stream
+
+    rows, ws = random_unsorted(T, n_real, n_lines, span, seed, pos64)
+    return sort_stream(*rows), ws
+
+
+def kernel1_times(args, pos_bytes: int, tag: str = "") -> dict:
+    """Kernel 1 against its plain version on sorted windows ``args``, bit
+    for bit, timed beside its bytes bound."""
+    import torch
+
+    from pluss_torch.ops.event_hist import (event_histogram,
+                                            event_histogram_plain)
+
+    got = event_histogram(*args)
+    want = event_histogram_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"kernel != plain ({args[1].dtype}{tag})")
+    check(int(want.sum()) > 0, "random windows produced no events")
+    T, L = args[0].shape
+    return {
+        f"ms{tag}": cuda_ms(lambda: event_histogram(*args), 20),
+        f"device_ms{tag}": device_ms(lambda: event_histogram(*args), 20,
+                                     "carried_event_hist")[0],
+        f"plain_ms{tag}": cuda_ms(lambda: event_histogram_plain(*args), 3),
+        f"bound_ms{tag}": (T * L * (4 + pos_bytes + 4 + 1) + T * 49 * 8)
+        / HBM_BYTES_PER_S * 1e3,
+        f"err{tag}": int((got - want).abs().max()),
+    }
 
 
 def random_events(n: int, reuse_bits: int, seed: int):
@@ -337,15 +390,17 @@ def main() -> int:
     from pluss_torch import cli, cri, engine, mrc
     from pluss_torch.config import NBINS, SamplerConfig
     from pluss_torch.io import acc_block, merge_share
-    from pluss_torch.models import gemm, mvt
+    from pluss_torch.models import (REGISTRY, cholesky, gemm, mvt,
+                                    syrk_triangular, trmm)
     from pluss_torch.ops import build, wirecodec
     from pluss_torch.ops.decode import decode_d24v
-    from pluss_torch.ops.event_hist import (event_histogram,
-                                            event_histogram_plain,
+    from pluss_torch.ops.event_hist import (event_histogram_plain,
                                             masked_histogram,
                                             masked_histogram_plain)
+    from pluss_torch.ops.reuse import sort_stream
     from pluss_torch.spec import share_span_formula
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda")
@@ -360,7 +415,7 @@ def main() -> int:
     emit({"phase": "build", "kernels": built,
           "seconds": time.perf_counter() - t0, "ok": True})
 
-    # 2. kernel vs plain at the main path's shape ----------------------------
+    # 2. kernel vs plain at the main paths' shapes --------------------------
     # nest 0's ragged window sorts every ref of the nest plus one ghost per
     # line of the arrays they touch
     spec = mvt(4000)
@@ -371,29 +426,33 @@ def main() -> int:
         cfg.thread_num, n_real, n_lines, share_span_formula(4000), seed=0)
     T, L = key_s.shape
     kern = {"T": T, "L": L}
-    max_err = 0
     for tag, pdt in (("", torch.int32), ("_int64", torch.int64)):
-        args = (key_s, pos_s.to(pdt), span_s, valid_s, ws.to(pdt))
-        got = event_histogram(*args)
-        want = event_histogram_plain(*args)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        max_err = max(max_err, err)
-        check(torch.equal(got, want), f"kernel != plain ({pdt})")
-        check(int(want.sum()) > 0, "random windows produced no events")
-        pos_bytes = 4 if pdt == torch.int32 else 8
-        ms = cuda_ms(lambda: event_histogram(*args), 20)
-        kern.update({
-            f"ms{tag}": ms,
-            f"device_ms{tag}": device_ms(lambda: event_histogram(*args), 20,
-                                         "carried_event_hist")[0],
-            f"plain_ms{tag}": cuda_ms(lambda: event_histogram_plain(*args), 3),
-            f"bound_ms{tag}": (T * L * (4 + pos_bytes + 4 + 1)
-                               + T * 49 * 8) / HBM_BYTES_PER_S * 1e3,
-        })
+        kern.update(kernel1_times(
+            (key_s, pos_s.to(pdt), span_s, valid_s, ws.to(pdt)),
+            4 if pdt == torch.int32 else 8, tag))
     packed = key_s.to(torch.int64) << 32
     kern["sort_ms"] = cuda_ms(lambda: torch.sort(packed, dim=1), 5)
     del key_s, pos_s, span_s, valid_s, packed
+    # cholesky-2000's largest window (its last size bucket), int64
+    # positions; the window's two-pass stable sort timed on its unsorted
+    # rows
+    spec = cholesky(2000)
+    c0 = engine.plan(spec, cfg).nests[0]
+    brefs = c0.tri_buckets[-1][1]
+    n_real = c0.window_rounds * cfg.chunk_size * sum(
+        int(np.prod(fr.trips[1:])) for fr in brefs)
+    n_lines = sum(c for _, c in engine._array_ranges(c0.refs, spec, cfg))
+    rows, ws = random_unsorted(cfg.thread_num, n_real, n_lines,
+                               share_span_formula(2000), seed=4, pos64=True)
+    chol = {"T": cfg.thread_num, "L": rows[0].shape[1]}
+    chol["sort_ms"] = cuda_ms(lambda: sort_stream(*rows), 3)
+    srt = sort_stream(*rows)
+    del rows
+    chol.update(kernel1_times((*srt, ws), 8, "_int64"))
+    del srt
+    max_err = max(kern.pop("err"), kern.pop("err_int64"),
+                  chol.pop("err_int64"))
+    kern["cholesky2000_window"] = chol
     emit({"phase": "kernel", **kern, "max_abs_err": max_err, "ok": True})
 
     # 3. masked event histogram vs plain at one trace batch (2^24) ----------
@@ -460,18 +519,33 @@ def main() -> int:
     emit({"phase": "d24v_decode", **dec, "random_wire_match": True,
           "max_abs_err": dec_err, "ok": True})
 
-    # 5-7. the sampler's main path, each run with the counts read around it
+    # 5-11. the sampler's main path, each run with the counts read around it
     def sort_windows(pl) -> int:
         """Sort-path windows of a plan, one kernel launch each: every
-        window without the template, and the template windows of a nest
-        whose template-ineligible arrays still sort."""
+        window off the template path that has refs left to sort (a bounded
+        nest whose arrays are all closed-form sorts nothing), and the
+        template windows of a nest whose template-ineligible arrays still
+        sort."""
         n = 0
         for np_ in pl.nests:
             ultra = np_.ultra_windows()
-            n += int((~ultra).sum()) + (int(ultra.sum()) if np_.var_refs else 0)
+            n += int((~ultra).sum()) * bool(np_.refs) \
+                + int(ultra.sum()) * bool(np_.var_refs)
         return n
 
+    def conserved(res) -> bool:
+        """Every access is one cold miss, one no-share event or one share
+        event."""
+        return int(res.noshare_dense.sum()) + sum(
+            sum(d.values()) for d in res.share_raw) \
+            == res.max_iteration_count
+
     def acc_run(spec, label):
+        # the plan alone first, cold: the run re-plans, with only the quad
+        # nests' size tables memoized
+        t3 = time.perf_counter()
+        pl = engine.plan(spec, cfg)
+        plan_s = time.perf_counter() - t3
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res, counts = counted(lambda: engine.run(spec, cfg))
@@ -490,18 +564,22 @@ def main() -> int:
         check(bool((curve[1:] <= curve[:-1]).all()),
               f"{label}: MRC increases")
         check(bool(np.isfinite(curve).all()), f"{label}: MRC not finite")
-        t3 = time.perf_counter()
-        pl = engine.plan(spec, cfg)
-        plan_s = time.perf_counter() - t3
+        check(conserved(res), f"{label}: accesses not conserved")
         want = sort_windows(pl)
         check(launches == want, f"{label}: {launches} event-kernel launches, "
               f"the plan has {want} sort windows")
+        n_lines = spec.total_lines(cfg)
+        est = max(engine.sort_window_bytes(np_, cfg, pl.pos_dtype, n_lines)
+                  for np_ in pl.nests) * cfg.thread_num
         return res, pl, {
             "engine_s": t1 - t0, "plan_s": plan_s, "cri_mrc_s": t2 - t1,
             "refs": res.max_iteration_count,
             "refs_per_s": res.max_iteration_count / (t1 - t0),
+            "pos_dtype": str(pl.pos_dtype),
             "mrc_len": len(curve), "event_kernel_launches": launches,
-            "sort_windows": want, "peak_device_gib": peak / 2**30}
+            "sort_windows": want, "conserved": True,
+            "peak_device_gib": peak / 2**30,
+            "est_sort_gib": est / 2**30}
 
     res128, _, m128 = acc_run(gemm(128), "gemm128")
     check(res128.max_iteration_count == 8421376, "gemm128 refs")
@@ -541,7 +619,71 @@ def main() -> int:
     emit({"phase": "mvt4000", **mm, "path": "template+sort",
           "plain_match": True, "small_card_vs_cpu": True, "ok": True})
 
-    # 8. the CLI entry point on the card ------------------------------------
+    # 8. cholesky-2000: quad nest, int64 positions, kernel 1 every window
+    resc, plc, mc = acc_run(cholesky(2000), "cholesky2000")
+    check(resc.max_iteration_count == 5_339_333_000, "cholesky2000 refs")
+    check(plc.pos_dtype == np.int64, "cholesky2000 positions not int64")
+    check(mc["event_kernel_launches"] == plc.nests[0].n_windows == 125,
+          "cholesky2000 did not launch the event kernel in each of its "
+          "125 windows")
+    # the plain-version cross-check at full size when the script's time
+    # allows it, else at n=1000 (its own kernel run beside it)
+    n_x = 2000 if time.perf_counter() - t_start + 1.5 * mc["engine_s"] < 450 \
+        else 1000
+    plx = plc if n_x == 2000 else engine.plan(cholesky(n_x), cfg)
+    kern_run = resc if n_x == 2000 else engine._execute(plx, dev)
+    t0 = time.perf_counter()
+    plain = engine._execute(plx, dev, event_hist=event_histogram_plain)
+    mc.update({"plain_n": n_x, "plain_engine_s": time.perf_counter() - t0})
+    check(bool((plain.noshare_dense == kern_run.noshare_dense).all())
+          and plain.share_raw == kern_run.share_raw
+          and plain.max_iteration_count == kern_run.max_iteration_count,
+          f"cholesky{n_x}: kernel run != plain-version run")
+    del plain, kern_run, resc
+    emit({"phase": "cholesky2000", **mc, "path": "sort (quad, buckets)",
+          "plain_match": True, "ok": True})
+
+    # 9. trmm-1000: varying starts, int32 positions, a sort in every window
+    rest, plt, mt = acc_run(trmm(1000), "trmm1000")
+    check(rest.max_iteration_count == 2_000_000_000, "trmm1000 refs")
+    check(plt.pos_dtype == np.int32, "trmm1000 positions not int32")
+    check(mt["event_kernel_launches"] == 63, "trmm1000: not 63 launches")
+    emit({"phase": "trmm1000", **mt, "path": "sort (buckets)", "ok": True})
+
+    # 10. syrk_tri-1000: every array closed-form, no sort, no launch
+    ress, pls, ms = acc_run(syrk_triangular(1000), "syrk_tri1000")
+    check(ress.max_iteration_count == 2_003_001_000, "syrk_tri1000 refs")
+    check(not pls.nests[0].refs and pls.nests[0].rpg_hist is not None
+          and ms["event_kernel_launches"] == 0,
+          "syrk_tri1000 left the closed-form path")
+    emit({"phase": "syrk_tri1000", **ms, "path": "closed_form", "ok": True})
+
+    # 11. every registry family at n=16: the card against the CPU ---------
+    def families():
+        out = {}
+        for name in sorted(REGISTRY):
+            sp = REGISTRY[name](16)
+            on_card = engine.run(sp, cfg)
+            on_cpu = engine.run(sp, cfg, device="cpu")
+            check(bool((on_card.noshare_dense == on_cpu.noshare_dense).all())
+                  and on_card.share_raw == on_cpu.share_raw
+                  and on_card.max_iteration_count
+                  == on_cpu.max_iteration_count and conserved(on_card),
+                  f"{name}16: card != CPU")
+            out[name] = sort_windows(engine.plan(sp, cfg))
+        return out
+
+    t0 = time.perf_counter()
+    fam, counts = counted(families)
+    by_path["families16"] = counts
+    check(counts["carried_event_hist"] == sum(fam.values()),
+          f"families: {counts['carried_event_hist']} launches, "
+          f"{sum(fam.values())} sort windows")
+    emit({"phase": "families", "n": 16, "models": len(fam),
+          "seconds": time.perf_counter() - t0, "sort_windows": fam,
+          "launches": counts, "card_vs_cpu": True, "ok": True})
+
+    # 12. the CLI entry point on the card ------------------------------------
     buf = io.StringIO()
     stdout, sys.stdout = sys.stdout, buf
     try:
@@ -554,18 +696,18 @@ def main() -> int:
           "cli acc block")
     emit({"phase": "cli", "lines": len(lines), "ok": True})
 
-    # 9-10. the trace replay's main path, on a 2^28-ref trace ---------------
+    # 13-14. the trace replay's main path, on a 2^28-ref trace -------------
     tmp = tempfile.mkdtemp(prefix="pluss_torch_smoke_")
     try:
         batches = trace_phases(tmp, by_path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 11. kernels line, card, result -----------------------------------------
+    # 15. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
-    def row(name, source, replaces, m, err):
+    def row(name, source, replaces, m, err, **extra):
         lb = launches_of(name)
         per_batch = {part: b[name] for part, b in batches.items()
                      if name in b}
@@ -576,12 +718,13 @@ def main() -> int:
                 "ms": m["ms"], "device_ms": m["device_ms"],
                 "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": "bytes",
-                "library_ms": None,
+                "library_ms": None, **extra,
                 **({"trace_batch": per_batch} if per_batch else {})}
 
     emit({"kernels": [
         row("carried_event_hist", "pluss_torch/csrc/event_hist.cu",
-            "pluss/ops/pallas_events.py:208", kern, max_err),
+            "pluss/ops/pallas_events.py:208", kern, max_err,
+            cholesky2000_window=kern["cholesky2000_window"]),
         row("masked_hist", "pluss_torch/csrc/masked_hist.cu",
             "pluss/ops/pallas_events.py:263", mh, mh_err),
         row("d24v_decode", "pluss_torch/csrc/d24v_decode.cu",
@@ -594,7 +737,7 @@ def main() -> int:
 
 
 def trace_phases(tmp: str, by_path: dict) -> dict:
-    """Phases 9 and 10: the streamed replay on the card, and its CLI.
+    """Phases 13 and 14: the streamed replay on the card, and its CLI.
     Returns kernels 2 and 3's measurements on one real batch of each part
     of the trace."""
     import numpy as np

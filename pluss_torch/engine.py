@@ -1,10 +1,13 @@
 """The sampler engine: affine stream enumeration + sort-based reuse, in torch.
 
-Counterpart of ``pluss/engine.py`` for rectangular nests.  Every occurrence
-of every static reference is materialized by broadcast arithmetic straight
-from the :class:`~pluss_torch.spec.FlatRef` affine forms:
+Counterpart of ``pluss/engine.py``.  Every occurrence of every static
+reference is materialized by broadcast arithmetic straight from the
+:class:`~pluss_torch.spec.FlatRef` closed forms:
 
 - stream position  ``pos  = nest_base + rank*stride0 + sum(idx_l*stride_l) + offset``
+  for rectangular nests; bounded (triangular) nests take the iteration's
+  start clock from a per-thread clock table and add the ``*_k`` slopes
+  and the quad contract's ``tri()`` terms;
 - element address  ``addr = base + sum(coef_l * iv_l)`` -> cache line ``addr*DS//CLS``
 
 The stream is processed in round windows, in a Python loop that carries a
@@ -25,10 +28,16 @@ Each window takes one of two paths:
   covered line sort by (line, pos); the hand-written carried-event kernel
   (:mod:`pluss_torch.ops.event_hist`) bins the events, and the tails update
   the carried table.  Arrays that break the template's shift invariance take
-  this path inside ultra windows too.
+  this path inside ultra windows too.  Bounded nests sort every window,
+  in size buckets whose bounded levels are padded only to the bucket's
+  own maximum; their row-private and sweep-group arrays
+  (:mod:`pluss_torch.rowpriv`, :mod:`pluss_torch.sweepgroup`) leave the
+  sort for a plan-time histogram table, one row added per window.
 
-The host plan is numpy; :func:`run` places the device part on CUDA unless the
-caller asks for the CPU.
+The chunk->thread map is data (the owned-chunk matrix): static
+round-robin, an explicit (dynamic FIFO) assignment, or the
+``setStartPoint`` resume.  The host plan is numpy; :func:`run` places the
+device part on CUDA unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pluss_torch import rowpriv, sweepgroup
 from pluss_torch.config import DEFAULT, NBINS, SamplerConfig
 from pluss_torch.ops.event_hist import event_histogram
 from pluss_torch.ops.reuse import (
@@ -57,7 +67,11 @@ from pluss_torch.spec import (
     FlatRef,
     LoopNestSpec,
     flatten_nest,
+    nest_has_bounds,
+    nest_has_varying_start,
+    nest_is_quad,
     nest_iteration_size,
+    slot_sizes,
 )
 
 #: default accesses per window (per simulated thread)
@@ -66,6 +80,10 @@ WINDOW_TARGET = 1 << 23
 #: largest window the plan-time template analysis will host-lexsort; bigger
 #: windows take the device sort path
 MAX_TEMPLATE_WINDOW = 1 << 29
+
+#: sort-window memory budget when the run is on the CPU (the JAX package's
+#: default); on a CUDA card the budget is the card's free memory
+CPU_SORT_BUDGET = 8 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +127,21 @@ class NestPlan:
     #: refs of template-INELIGIBLE arrays: they run the sort path in every
     #: window, alongside the template.  Equal to ``refs`` without a template.
     var_refs: tuple[FlatRef, ...] = ()
+    #: bounded nests only: [T, NW*W*CS] exclusive running access count at
+    #: each stream slot (the thread's clock when the slot's parallel
+    #: iteration starts); None for rectangular nests (clock = rank*body)
+    clock: np.ndarray | None = None
+    #: bounded nests only: contiguous window buckets, each ``(window ids,
+    #: per-bucket FlatRefs)`` with the bounded levels' static trips cut to
+    #: the bucket's own parallel-index range; None = one segment
+    tri_buckets: tuple | None = None
+    #: bounded nests only: [T, NW, NBINS] event histograms of the nest's
+    #: closed-form arrays (row-private groups + sweep groups), which are
+    #: left out of ``refs``; each window adds its row
+    rpg_hist: np.ndarray | None = None
+    #: per-thread {raw share reuse: count} of the sweep groups, added at
+    #: finalize
+    static_share: tuple | None = None
 
     def ultra_windows(self) -> np.ndarray:
         """[NW] bool: windows on the static-template path (clean for EVERY
@@ -131,14 +164,37 @@ class StreamPlan:
     pos_dtype: np.dtype               # stream-position dtype (int32 | int64)
 
 
-def _owned_matrix(sched: ChunkSchedule, T: int) -> np.ndarray:
-    """[T, R] global chunk ids each thread serves under the static
-    round-robin schedule (chunk ``cid`` -> thread ``cid % T``), -1 padded.
-    Rows ascend, so the only partial chunk (the globally last) ends its
-    owner's stream and the closed-form clock ``rank*body`` stays gapless."""
-    R = max(-(-sched.n_chunks // T), 1)
-    cid = np.arange(R * T, dtype=np.int64).reshape(R, T).T
-    return np.where(cid < sched.n_chunks, cid, -1).astype(np.int32)
+def _owned_matrix(sched: ChunkSchedule, T: int,
+                  assignment: tuple[int, ...] | None = None,
+                  start_point: int | None = None) -> np.ndarray:
+    """[T, R] global chunk ids each thread serves, -1 padded.
+
+    Encodes static round-robin (chunk ``cid`` -> thread ``cid % T``), an
+    explicit (dynamic-FIFO) ``assignment``, and the ``setStartPoint``
+    resume: every thread skips ``static_chunk_id(start_point)`` full
+    rounds (pluss_utils.h:443-472).  Rows ascend, so the only partial
+    chunk (the globally last) ends its owner's stream and the closed-form
+    clock ``rank*body`` stays gapless.
+    """
+    if assignment is None:
+        assignment = tuple(c % T for c in range(sched.n_chunks))
+    elif len(assignment) != sched.n_chunks:
+        raise ValueError(f"assignment covers {len(assignment)} chunks, "
+                         f"schedule has {sched.n_chunks}")
+    skip = 0 if start_point is None \
+        else sched.static_chunk_id(start_point) * T
+    per_thread: list[list[int]] = [[] for _ in range(T)]
+    for cid, tid in enumerate(assignment):
+        if cid < skip:
+            continue
+        if not 0 <= tid < T:
+            raise ValueError(f"assignment[{cid}]={tid} out of range")
+        per_thread[tid].append(cid)
+    R = max((len(l) for l in per_thread), default=0)
+    out = np.full((T, max(R, 1)), -1, np.int32)
+    for t, lst in enumerate(per_thread):
+        out[t, :len(lst)] = lst
+    return out
 
 
 def _np_ref_window(fr: FlatRef, np_rounds: int, cfg: SamplerConfig, sched,
@@ -250,55 +306,192 @@ def _build_template(refs, W, cfg, sched, owned, clean, bases, array_index,
     )
 
 
-def _nest_geometry(spec: LoopNestSpec, cfg: SamplerConfig, target: int):
-    """Per nest ``(sched, refs, body, owned, W, NW)``: schedule, owned-chunk
-    matrix and the window split at ``target`` accesses per window.  Windows
-    never split a chunk round."""
+def _tri_buckets(refs, owned: np.ndarray, sched, cfg: SamplerConfig,
+                 W: int, NW: int, nseg: int = 4):
+    """Contiguous window buckets with per-bucket static trips for bounded
+    levels, or None when bucketing buys nothing.
+
+    A bounded level's effective trip is ``a + b*g``; the enumeration pads
+    every window to the level's static maximum and masks, so early windows
+    of a growing triangle would sort mostly padding.  Each bucket's shapes
+    are sized to its own parallel-index range instead (~5/8 of the volume
+    at 4 buckets).
+    """
+    nseg = max(1, min(nseg, NW))
+    if nseg == 1:
+        return None
+    CS = cfg.chunk_size
+    blocks = owned.reshape(owned.shape[0], NW, W).astype(np.int64)
+    valid = blocks >= 0
+    if not valid.any():
+        return None
+    gmax_w = np.where(valid, blocks * CS + CS - 1, -1).max(axis=(0, 2))
+    gmax_w = np.minimum(gmax_w, sched.trip - 1)
+    gmin_w = np.where(valid, blocks * CS,
+                      np.iinfo(np.int64).max).min(axis=(0, 2))
+    edges = np.linspace(0, NW, nseg + 1).astype(int)
+    out = []
+    for i in range(nseg):
+        ws = tuple(range(edges[i], edges[i + 1]))
+        if not ws:
+            continue
+        g_lo = int(gmin_w[list(ws)].min())
+        g_hi = int(gmax_w[list(ws)].max())
+        brefs = []
+        for fr in refs:
+            trips = list(fr.trips)
+            for l, bd in enumerate(fr.bounds or ()):
+                if bd is None:
+                    continue
+                a, b = bd
+                eff = max(a + b * g_lo, a + b * g_hi, 0)
+                trips[l] = int(max(1, min(fr.trips[l], eff)))
+            # quad contract: an inner-bounded level clamps transitively
+            # (cholesky's k < j, with j already clamped to the bucket)
+            for lv, a, b, rl in fr.inner_bounds or ():
+                eff = max(a, a + b * (trips[rl] - 1), 0)
+                trips[lv] = int(max(1, min(trips[lv], eff)))
+            brefs.append(dataclasses.replace(fr, trips=tuple(trips)))
+        out.append((ws, tuple(brefs)))
+    # a degenerate split (every bucket at the global maximum) buys nothing
+    if all(br.trips == fr.trips
+           for _, brs in out for br, fr in zip(brs, refs)):
+        return None
+    return tuple(out)
+
+
+def _nest_geometry(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
+                   start_point, target: int):
+    """Per nest ``(sched, refs, body, asg, owned, W, NW)``: schedule,
+    owned-chunk matrix and the window split at ``target`` accesses per
+    window.  Windows never split a chunk round.  ``start_point`` applies
+    to the first nest."""
     T = cfg.thread_num
     out = []
-    for nest in spec.nests:
+    for ni, nest in enumerate(spec.nests):
         sched = ChunkSchedule(cfg.chunk_size, nest.trip, nest.start,
-                              nest.step)
+                              nest.step, T)
         refs = tuple(flatten_nest(nest))
         body = nest_iteration_size(nest)
-        owned = _owned_matrix(sched, T)
+        asg = assignment[ni] if assignment is not None else None
+        owned = _owned_matrix(sched, T, asg,
+                              start_point if ni == 0 else None)
         R = owned.shape[1]
         W = max(1, min(R, -(-target // (cfg.chunk_size * body))))
-        out.append((sched, refs, body, owned, W, -(-R // W)))
+        out.append((sched, refs, body, asg, owned, W, -(-R // W)))
     return out
 
 
+def sort_window_bytes(np_: NestPlan, cfg: SamplerConfig, pos_dtype,
+                      n_lines: int, refs=None) -> int:
+    """Estimated device bytes to sort ONE window of ``refs`` (default: the
+    nest's full sort-path ref set) for one thread: the sorted operands
+    (key, pos, span, valid) plus ghost entries, x4 for sort workspace.
+    Bounded levels count at their static maximum, the size the
+    enumeration's shapes really take."""
+    refs = np_.refs if refs is None else refs
+    entries = np_.window_rounds * cfg.chunk_size * sum(
+        int(np.prod(fr.trips[1:], dtype=np.int64)) for fr in refs) + n_lines
+    return entries * (9 + np.dtype(pos_dtype).itemsize) * 4
+
+
+def sort_budget(device: torch.device) -> int:
+    """Device bytes the sort windows may take: the card's free memory on
+    CUDA, :data:`CPU_SORT_BUDGET` on the CPU."""
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0])
+    return CPU_SORT_BUDGET
+
+
+def check_sort_budget(nests, spec: LoopNestSpec, cfg: SamplerConfig,
+                      pos_dtype, limit: int) -> None:
+    """Fail loudly, before any window runs, when the sort windows of the
+    ``T`` threads (processed together, one batch row each) cannot fit in
+    ``limit`` bytes — instead of a CUDA out-of-memory error in the middle
+    of a run.  Windows never split a chunk round, so a huge body on a
+    templateless (ragged, custom-assigned or bounded) nest needs a finer
+    chunk size."""
+    conc = cfg.thread_num
+    n_lines = spec.total_lines(cfg)
+    for ni, np_ in enumerate(nests):
+        ultra = np_.ultra_windows()
+        streams = []
+        if not ultra.all():
+            streams.append(("sort", np_.refs, "a finer chunk size or a "
+                            "smaller window_accesses"))
+        if np_.var_refs and ultra.any():
+            streams.append(("ultra window's sort-path part", np_.var_refs,
+                            "a finer chunk size"))
+        for label, refs_, remedy in streams:
+            est = sort_window_bytes(np_, cfg, pos_dtype, n_lines,
+                                    refs_) * conc
+            if est > limit:
+                raise RuntimeError(
+                    f"nest {ni}: the {label} window stream needs "
+                    f"~{est / 2**30:.2f} GiB across {conc} concurrent "
+                    f"windows (incl. sort workspace), beyond the "
+                    f"{limit / 2**30:.2f} GiB device budget.  Use {remedy}.")
+
+
 def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
+         assignment: tuple[tuple[int, ...] | None, ...] | None = None,
+         start_point: int | None = None,
          window_accesses: int | None = None) -> StreamPlan:
     """Build the static stream plan (host, numpy).
 
-    ``window_accesses``: accesses per window per thread (default
-    WINDOW_TARGET).  Raises ``NotImplementedError`` for nests outside the
-    rectangular contract (see :func:`pluss_torch.spec.check_rectangular`).
+    ``assignment``: optional per-nest chunk->thread maps (dynamic
+    scheduling); ``start_point``: resume iteration value applied to the
+    first nest; ``window_accesses``: accesses per window per thread
+    (default WINDOW_TARGET).
     """
     T = cfg.thread_num
     geom = []
-    for sched, refs, body, owned, W, NW in _nest_geometry(
-            spec, cfg, window_accesses or WINDOW_TARGET):
+    for sched, refs, body, asg, owned, W, NW in _nest_geometry(
+            spec, cfg, assignment, start_point,
+            window_accesses or WINDOW_TARGET):
         pad = np.full((T, NW * W - owned.shape[1]), -1, np.int32)
-        geom.append((sched, refs, body,
+        geom.append((sched, refs, body, asg,
                      np.concatenate([owned, pad], axis=1), W, NW))
 
     # the padded per-thread clock bound picks the position dtype; the full
     # int32 range is usable because no event math doubles a position
     max_clock = sum(NW * W * cfg.chunk_size * body
-                    for _, _, body, _, W, NW in geom)
+                    for _, _, body, _, _, W, NW in geom)
     pos_dtype = np.dtype(np.int32) if max_clock < 2**31 - 2 \
         else np.dtype(np.int64)
 
     nests: list[NestPlan] = []
     iters = np.zeros((len(spec.nests), T), np.int64)
-    for ni, (sched, refs, body, owned, W, NW) in enumerate(geom):
-        tpl = clean = None
+    acc = np.zeros((len(spec.nests), T), np.int64)
+    for ni, (sched, refs, body, asg, owned, W, NW) in enumerate(geom):
+        nest = spec.nests[ni]
+        tri = nest_has_bounds(nest)
+        tpl = clean = clock = None
         var_refs = refs
-        # oversize windows would make the host template analysis itself the
-        # bottleneck: those nests take the device sort path
-        if W * cfg.chunk_size * body <= MAX_TEMPLATE_WINDOW:
+        if tri:
+            # the body size varies with the parallel index, so positions
+            # need a per-thread clock table: the exclusive running access
+            # count at every (round, chunk-slot) (invalid slots add 0)
+            slot, valid = slot_sizes(nest, owned, sched.trip,
+                                     cfg.chunk_size)
+            body_slot = slot.reshape(T, -1)
+            clock = np.concatenate(
+                [np.zeros((T, 1), np.int64), np.cumsum(body_slot, axis=1)],
+                axis=1)[:, :-1]
+            acc[ni] = body_slot.sum(axis=1)
+            iters[ni] = valid.sum(axis=(1, 2))
+        else:
+            g0 = owned.astype(np.int64) * cfg.chunk_size
+            iters[ni] = np.where(owned >= 0,
+                                 np.clip(sched.trip - g0, 0, cfg.chunk_size),
+                                 0).sum(axis=1)
+            acc[ni] = iters[ni] * body
+        # the template rests on shift invariance, which a custom assignment
+        # (no linear cid progression), a bounded loop or a varying start
+        # breaks; oversize windows would make the host template analysis
+        # itself the bottleneck: all of those take the device sort path
+        if asg is None and not tri and not nest_has_varying_start(nest) \
+                and W * cfg.chunk_size * body <= MAX_TEMPLATE_WINDOW:
             clean = _clean_windows(owned, W, NW, cfg.chunk_size, sched.trip)
             tpl_refs, split_var = _split_ref_groups(refs, sched, cfg)
             if tpl_refs:
@@ -307,13 +500,23 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
                                       body)
                 if tpl is not None:
                     var_refs = split_var
-        nests.append(NestPlan(sched, refs, body, owned, W, NW, tpl, clean,
-                              var_refs))
-        g0 = owned.astype(np.int64) * cfg.chunk_size
-        iters[ni] = np.where(owned >= 0,
-                             np.clip(sched.trip - g0, 0, cfg.chunk_size),
-                             0).sum(axis=1)
-    acc = iters * np.array([n.body for n in nests], np.int64)[:, None]
+        refs_sort, rpg_hist, static_share = refs, None, None
+        if tri and not nest_is_quad(nest):
+            # closed-form arrays leave the sort for host histogram tables
+            # (+ static share); each group is verified against a brute
+            # replay and stays on the sort path on any mismatch
+            refs_sort, rpg_hist = rowpriv.build_rowpriv(
+                spec, ni, refs, cfg, sched, owned, W, NW)
+            refs_sort, swg_hist, static_share = sweepgroup.build_sweepgroup(
+                spec, ni, refs_sort, cfg, sched, owned, W, NW, clock)
+            if swg_hist is not None:
+                rpg_hist = swg_hist if rpg_hist is None \
+                    else rpg_hist + swg_hist
+        nests.append(NestPlan(
+            sched, refs_sort, body, owned, W, NW, tpl, clean, var_refs,
+            clock=clock, rpg_hist=rpg_hist, static_share=static_share,
+            tri_buckets=_tri_buckets(refs_sort, owned, sched, cfg, W, NW)
+            if tri else None))
     nest_base = np.zeros_like(acc)
     nest_base[1:] = np.cumsum(acc[:-1], axis=0)
     return StreamPlan(spec=spec, cfg=cfg, nests=tuple(nests),
@@ -321,18 +524,22 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
                       total_count=int(acc.sum()), pos_dtype=pos_dtype)
 
 
-def _segments_of(np_: NestPlan) -> list[tuple[bool, list[int]]]:
-    """Window segments of one nest in processing order: runs of consecutive
-    windows on the same path, ``(is_ultra, window_ids)``.  A window takes
-    the template path only when it is clean for EVERY thread (the threads
-    run in lockstep as rows of one batch)."""
+def _segments_of(np_: NestPlan) -> list[tuple[bool, list[int], tuple | None]]:
+    """Window segments of one nest in processing order, ``(is_ultra,
+    window_ids, bucket_refs)``: runs of consecutive windows on the same
+    path.  A window takes the template path only when it is clean for
+    EVERY thread (the threads run in lockstep as rows of one batch).
+    Bounded nests split into their size buckets instead (all sort path,
+    per-bucket static trips)."""
+    if np_.tri_buckets is not None:
+        return [(False, list(ws), brefs) for ws, brefs in np_.tri_buckets]
     ultra_w = np_.ultra_windows()
-    segments: list[tuple[bool, list[int]]] = []
+    segments: list[tuple[bool, list[int], tuple | None]] = []
     for w in range(np_.n_windows):
         if segments and segments[-1][0] == bool(ultra_w[w]):
             segments[-1][1].append(w)
         else:
-            segments.append((bool(ultra_w[w]), [w]))
+            segments.append((bool(ultra_w[w]), [w], None))
     return segments
 
 
@@ -346,10 +553,14 @@ def _array_ranges(refs, spec, cfg) -> tuple[tuple[int, int], ...]:
 
 def _ref_window(fr: FlatRef, np_: NestPlan, cfg: SamplerConfig,
                 owned: torch.Tensor, r0: int, nb: torch.Tensor,
-                line_base: int, pdt: torch.dtype):
+                line_base: int, pdt: torch.dtype,
+                clock: torch.Tensor | None = None):
     """``[T, n]`` (line, pos, span, valid) of one ref over rounds
     [r0, r0+W) for every thread; ``owned`` is the nest's [T, NW*W] chunk
-    matrix on the device and ``nb`` the [T] nest clock offsets."""
+    matrix on the device, ``nb`` the [T] nest clock offsets and ``clock``
+    (bounded nests only) the nest's [T, NW*W*CS] clock table.  Positions
+    and addresses are computed in int64; entries outside the bounds (and
+    padded chunks) may hold any value there, and are masked invalid."""
     CS = cfg.chunk_size
     W = np_.window_rounds
     sched = np_.sched
@@ -366,16 +577,44 @@ def _ref_window(fr: FlatRef, np_: NestPlan, cfg: SamplerConfig,
     cid = owned[:, r0:r0 + W].view((T, W) + (1,) * (nd - 2))
     g = cid * CS + p
     valid = (cid >= 0) & (g < sched.trip)
-    pos = nb.view((T,) + (1,) * (nd - 1)) \
-        + ((r0 + r) * CS + p) * fr.pos_strides[0] + fr.offset
+    pos = nb.view((T,) + (1,) * (nd - 1))
+    if clock is None:
+        pos = pos + ((r0 + r) * CS + p) * fr.pos_strides[0] + fr.offset
+    else:
+        # bounded nest: the iteration's start clock from the table, plus
+        # the in-iteration offset's slope in the parallel index g (and the
+        # quad contract's tri(g) term)
+        start = clock[:, r0 * CS:(r0 + W) * CS].reshape(
+            (T, W, CS) + (1,) * (nd - 3))
+        pos = pos + start + fr.offset + fr.offset_k * g
+        if fr.offset_g2:
+            pos = pos + fr.offset_g2 * torch.div(g * (g - 1), 2,
+                                                 rounding_mode="floor")
     addr = fr.ref.addr_base + fr.addr_coefs[0] * (sched.start + g * sched.step)
     for l in range(1, len(fr.trips)):
         idx = iota(l + 2)
-        pos = pos + idx * fr.pos_strides[l]
+        stride = fr.pos_strides[l]
+        if clock is not None and fr.pos_strides_k[l]:
+            stride = stride + fr.pos_strides_k[l] * g
+        pos = pos + idx * stride
+        if fr.pos_quads and fr.pos_quads[l]:
+            pos = pos + fr.pos_quads[l] * torch.div(idx * (idx - 1), 2,
+                                                    rounding_mode="floor")
+        if fr.bounds and fr.bounds[l] is not None:
+            a, b = fr.bounds[l]
+            valid = valid & (idx < a + b * g)
         if fr.addr_coefs[l]:
-            addr = addr + fr.addr_coefs[l] * (fr.starts[l] + idx * fr.steps[l])
+            start_l = fr.starts[l]
+            if fr.starts_k and fr.starts_k[l]:
+                start_l = start_l + fr.starts_k[l] * g   # varying start
+            addr = addr + fr.addr_coefs[l] * (start_l + idx * fr.steps[l])
+    for lv, a, b, rl in fr.inner_bounds:
+        # quad contract: idx[lv] < a + b*idx[rl], rl an inner level
+        valid = valid & (iota(lv + 2) < a + b * iota(rl + 2))
     line = line_base + torch.div(addr * cfg.ds, cfg.cls, rounding_mode="floor")
-    flat = lambda x, dt: x.expand(shape).reshape(T, -1).to(dt)
+    # cast before broadcasting: the copy the reshape makes is then the
+    # only full-size one, in the final dtype
+    flat = lambda x, dt: x.to(dt).expand(shape).reshape(T, -1)
     return (flat(line, torch.int32), flat(pos, pdt),
             torch.full((T, int(np.prod(shape[1:]))), fr.ref.share_span or 0,
                        dtype=torch.int32, device=dev),
@@ -384,7 +623,8 @@ def _ref_window(fr: FlatRef, np_: NestPlan, cfg: SamplerConfig,
 
 def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
                  nb: torch.Tensor, pdt, last_pos: torch.Tensor,
-                 win_shift: int, hist: torch.Tensor, event_hist):
+                 win_shift: int, hist: torch.Tensor, event_hist,
+                 clock: torch.Tensor | None = None):
     """One sort-path window over ``refs``, ghost-merged with the carry.
 
     The carried ``last_pos`` slices of the covered arrays enter the sort as
@@ -396,12 +636,18 @@ def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
     r0 = w * np_.window_rounds
     bases = spec.line_bases(cfg)
     parts = [_ref_window(fr, np_, cfg, owned, r0, nb,
-                         bases[spec.array_index(fr.ref.array)], pdt)
+                         bases[spec.array_index(fr.ref.array)], pdt, clock)
              for fr in refs]
     parts += [ghost_entries(last_pos[:, b:b + c], b) for b, c in ranges]
     key_s, pos_s, span_s, valid_s = sort_stream(
         *(torch.cat([p[i] for p in parts], dim=1) for i in range(4)))
-    win_start = (nb + w * win_shift).to(pdt)
+    del parts
+    if clock is None:
+        win_start = (nb + w * win_shift).to(pdt)
+    else:
+        # bounded nest: the window's smallest position is the clock at its
+        # first stream slot
+        win_start = (nb + clock[:, r0 * cfg.chunk_size]).to(pdt)
     hist += event_hist(key_s, pos_s, span_s, valid_s, win_start)
     ev = carried_events(key_s, pos_s, span_s, valid_s, win_start)
     tails = extract_tails(key_s, pos_s, valid_s, sum(c for _, c in ranges))
@@ -534,14 +780,23 @@ def resolve_device(device=None) -> torch.device:
 
 
 def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
+        assignment=None, start_point: int | None = None,
         window_accesses: int | None = None) -> SamplerResult:
     """Run the sampler on ``device`` (default: the CUDA card).
 
-    ``window_accesses``: accesses per window per thread (default
-    WINDOW_TARGET).
+    ``assignment``: optional per-nest chunk->thread maps; ``start_point``:
+    resume iteration value of the first nest; ``window_accesses``:
+    accesses per window per thread (default WINDOW_TARGET).  The sort
+    windows must fit the device's budget (:func:`sort_budget`), else this
+    raises before any window runs.
     """
     dev = resolve_device(device)
-    return _execute(plan(spec, cfg, window_accesses), dev)
+    if assignment is not None:
+        assignment = tuple(tuple(a) if a is not None else None
+                           for a in assignment)
+    pl = plan(spec, cfg, assignment, start_point, window_accesses)
+    check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, sort_budget(dev))
+    return _execute(pl, dev)
 
 
 def _execute(pl: StreamPlan, device: torch.device,
@@ -560,17 +815,20 @@ def _execute(pl: StreamPlan, device: torch.device,
     hist = torch.zeros((T, NBINS), dtype=torch.int64, device=device)
     tids = torch.arange(T, dtype=torch.int64, device=device)
     nest_base = torch.as_tensor(pl.nest_base, device=device)   # int64
+    as_dev = lambda a: None if a is None else torch.as_tensor(a, device=device)
     keys: list[torch.Tensor] = []
     cnts: list[torch.Tensor] = []
     for ni, np_ in enumerate(pl.nests):
         owned = torch.as_tensor(np_.owned, device=device).to(torch.int64)
         nb = nest_base[ni]
+        clock = as_dev(np_.clock)
+        rpg = as_dev(np_.rpg_hist)
         win_shift = np_.window_rounds * cfg.chunk_size * np_.body
         all_ranges = _array_ranges(np_.refs, spec, cfg)
         var_ranges = _array_ranges(np_.var_refs, spec, cfg)
         dtpl = None if np_.tpl is None else \
             _DeviceTemplate(np_.tpl, pdt, device)
-        for is_ultra, w_list in _segments_of(np_):
+        for is_ultra, w_list, brefs in _segments_of(np_):
             for w in w_list:
                 cand = []
                 if is_ultra:
@@ -585,20 +843,30 @@ def _execute(pl: StreamPlan, device: torch.device,
                         cand.append((ev["reuse"], ev["share"]))
                     cand.append(_template_window(dtpl, w, tids, nb, pdt,
                                                  last_pos, hist))
-                else:
-                    ev = _sort_window(np_, np_.refs, all_ranges, spec, cfg,
-                                      owned, w, nb, pdt, last_pos,
-                                      win_shift, hist, event_hist)
+                elif np_.refs:
+                    # a window whose arrays are all closed-form sorts
+                    # nothing and launches nothing
+                    ev = _sort_window(np_, brefs or np_.refs, all_ranges,
+                                      spec, cfg, owned, w, nb, pdt, last_pos,
+                                      win_shift, hist, event_hist, clock)
                     cand.append((ev["reuse"], ev["share"]))
-                k, c = share_unique(torch.cat([share_keys(r, s)
-                                               for r, s in cand]))
-                keys.append(k)
-                cnts.append(c)
+                if rpg is not None:
+                    hist += rpg[:, w]
+                if cand:
+                    k, c = share_unique(torch.cat([share_keys(r, s)
+                                                   for r, s in cand]))
+                    keys.append(k)
+                    cnts.append(c)
     share_raw = merge_share_windows(keys, cnts, T)
     # static in-window share events of ultra windows are host-side
     # constants: identical values and counts for every clean window
     add_static_share(share_raw,
                      [(n, int(n.ultra_windows().sum())) for n in pl.nests])
+    # the sweep groups' share events are whole-run host constants too
+    for n_ in pl.nests:
+        for d, adds in zip(share_raw, n_.static_share or ()):
+            for v, c in adds.items():
+                d[v] = d.get(v, 0) + c
     return SamplerResult(noshare_dense=hist.cpu().numpy(),
                          share_raw=share_raw, share_ratio=T - 1,
                          max_iteration_count=pl.total_count)

@@ -1,4 +1,5 @@
-"""PolyBench matrix-vector kernels: atax, mvt, bicg, gesummv.
+"""PolyBench linear-algebra kernels beyond the matmul family: atax, mvt,
+bicg, gesummv, doitgen, jacobi2d, gemver.
 
 Rectangular 2-deep nests in the generated-sampler style: operand loads
 precede the accumulator's load+store pair, and refs whose address does not
@@ -116,4 +117,111 @@ def gesummv(n: int = 128) -> LoopNestSpec:
         name=f"gesummv{n}",
         arrays=(("tmp", n), ("y", n), ("A", n * n), ("B", n * n), ("x", n)),
         nests=(nest,),
+    )
+
+
+def doitgen(n: int = 32) -> LoopNestSpec:
+    """doitgen: ``sum[p] = Σ_s A[r][q][s]*C4[s][p]`` then write-back — a 3-D
+    data array under a 2-deep parallel nest with a private temporary."""
+    span = share_span_formula(n)
+    nest = Loop(trip=n, body=(          # r (parallel)
+        Loop(trip=n, body=(             # q
+            Loop(trip=n, body=(         # p
+                Ref("S0", "sum", addr_terms=((2, 1),)),
+                Ref("S1", "sum", addr_terms=((2, 1),),
+                    is_write=True),
+                Loop(trip=n, body=(     # s
+                    Ref("A0", "A", addr_terms=((0, n * n), (1, n), (3, 1))),
+                    Ref("C0", "C4", addr_terms=((3, n), (2, 1)), share_span=span),
+                    *_accum("sum", ((2, 1),)),
+                )),
+            )),
+            Loop(trip=n, body=(         # p write-back
+                Ref("S4", "sum", addr_terms=((2, 1),)),
+                Ref("A4", "A", addr_terms=((0, n * n), (1, n), (2, 1)),
+                    is_write=True),
+            )),
+        )),
+    ))
+    return LoopNestSpec(
+        name=f"doitgen{n}",
+        arrays=(("sum", n), ("A", n * n * n), ("C4", n * n)),
+        nests=(nest,),
+    )
+
+
+def jacobi2d(n: int = 64, tsteps: int = 2) -> LoopNestSpec:
+    """jacobi2d: ``tsteps`` alternating 5-point sweeps A->B then B->A —
+    the time-stepped multi-nest shape (per-thread LAT state and clocks
+    persist across nests, as across the reference's sequential nests)."""
+    m = n - 2
+    span = share_span_formula(m)
+
+    def sweep(src: str, dst: str, t: int) -> Loop:
+        off = lambda di, dj: (di + 1) * n + (dj + 1)
+        terms = ((0, n), (1, 1))
+        body = [Ref(f"{src}c{t}", src, addr_terms=terms, addr_base=off(0, 0))]
+        for nm, (di, dj) in (("mI", (-1, 0)), ("pI", (1, 0)),
+                             ("mJ", (0, -1)), ("pJ", (0, 1))):
+            body.append(Ref(f"{src}{nm}{t}", src, addr_terms=terms,
+                            addr_base=off(di, dj),
+                            share_span=span if di != 0 else None))
+        # the store hits the SAME n-stride array the next sweep reads: write
+        # dst[i+1][j+1] at its real interior address, not a compacted layout
+        body.append(Ref(f"{dst}o{t}", dst,
+                        addr_terms=((0, n), (1, 1)), addr_base=off(0, 0),
+                        is_write=True))
+        return Loop(trip=m, body=(Loop(trip=m, body=tuple(body)),))
+
+    nests = []
+    for t in range(tsteps):
+        nests.append(sweep("A", "B", t))
+        nests.append(sweep("B", "A", t))
+    return LoopNestSpec(
+        name=f"jacobi2d{n}x{tsteps}",
+        arrays=(("A", n * n), ("B", n * n)),
+        nests=tuple(nests),
+    )
+
+
+def gemver(n: int = 128) -> LoopNestSpec:
+    """gemver: rank-2 update ``A += u1 v1^T + u2 v2^T``, then ``x += beta
+    A^T y``, ``x += z``, ``w += alpha A x`` — four nests over one matrix."""
+    span = share_span_formula(n)
+    rank2 = Loop(trip=n, body=(
+        Loop(trip=n, body=(
+            Ref("A0", "A", addr_terms=((0, n), (1, 1))),
+            Ref("U10", "u1", addr_terms=((0, 1),)),
+            Ref("V10", "v1", addr_terms=((1, 1),), share_span=span),
+            Ref("U20", "u2", addr_terms=((0, 1),)),
+            Ref("V20", "v2", addr_terms=((1, 1),), share_span=span),
+            Ref("A1", "A", addr_terms=((0, n), (1, 1)),
+                is_write=True),
+        )),
+    ))
+    xaty = Loop(trip=n, body=(
+        Loop(trip=n, body=(
+            Ref("A2", "A", addr_terms=((1, n), (0, 1))),
+            Ref("Y0", "y", addr_terms=((1, 1),), share_span=span),
+            Ref("X2", "x", addr_terms=((0, 1),)),
+            Ref("X3", "x", addr_terms=((0, 1),), is_write=True),
+        )),
+    ))
+    xz = Loop(trip=n, body=(
+        Ref("X4", "x", addr_terms=((0, 1),)),
+        Ref("Z0", "z", addr_terms=((0, 1),)),
+        Ref("X5", "x", addr_terms=((0, 1),), is_write=True),
+    ))
+    wax = Loop(trip=n, body=(
+        Loop(trip=n, body=(
+            Ref("A3", "A", addr_terms=((0, n), (1, 1))),
+            Ref("X6", "x", addr_terms=((1, 1),), share_span=span),
+            *_accum("w", ((0, 1),)),
+        )),
+    ))
+    return LoopNestSpec(
+        name=f"gemver{n}",
+        arrays=(("A", n * n), ("u1", n), ("v1", n), ("u2", n), ("v2", n),
+                ("x", n), ("y", n), ("z", n), ("w", n)),
+        nests=(rank2, xaty, xz, wax),
     )

@@ -5,7 +5,8 @@
 
 Prints one JSON object per model: the host plan's seconds, the wall
 seconds of the device part (``engine._execute``, which ends in the copy of
-the result to the host), the device busy seconds (the sum of every kernel,
+the result to the host) and its refs/s and peak device memory, the device
+busy seconds (the sum of every kernel,
 copy and memset the run put on the card, from ``torch.profiler``), the
 idle share ``1 - busy/wall``, the device's top operations by time, and
 the device time and launches of each of the port's own kernels.
@@ -76,11 +77,14 @@ def profile_run(spec, cfg: SamplerConfig, top: int = 8) -> dict:
     plan_s = time.perf_counter() - t0
     engine._execute(pl, dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _, wall, busy, ops, kernels = profiled(lambda: engine._execute(pl, dev),
                                            top)
     return {
         "model": spec.name, "refs": pl.total_count, "plan_s": plan_s,
         "device_part_wall_s": wall,
+        "refs_per_s": pl.total_count / wall,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
         "device_busy_s": busy,
         "device_idle_share": None if busy is None else 1 - busy / wall,
         "top_device_ops": ops, "port_kernels": kernels,

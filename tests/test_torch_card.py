@@ -339,3 +339,33 @@ def test_decode_refuses_short_scratch(cuda_device):
     assert fn(payload.data_ptr(), payload.numel() // 4, wm.data_ptr(), nb,
               out.data_ptr(), scratch.data_ptr(), scratch.numel(),
               torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.parametrize("model,n,win,asg", [
+    ("cholesky", 48, 1, False),       # quad refs in size buckets
+    ("trmm", 40, 1, True),            # varying starts, custom assignment
+    ("syrk_tri", 40, 1, False),       # closed-form tables, no sort
+    ("durbin", 40, 64, False),        # negative addresses
+])
+def test_bounded_nests_on_the_card_match_the_cpu(cuda_device, model, n, win,
+                                                 asg):
+    from pluss_torch import engine
+    from pluss_torch.models import REGISTRY
+    from pluss_torch.sched import ChunkSchedule
+
+    spec = REGISTRY[model](n)
+    assignment = None
+    if asg:   # thread (c+1)%T takes chunk c
+        assignment = tuple(tuple((c + 1) % 4 for c in range(ChunkSchedule(
+            4, nest.trip, nest.start, nest.step).n_chunks))
+            for nest in spec.nests)
+    kw = dict(window_accesses=win, assignment=assignment)
+    event_histogram.launches = 0
+    got = engine.run(spec, device=cuda_device, **kw)
+    want = engine.run(spec, device="cpu", **kw)
+    assert got.max_iteration_count == want.max_iteration_count
+    np.testing.assert_array_equal(got.noshare_dense, want.noshare_dense)
+    assert got.share_raw == want.share_raw
+    pl = engine.plan(spec, assignment=assignment, window_accesses=win)
+    assert event_histogram.launches == sum(
+        np_.n_windows for np_ in pl.nests if np_.refs)

@@ -1,10 +1,11 @@
 """The port's engine vs the JAX package's, on the CPU.
 
-- spec carry-across: every model of the port's registry, built by the JAX
-  package and carried through its codec JSON, decodes to the port's own
-  spec; triangular specs decode but refuse to run;
-- plan parity: the port's host plan equals ``pluss.engine.plan`` (without
-  overlays and row-private tables, which the port does not build);
+- spec carry-across: every model of the port's registry (all 29 of the
+  JAX package's), built by the JAX package and carried through its codec
+  JSON, decodes to the port's own spec;
+- plan parity: the port's host plan equals ``pluss.engine.plan`` on
+  rectangular nests (without overlays, which the port does not build;
+  bounded nests: tests/test_torch_triangular.py);
 - end to end: ``pluss.engine.run`` vs ``pluss_torch.engine.run(device=
   "cpu")`` on JAX-built specs, then CRI and MRC.  Histograms, share dicts
   and access counts are integers and compared exactly; CRI and MRC floats
@@ -47,17 +48,6 @@ def test_spec_carry_across(model):
         jax_models.REGISTRY[model](16))
 
 
-@pytest.mark.parametrize("model", ["syrk_tri", "trmm", "cholesky"])
-def test_triangular_specs_decode_but_refuse_to_run(model):
-    spec = carried(model, 8)
-    assert spec_to_json(spec) == jax_spec_to_json(
-        jax_models.REGISTRY[model](8))
-    with pytest.raises(NotImplementedError, match="triangular/quad"):
-        engine.plan(spec)
-    with pytest.raises(NotImplementedError):
-        engine.run(spec, device="cpu")
-
-
 PLAN_CASES = [
     ("gemm", 16, {}, None),
     ("gemm", 13, {}, None),        # partial chunks: sort windows
@@ -74,7 +64,8 @@ def test_plan_matches_jax(model, n, kw, win):
     jp = jax_engine.plan(jax_models.REGISTRY[model](n), JaxConfig(**kw),
                          window_accesses=win, build_overlays=False,
                          build_rowpriv=False)
-    tp = engine.plan(carried(model, n), SamplerConfig(**kw), win)
+    tp = engine.plan(carried(model, n), SamplerConfig(**kw),
+                     window_accesses=win)
     assert tp.pos_dtype == jp.pos_dtype
     assert tp.total_count == jp.total_count
     np.testing.assert_array_equal(tp.iters_per_thread, jp.iters_per_thread)
@@ -104,7 +95,8 @@ def test_plan_cases_cover_both_window_paths():
     """The parity matrix reaches the template path, the sort path, and
     ultra windows that also sort their template-ineligible arrays."""
     def paths(model, n, kw, win):
-        pl = engine.plan(carried(model, n), SamplerConfig(**kw), win)
+        pl = engine.plan(carried(model, n), SamplerConfig(**kw),
+                         window_accesses=win)
         return {(bool(u), bool(np_.var_refs))
                 for np_ in pl.nests for u in np_.ultra_windows()}
     seen = set().union(*(paths(*c) for c in PLAN_CASES))
@@ -205,4 +197,6 @@ def test_port_imports_no_jax_and_no_pluss():
     assert len(scanned) > 10
     assert {"pluss_torch/trace.py", "pluss_torch/tracegen.py",
             "pluss_torch/errors.py", "pluss_torch/ops/wirecodec.py",
-            "pluss_torch/ops/decode.py"} <= scanned
+            "pluss_torch/ops/decode.py", "pluss_torch/rowpriv.py",
+            "pluss_torch/sweepgroup.py", "pluss_torch/models/solvers.py",
+            "pluss_torch/models/stencils.py"} <= scanned
