@@ -5,9 +5,10 @@
 
 Drives ``pluss_torch``'s two main paths on the card — the sampler
 (``engine.run`` -> ``cri.distribute`` -> ``mrc.aet_mrc`` -> the ``acc``
-block) and the streamed trace replay (``trace.replay_file`` -> the
-``trace`` block) — and holds every kernel of those paths against its plain
-torch version.  Each phase prints one JSON line; any failed check raises,
+block; with its overlays, sliced runs and ``sampling.sampled_run``) and
+the streamed trace replay (``trace.replay_file`` -> the ``trace`` block)
+— and holds every kernel of those paths against its plain torch
+version.  Each phase prints one JSON line; any failed check raises,
 so the script exits non-zero and prints no result line.  Phases:
 
 1. build: compile the three kernels from ``pluss_torch/csrc`` with one
@@ -43,10 +44,25 @@ so the script exits non-zero and prints no result line.  Phases:
    windows;
 10. syrk_tri1000: every array on the row-private / sweep-group closed
     forms: no sort and no kernel launch;
-11. families: every one of the 29 registry families at n=16, on the card
-    and on the CPU, exactly;
-12. cli: ``python -m pluss_torch.cli acc`` on the card, in process;
-13. trace: a 2^28-ref trace (``pluss_torch.tracegen.smoke_trace``: 2^27
+11-12. syrk1000, syr2k1000: the interleave overlays (62 of 63 windows
+    take the O(lines) closed form, kernel 1 only in the ragged last
+    one), the plan timed cold and then warm from a disk plan cache in a
+    temp dir; held bit for bit against the same plan built without
+    overlays, whose overlaid arrays sort in every window;
+13. sliced: cholesky-2000 in thread batches of 2 and 1, equal to phase
+    8's full run (kernel 1 once per window per batch); trmm-1000 with the
+    device budget set to a quarter of its need, which the auto-dispatch
+    ladder reroutes to one thread at a time, equal to phase 9's run; peak
+    device memory against each budget;
+14. sample: GEMM-1024 subset sampling, uniform at rates 0.05, 0.1 and
+    0.25 (3, 6 and 16 of 64 windows, each warmed by one context window)
+    and prefix at 0.05, each equal to a rerun with kernel 1's plain
+    version; the walked fraction and the MRC L2 error against phase 6's
+    full run; GEMM-128 sampled on the card and the CPU, exactly;
+15. families: every one of the 29 registry families at n=16, on the card
+    and on the CPU, exactly (syrk and syr2k on their overlays);
+16. cli: ``python -m pluss_torch.cli acc`` on the card, in process;
+17. trace: a 2^28-ref trace (``pluss_torch.tracegen.smoke_trace``: 2^27
    hot/warm refs, then 8 sequential sweeps over a second memory region)
    replayed with ``replay_file``'s defaults (d24v wire, feed pool; 16
    batches of 2^24), held against an independent golden (a replay of the
@@ -57,17 +73,19 @@ so the script exits non-zero and prints no result line.  Phases:
    fed them for one real batch of each part (part A: raw 6-nibble d24v
    blocks; part B: mostly 1-nibble delta blocks), captured in the part-A
    golden replay and in the resumed leg;
-14. trace_cli: ``python -m pluss_torch.cli trace`` on the card, in process;
-15. the kernels line, the card's name and power limit, and the result line.
+18. trace_cli: ``python -m pluss_torch.cli trace`` on the card, in process;
+19. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
-(phases 5-11 and 13-14's first replay) and read just after it: the event
+(phases 5-16 and 17-18's first replay) and read just after it: the event
 kernel must launch once per plan window that sorts something (0 for GEMM
-and syrk_tri, every window for mvt-4000, cholesky and trmm); the masked
+and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
+window of syrk and syr2k), per thread batch in a sliced run, and once
+per counted sampled window; the masked
 histogram and the decode once per trace batch.  Every sampler run must
 conserve its accesses (cold + no-share events + share events = refs).
-The comparison launches of phases 2-4 and the cross-checks of phases 7, 8
-and 13 are not counted.  Exits non-zero, printing no result,
+The comparison launches of phases 2-4 and the cross-checks of phases 7,
+8, 11-12, 14 and 17 are not counted.  Exits non-zero, printing no result,
 when there is no CUDA device or when run outside the repository.
 """
 
@@ -390,8 +408,8 @@ def main() -> int:
     from pluss_torch import cli, cri, engine, mrc
     from pluss_torch.config import NBINS, SamplerConfig
     from pluss_torch.io import acc_block, merge_share
-    from pluss_torch.models import (REGISTRY, cholesky, gemm, mvt,
-                                    syrk_triangular, trmm)
+    from pluss_torch.models import (REGISTRY, cholesky, gemm, mvt, syr2k,
+                                    syrk, syrk_triangular, trmm)
     from pluss_torch.ops import build, wirecodec
     from pluss_torch.ops.decode import decode_d24v
     from pluss_torch.ops.event_hist import (event_histogram_plain,
@@ -519,18 +537,18 @@ def main() -> int:
     emit({"phase": "d24v_decode", **dec, "random_wire_match": True,
           "max_abs_err": dec_err, "ok": True})
 
-    # 5-11. the sampler's main path, each run with the counts read around it
+    # 5-16. the sampler's main path, each run with the counts read around it
     def sort_windows(pl) -> int:
         """Sort-path windows of a plan, one kernel launch each: every
         window off the template path that has refs left to sort (a bounded
         nest whose arrays are all closed-form sorts nothing), and the
-        template windows of a nest whose template-ineligible arrays still
-        sort."""
+        template windows of a nest whose arrays without a template or an
+        overlay still sort."""
         n = 0
         for np_ in pl.nests:
             ultra = np_.ultra_windows()
             n += int((~ultra).sum()) * bool(np_.refs) \
-                + int(ultra.sum()) * bool(np_.var_refs)
+                + int(ultra.sum()) * bool(np_.var_refs_novl)
         return n
 
     def conserved(res) -> bool:
@@ -639,7 +657,7 @@ def main() -> int:
           and plain.share_raw == kern_run.share_raw
           and plain.max_iteration_count == kern_run.max_iteration_count,
           f"cholesky{n_x}: kernel run != plain-version run")
-    del plain, kern_run, resc
+    del plain, kern_run
     emit({"phase": "cholesky2000", **mc, "path": "sort (quad, buckets)",
           "plain_match": True, "ok": True})
 
@@ -657,12 +675,41 @@ def main() -> int:
           and ms["event_kernel_launches"] == 0,
           "syrk_tri1000 left the closed-form path")
     emit({"phase": "syrk_tri1000", **ms, "path": "closed_form", "ok": True})
+    del ress
 
-    # 11. every registry family at n=16: the card against the CPU ---------
+    # 11-12. syrk/syr2k-1000: interleave overlays against the sort path,
+    # the plans through a disk plan cache in a temp dir, cold then warm
+    cache_dir = tempfile.mkdtemp(prefix="pluss_torch_plans_")
+    saved = {k: os.environ.pop(k, None) for k in ("PLUSS_NO_PLAN_CACHE",
+                                                 "PLUSS_PLAN_CACHE_DIR")}
+    os.environ["PLUSS_PLAN_CACHE_DIR"] = cache_dir
+    try:
+        for spec in (syrk(1000), syr2k(1000)):
+            overlay_phase(spec, cfg, dev, by_path, sort_windows, conserved)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+    # 13. cholesky-2000 in thread batches of 2 and 1 against the full run,
+    # and trmm-1000 rerouted by the auto-dispatch ladder on a quarter of
+    # its budget
+    sliced_phase(cfg, by_path, resc, rest, sort_windows)
+    del resc, rest
+
+    # 14. subset sampling on GEMM-1024, against the full run's MRC
+    sample_phase(cfg, by_path, res1k)
+
+    # 15. every registry family at n=16: the card against the CPU ---------
     def families():
         out = {}
         for name in sorted(REGISTRY):
             sp = REGISTRY[name](16)
+            if name in ("syrk", "syr2k"):
+                check(bool(engine.plan(sp, cfg).nests[0].overlays),
+                      f"{name}16: no overlay")
             on_card = engine.run(sp, cfg)
             on_cpu = engine.run(sp, cfg, device="cpu")
             check(bool((on_card.noshare_dense == on_cpu.noshare_dense).all())
@@ -681,9 +728,10 @@ def main() -> int:
           f"{sum(fam.values())} sort windows")
     emit({"phase": "families", "n": 16, "models": len(fam),
           "seconds": time.perf_counter() - t0, "sort_windows": fam,
-          "launches": counts, "card_vs_cpu": True, "ok": True})
+          "launches": counts, "overlays": ["syr2k", "syrk"],
+          "card_vs_cpu": True, "ok": True})
 
-    # 12. the CLI entry point on the card ------------------------------------
+    # 16. the CLI entry point on the card ------------------------------------
     buf = io.StringIO()
     stdout, sys.stdout = sys.stdout, buf
     try:
@@ -696,14 +744,14 @@ def main() -> int:
           "cli acc block")
     emit({"phase": "cli", "lines": len(lines), "ok": True})
 
-    # 13-14. the trace replay's main path, on a 2^28-ref trace -------------
+    # 17-18. the trace replay's main path, on a 2^28-ref trace -------------
     tmp = tempfile.mkdtemp(prefix="pluss_torch_smoke_")
     try:
         batches = trace_phases(tmp, by_path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 15. kernels line, card, result -----------------------------------------
+    # 19. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
@@ -736,8 +784,216 @@ def main() -> int:
     return 0
 
 
+def curve_of(res, cfg):
+    from pluss_torch import cri, mrc
+
+    return mrc.aet_mrc(cri.distribute(res.noshare_list(), res.share_list(),
+                                      cfg.thread_num), cfg)
+
+
+def same_result(a, b) -> bool:
+    import numpy as np
+
+    return bool(np.array_equal(a.noshare_dense, b.noshare_dense)) \
+        and a.share_raw == b.share_raw \
+        and a.max_iteration_count == b.max_iteration_count
+
+
+def overlay_phase(spec, cfg, dev, by_path, sort_windows, conserved) -> None:
+    """Phases 11-12: ``engine.run`` of syrk/syr2k-1000 with interleave
+    overlays (plan timed cold, then warm from the disk cache the caller
+    armed), held bit for bit against the same plan built without overlays
+    on the card, whose overlaid arrays sort in every window."""
+    import numpy as np
+    import torch
+
+    from pluss_torch import engine
+
+    label = f"{spec.name}"
+    t0 = time.perf_counter()
+    pl = engine.plan(spec, cfg)
+    plan_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = engine.plan(spec, cfg)
+    plan_warm = time.perf_counter() - t0
+    check(len(warm.nests[0].overlays) == len(pl.nests[0].overlays) > 0,
+          f"{label}: the overlays did not engage or did not cache")
+    path = engine.plan_path(pl)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: engine.run(spec, cfg))
+    engine_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    by_path[label] = counts
+    check(counts["carried_event_hist"] == sort_windows(pl),
+          f"{label}: {counts['carried_event_hist']} launches, "
+          f"{sort_windows(pl)} sort windows")
+    check(conserved(res), f"{label}: accesses not conserved")
+    curve = curve_of(res, cfg)
+    check(curve[0] == 1.0 and bool((curve[1:] <= curve[:-1]).all())
+          and bool(np.isfinite(curve).all()), f"{label}: MRC")
+    t0 = time.perf_counter()
+    off = engine.plan(spec, cfg, build_overlays=False)
+    off_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_off, counts_off = counted(lambda: engine._execute(off, dev))
+    off_s = time.perf_counter() - t0
+    check(counts_off["carried_event_hist"] == sort_windows(off)
+          == off.nests[0].n_windows, f"{label}: sort-path launches")
+    check(same_result(res, res_off) and conserved(res_off),
+          f"{label}: overlay run != sort-path run")
+    ultra = pl.nests[0].ultra_windows()
+    emit({"phase": label, "path": path, "refs": res.max_iteration_count,
+          "windows": int(pl.nests[0].n_windows),
+          "ultra_windows": int(ultra.sum()),
+          "overlays": [ov.array for ov in pl.nests[0].overlays],
+          "plan_cold_s": plan_cold, "plan_warm_s": plan_warm,
+          "engine_s": engine_s, "refs_per_s": res.max_iteration_count
+          / engine_s, "event_kernel_launches": counts["carried_event_hist"],
+          "peak_device_gib": peak / 2**30,
+          "sort_path": {"path": engine.plan_path(off), "plan_s": off_plan,
+                        "device_s": off_s, "engine_s": off_plan + off_s,
+                        "event_kernel_launches":
+                        counts_off["carried_event_hist"]},
+          "match": True, "conserved": True, "ok": True})
+
+
+def sliced_phase(cfg, by_path, chol_full, trmm_full, sort_windows) -> None:
+    """Phase 13: ``engine.run`` of cholesky-2000 with thread batches of 2
+    and 1 (kernel 1 once per window per batch), equal to the full run;
+    then trmm-1000 with the device budget set to a quarter of its need,
+    which the auto-dispatch ladder reroutes to one thread at a time.  Peak
+    device memory against the budget each run was held to."""
+    import numpy as np
+    import torch
+
+    from pluss_torch import engine
+    from pluss_torch.models import cholesky, trmm
+
+    torch.cuda.empty_cache()
+    out = {}
+    spec = cholesky(2000)
+    pl = engine._plan_cached(spec, cfg, None, None, None)
+    n_lines = spec.total_lines(cfg)
+    window = max(engine.sort_window_bytes(np_, cfg, pl.pos_dtype, n_lines)
+                 for np_ in pl.nests)
+    for tb in (2, 1):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: engine.run(spec, cfg, thread_batch=tb))
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        by_path[f"cholesky2000_tb{tb}"] = counts
+        batches = -(-cfg.thread_num // tb)
+        check(counts["carried_event_hist"] == sort_windows(pl) * batches,
+              f"cholesky2000 tb={tb}: launches {counts}")
+        check(same_result(res, chol_full),
+              f"cholesky2000 tb={tb} != the full run")
+        out[f"cholesky2000_tb{tb}"] = {
+            "engine_s": secs, "event_kernel_launches":
+            counts["carried_event_hist"], "peak_device_gib": peak / 2**30,
+            "est_sort_gib": window * tb / 2**30, "match": True}
+        del res
+    torch.cuda.empty_cache()
+    spec = trmm(1000)
+    pl = engine._plan_cached(spec, cfg, None, None, None)
+    need = max(engine.sort_window_bytes(np_, cfg, pl.pos_dtype,
+                                        spec.total_lines(cfg))
+               for np_ in pl.nests) * cfg.thread_num
+    budget = need // 4
+    decision = engine._auto_dispatch(pl, cfg, None, budget)
+    check(decision is not None and decision[0] == 1,
+          f"trmm1000: ladder decision {decision}")
+    real_budget = engine.sort_budget
+    engine.sort_budget = lambda dev: budget
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: engine.run(spec, cfg))
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        engine.sort_budget = real_budget
+    by_path["trmm1000_rerouted"] = counts
+    check(counts["carried_event_hist"] == sort_windows(pl) * cfg.thread_num,
+          f"trmm1000 rerouted: launches {counts}")
+    check(same_result(res, trmm_full), "trmm1000 rerouted != the full run")
+    out["trmm1000_rerouted"] = {
+        "engine_s": secs, "thread_batch": decision[0],
+        "reason": decision[1], "event_kernel_launches":
+        counts["carried_event_hist"], "peak_device_gib": peak / 2**30,
+        "budget_gib": budget / 2**30, "need_gib": need / 2**30,
+        "peak_over_budget": peak / budget, "match": True}
+    emit({"phase": "sliced", **out, "ok": True})
+
+
+def sample_phase(cfg, by_path, full) -> None:
+    """Phase 14: ``sampling.sampled_run`` of GEMM-1024 (64 one-round
+    windows) at uniform rates that fit the card and prefix at one rate,
+    each equal to the same call with kernel 1's plain version, with the
+    walked fraction and the MRC L2 error against the full run; then
+    GEMM-128 sampled on the card and on the CPU, exactly."""
+    import numpy as np
+    import torch
+
+    from pluss_torch import sampling
+    from pluss_torch.models import gemm
+    from pluss_torch.ops.event_hist import event_histogram_plain
+
+    torch.cuda.empty_cache()
+    spec = gemm(1024)
+    full_curve = curve_of(full, cfg)
+    nw = sampling._plan_cached(spec, cfg, None).nests[0].n_windows
+    rows = []
+    for mode, rate in (("uniform", 0.05), ("uniform", 0.1),
+                       ("uniform", 0.25), ("prefix", 0.05)):
+        label = f"sample_{mode}_{rate}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        est, counts = counted(lambda: sampling.sampled_run(
+            spec, cfg, rate, seed=0, mode=mode))
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        by_path[label] = counts
+        walks = max(1, round(rate * nw)) if mode == "uniform" \
+            else min(nw - 1, max(0, round(rate * nw) - 1)) + 1
+        check(counts["carried_event_hist"] == walks,
+              f"{label}: {counts['carried_event_hist']} launches, {walks} "
+              "counted windows")
+        t0 = time.perf_counter()
+        plain = sampling.sampled_run(spec, cfg, rate, seed=0, mode=mode,
+                                     _event_hist=event_histogram_plain)
+        plain_s = time.perf_counter() - t0
+        check(bool(np.array_equal(est.noshare_dense, plain.noshare_dense))
+              and est.share_raw == plain.share_raw
+              and est.sampled_fraction == plain.sampled_fraction,
+              f"{label}: kernel != plain version")
+        curve = curve_of(est, cfg)
+        check(bool(np.isfinite(curve).all()) and curve[0] == 1.0,
+              f"{label}: MRC")
+        rows.append({"mode": mode, "rate": rate, "seconds": secs,
+                     "plain_s": plain_s, "counted_windows": walks,
+                     "walked_fraction": est.sampled_fraction,
+                     "l2_error": sampling.mrc_l2_error(curve, full_curve),
+                     "peak_device_gib": peak / 2**30,
+                     "event_kernel_launches": counts["carried_event_hist"],
+                     "plain_match": True})
+    small = gemm(128)
+    for mode in ("uniform", "prefix"):
+        kw = dict(rate=0.25, seed=1, window_accesses=1, mode=mode)
+        on_card = sampling.sampled_run(small, cfg, **kw)
+        on_cpu = sampling.sampled_run(small, cfg, device="cpu", **kw)
+        check(bool(np.array_equal(on_card.noshare_dense,
+                                  on_cpu.noshare_dense))
+              and on_card.share_raw == on_cpu.share_raw
+              and on_card.sampled_fraction == on_cpu.sampled_fraction,
+              f"gemm128 sampled ({mode}): card != CPU")
+    emit({"phase": "sample", "model": "gemm1024", "windows": nw,
+          "rates": rows, "gemm128_card_vs_cpu": True, "ok": True})
+
+
 def trace_phases(tmp: str, by_path: dict) -> dict:
-    """Phases 13 and 14: the streamed replay on the card, and its CLI.
+    """Phases 17 and 18: the streamed replay on the card, and its CLI.
     Returns kernels 2 and 3's measurements on one real batch of each part
     of the trace."""
     import numpy as np

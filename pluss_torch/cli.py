@@ -1,7 +1,8 @@
-"""`acc` / `speed` / `mrc` / `trace` CLI of the port — the reference's run modes.
+"""`acc` / `speed` / `mrc` / `sample` / `trace` CLI of the port — the reference's run modes.
 
     python -m pluss_torch.cli acc --model gemm --n 1024      # on the CUDA card
     python -m pluss_torch.cli acc --cpu --model gemm --n 16  # on the host
+    python -m pluss_torch.cli sample --model gemm --n 1024 --rates 0.05,0.1
     python -m pluss_torch.cli trace --file t.bin --out mrc.csv
 
 - ``acc``: one timed run; prints the reference's block (timing banner, the
@@ -10,6 +11,11 @@
   prints for the same model.
 - ``speed``: ``--reps`` timed runs, a banner+seconds line each.
 - ``mrc``: the AET miss-ratio curve, written to ``--out``.
+- ``sample``: subset sampling (:mod:`pluss_torch.sampling`) at each of
+  ``--rates`` (``--sample-mode uniform|prefix``, ``--context`` warm-up
+  windows, ``--window`` the sample span), against the full run: prints
+  ``rate,walked_fraction,l2_error`` per rate, byte for byte what
+  ``python -m pluss.cli sample`` prints.
 - ``trace``: replay a raw address trace (``--file``, ``--fmt u64|text``)
   with :func:`pluss_torch.trace.replay_file`; prints the banner, the reuse
   histogram and ``N refs over L lines; wrote MRC to <out>``, and writes
@@ -31,16 +37,18 @@ import time
 
 import torch
 
-from pluss_torch import cri, engine, mrc, trace
+from pluss_torch import cri, engine, mrc, sampling, trace
 from pluss_torch.config import SamplerConfig
 from pluss_torch.io import RI_TITLE, acc_block, print_histogram, speed_block
 from pluss_torch.models import REGISTRY
 
 
-def sampler_step(spec, cfg: SamplerConfig, device, window=None):
+def sampler_step(spec, cfg: SamplerConfig, device, window=None,
+                 start_point=None):
     """() -> (result, rihist): one sampler run plus the CRI post-pass."""
     def step():
-        res = engine.run(spec, cfg, device=device, window_accesses=window)
+        res = engine.run(spec, cfg, device=device, window_accesses=window,
+                         start_point=start_point)
         ri = cri.distribute(res.noshare_list(), res.share_list(),
                             cfg.thread_num)
         return res, ri
@@ -63,7 +71,7 @@ def banner_of(device) -> str:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="pluss_torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("mode", choices=("acc", "speed", "mrc", "trace"))
+    p.add_argument("mode", choices=("acc", "speed", "mrc", "sample", "trace"))
     p.add_argument("--model", default="gemm", choices=sorted(REGISTRY))
     p.add_argument("--n", type=int, default=128, help="problem size")
     p.add_argument("--threads", type=int, default=4, help="simulated threads")
@@ -72,6 +80,18 @@ def main(argv: list[str] | None = None) -> int:
                    help="accesses per window per thread (trace mode: per "
                         "window of a device batch)")
     p.add_argument("--reps", type=int, default=3, help="speed-mode repetitions")
+    p.add_argument("--start-point", type=int, default=None,
+                   help="resume sampling from this parallel-loop iteration "
+                        "value (the reference's setStartPoint)")
+    p.add_argument("--rates", default="0.05,0.1,0.25,0.5,1.0",
+                   help="sample-mode sampling rates (comma list)")
+    p.add_argument("--sample-mode", default="uniform",
+                   choices=("uniform", "prefix"),
+                   help="sample-mode estimator: uniform random windows with "
+                        "warm-up context, or the prefix chain")
+    p.add_argument("--context", type=int, default=None,
+                   help="sample-mode warm-up context windows (default: "
+                        "sized to the largest share span)")
     p.add_argument("--out", default="mrc.csv",
                    help="mrc/trace-mode MRC output file")
     p.add_argument("--file", help="trace-mode input file of raw addresses")
@@ -104,7 +124,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.mode == "trace":
         return trace_mode(args, p, cfg, device, out)
     spec = REGISTRY[args.model](args.n)
-    step = sampler_step(spec, cfg, device, args.window)
+    if args.mode == "sample":
+        return sample_mode(args, spec, cfg, device, out)
+    step = sampler_step(spec, cfg, device, args.window, args.start_point)
     if args.mode == "acc":
         step()  # warm-up: kernel build and device start-up stay untimed
         dt, res, ri = timed(step)
@@ -120,6 +142,24 @@ def main(argv: list[str] | None = None) -> int:
         mrc.write_mrc(args.out, curve)
         out.write(f"wrote {len(mrc.dedup_lines(curve))} MRC lines to "
                   f"{args.out} (curve over {len(curve)} cache sizes)\n")
+    return 0
+
+
+def sample_mode(args, spec, cfg: SamplerConfig, device, out) -> int:
+    """The sampled-MRC error table: each rate's walked fraction and MRC L2
+    error against the full run."""
+    rates = [float(x) for x in args.rates.split(",") if x]
+    if args.sample_mode == "prefix" and args.context is not None:
+        print("pluss_torch: --context is ignored in prefix mode (the chain "
+              "is its own context)", file=sys.stderr)
+    tbl = sampling.mrc_error_table(spec, cfg, rates,
+                                   window_accesses=args.window,
+                                   context_windows=args.context,
+                                   mode=args.sample_mode, device=device)
+    out.write(f"{spec.name}: sampled-MRC L2 error vs full enumeration\n")
+    out.write("rate,walked_fraction,l2_error\n")
+    for rate, frac, err in tbl:
+        out.write(f"{rate:g},{frac:.6g},{err:.6g}\n")
     return 0
 
 

@@ -23,7 +23,10 @@ Each window takes one of two paths:
   event analysis of a clean window is done once on the host at plan time
   (:func:`_build_template`), so the device resolves only the window's head
   lines against the carried table, updates its tail lines and adds the
-  precomputed local histogram — O(lines), not O(accesses).
+  precomputed local histogram — O(lines), not O(accesses).  Arrays with
+  mixed parallel coefficients (syrk's ``A``) that pass the interleave
+  overlay's checks (:mod:`pluss_torch.overlay`) take an O(lines) closed
+  form inside these windows too.
 - **ghost-merged sort**: the window's accesses and one ghost entry per
   covered line sort by (line, pos); the hand-written carried-event kernel
   (:mod:`pluss_torch.ops.event_hist`) bins the events, and the tails update
@@ -36,20 +39,34 @@ Each window takes one of two paths:
 
 The chunk->thread map is data (the owned-chunk matrix): static
 round-robin, an explicit (dynamic FIFO) assignment, or the
-``setStartPoint`` resume.  The host plan is numpy; :func:`run` places the
-device part on CUDA unless the caller asks for the CPU.
+``setStartPoint`` resume.  The host plan is numpy, memoized per process
+(:func:`_plan_cached`) and, for templates and overlays, on disk
+(``PLUSS_PLAN_CACHE_DIR``).  :func:`run` places the device part on CUDA
+unless the caller asks for the CPU; a run whose concurrent sort windows
+would not fit the device goes through :func:`run_sliced` in smaller
+thread batches (:func:`_auto_dispatch`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
+import os
+import pickle
+import sys
+import uuid
 
 import numpy as np
 import torch
 
 from pluss_torch import rowpriv, sweepgroup
 from pluss_torch.config import DEFAULT, NBINS, SamplerConfig
+from pluss_torch.errors import quarantine_artifact
+from pluss_torch.ops import build
 from pluss_torch.ops.event_hist import event_histogram
+from pluss_torch.overlay import (DeviceOverlay, build_overlay, device_window,
+                                 verify_overlay)
 from pluss_torch.ops.reuse import (
     SHARE_SHIFT,
     bin_histogram,
@@ -60,7 +77,7 @@ from pluss_torch.ops.reuse import (
     share_keys,
     share_mask,
     share_unique,
-    sort_stream,
+    sort_columns,
 )
 from pluss_torch.sched import ChunkSchedule
 from pluss_torch.spec import (
@@ -84,6 +101,138 @@ MAX_TEMPLATE_WINDOW = 1 << 29
 #: sort-window memory budget when the run is on the CPU (the JAX package's
 #: default); on a CUDA card the budget is the card's free memory
 CPU_SORT_BUDGET = 8 << 30
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+@functools.lru_cache(maxsize=1)
+def _plan_cache_salt() -> str:
+    """Content hash of the plan-analysis sources: any edit to the template
+    or overlay logic invalidates every cached artifact."""
+    h = hashlib.sha256()
+    for name in ("engine.py", "overlay.py", "spec.py", "sched.py",
+                 "config.py", os.path.join("ops", "reuse.py")):
+        with open(os.path.join(_HERE, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _plan_cache_root() -> str | None:
+    """The plan-cache directory, or None when caching is off — the one
+    resolution that put, get and evict share.  ``$PLUSS_PLAN_CACHE_DIR``,
+    else ``.bench/plan_cache`` when ``.bench`` exists in the working
+    directory, else off; ``PLUSS_NO_PLAN_CACHE`` turns it off (the test
+    suite sets it, so no template bug hides behind a stale artifact)."""
+    if os.environ.get("PLUSS_NO_PLAN_CACHE"):
+        return None
+    root = os.environ.get("PLUSS_PLAN_CACHE_DIR")
+    if root is None:
+        if not os.path.isdir(".bench"):
+            return None
+        root = os.path.join(".bench", "plan_cache")
+    return root
+
+
+def _plan_cache_path(key: str) -> str | None:
+    """Disk slot of one nest's plan artifacts (its template and verified
+    overlays: expensive to build, cheap to load), or None when off."""
+    root = _plan_cache_root()
+    if root is None:
+        return None
+    os.makedirs(root, exist_ok=True)
+    return os.path.join(root, key + ".pkl")
+
+
+def _plan_cache_key(spec, cfg, ni: int, W: int, NW: int) -> str:
+    return hashlib.sha256(
+        repr((_plan_cache_salt(), spec, cfg, ni, W, NW)).encode()
+    ).hexdigest()[:32]
+
+
+@functools.lru_cache(maxsize=8)
+def _cache_max_of(raw: str) -> int:
+    if not raw.strip():
+        return 256
+    try:
+        cap = int(raw)
+    except ValueError:
+        cap = -1
+    if cap < 0:
+        print(f"pluss_torch: ignoring malformed PLUSS_PLAN_CACHE_MAX={raw!r}; "
+              "using the default 256", file=sys.stderr)
+        return 256
+    return cap
+
+
+def plan_cache_max() -> int:
+    """Disk plan-cache entry cap (``PLUSS_PLAN_CACHE_MAX``, default 256; 0
+    disables eviction; a malformed value warns once and means 256)."""
+    return _cache_max_of(os.environ.get("PLUSS_PLAN_CACHE_MAX", ""))
+
+
+def _plan_cache_evict() -> None:
+    """Unlink the least recently used entries past :func:`plan_cache_max`
+    (a hit refreshes an entry's mtime).  Quarantined ``.corrupt`` files
+    and writers' temporaries are not entries; a file that vanishes
+    mid-listing is another writer's eviction."""
+    cap = plan_cache_max()
+    root = _plan_cache_root()
+    if cap <= 0 or root is None:
+        return
+    entries = []
+    try:
+        with os.scandir(root) as it:
+            for de in it:
+                if not de.name.endswith(".pkl"):
+                    continue
+                try:
+                    entries.append((de.stat().st_mtime, de.path))
+                except OSError:
+                    continue
+    except OSError:
+        return
+    for _, path in sorted(entries)[:max(0, len(entries) - cap)]:
+        try:
+            os.unlink(path)
+        except OSError:
+            continue
+
+
+def _plan_cache_get(key: str):
+    """The cached artifacts of ``key``, or None on a miss.  A file that
+    does not unpickle is renamed aside (``.corrupt``) and reported once,
+    so the rebuilt artifact can take its slot."""
+    path = _plan_cache_path(key)
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        with open(path, "rb") as f:
+            value = pickle.load(f)
+    except Exception as e:   # any unpickling failure means corrupt bytes
+        quarantine_artifact(path, "engine plan-cache", e)
+        return None
+    try:
+        os.utime(path)   # recency for _plan_cache_evict
+    except OSError:
+        pass
+    return value
+
+
+def _plan_cache_put(key: str, value) -> None:
+    """Write ``value`` to ``key``'s slot atomically (a uuid temporary per
+    writer, then a rename), then evict past the cap."""
+    path = _plan_cache_path(key)
+    if path is None:
+        return
+    tmp = f"{path}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
+    try:
+        with open(tmp, "wb") as f:
+            pickle.dump(value, f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    _plan_cache_evict()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +276,13 @@ class NestPlan:
     #: refs of template-INELIGIBLE arrays: they run the sort path in every
     #: window, alongside the template.  Equal to ``refs`` without a template.
     var_refs: tuple[FlatRef, ...] = ()
+    #: interleave overlays (:mod:`pluss_torch.overlay`): template-ineligible
+    #: arrays whose ultra windows take an O(lines) closed form instead of
+    #: the sort, each verified against brute-force windows at plan time
+    overlays: tuple = ()
+    #: ``var_refs`` minus the overlaid arrays: what an ultra window still
+    #: sorts (non-ultra windows sort ``refs``)
+    var_refs_novl: tuple[FlatRef, ...] = ()
     #: bounded nests only: [T, NW*W*CS] exclusive running access count at
     #: each stream slot (the thread's clock when the slot's parallel
     #: iteration starts); None for rectangular nests (clock = rank*body)
@@ -145,8 +301,8 @@ class NestPlan:
 
     def ultra_windows(self) -> np.ndarray:
         """[NW] bool: windows on the static-template path (clean for EVERY
-        thread, template available)."""
-        if self.clean is None or self.tpl is None:
+        thread, with a template, overlays, or both)."""
+        if self.clean is None or (self.tpl is None and not self.overlays):
             return np.zeros(self.n_windows, bool)
         return self.clean.all(axis=0)
 
@@ -396,22 +552,27 @@ def sort_window_bytes(np_: NestPlan, cfg: SamplerConfig, pos_dtype,
 
 
 def sort_budget(device: torch.device) -> int:
-    """Device bytes the sort windows may take: the card's free memory on
-    CUDA, :data:`CPU_SORT_BUDGET` on the CPU."""
+    """Device bytes the sort windows may take: on CUDA the card's free
+    memory plus what PyTorch's caching allocator holds unused (earlier
+    runs' freed blocks, which it hands out again), :data:`CPU_SORT_BUDGET`
+    on the CPU."""
     if device.type == "cuda":
-        return int(torch.cuda.mem_get_info(device)[0])
+        return int(torch.cuda.mem_get_info(device)[0]
+                   + torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
     return CPU_SORT_BUDGET
 
 
 def check_sort_budget(nests, spec: LoopNestSpec, cfg: SamplerConfig,
-                      pos_dtype, limit: int) -> None:
-    """Fail loudly, before any window runs, when the sort windows of the
-    ``T`` threads (processed together, one batch row each) cannot fit in
-    ``limit`` bytes — instead of a CUDA out-of-memory error in the middle
-    of a run.  Windows never split a chunk round, so a huge body on a
-    templateless (ragged, custom-assigned or bounded) nest needs a finer
-    chunk size."""
-    conc = cfg.thread_num
+                      pos_dtype, limit: int,
+                      concurrency: int | None = None) -> None:
+    """Fail loudly, before any window runs, when the sort windows of
+    ``concurrency`` threads (default all ``T``, processed together, one
+    batch row each) cannot fit in ``limit`` bytes — instead of a CUDA
+    out-of-memory error in the middle of a run.  Windows never split a
+    chunk round, so a huge body on a templateless (ragged, custom-assigned
+    or bounded) nest needs a finer chunk size."""
+    conc = concurrency or cfg.thread_num
     n_lines = spec.total_lines(cfg)
     for ni, np_ in enumerate(nests):
         ultra = np_.ultra_windows()
@@ -419,9 +580,10 @@ def check_sort_budget(nests, spec: LoopNestSpec, cfg: SamplerConfig,
         if not ultra.all():
             streams.append(("sort", np_.refs, "a finer chunk size or a "
                             "smaller window_accesses"))
-        if np_.var_refs and ultra.any():
-            streams.append(("ultra window's sort-path part", np_.var_refs,
-                            "a finer chunk size"))
+        if np_.var_refs_novl and ultra.any():
+            # overlaid arrays sort nothing in ultra windows
+            streams.append(("ultra window's sort-path part",
+                            np_.var_refs_novl, "a finer chunk size"))
         for label, refs_, remedy in streams:
             est = sort_window_bytes(np_, cfg, pos_dtype, n_lines,
                                     refs_) * conc
@@ -433,16 +595,56 @@ def check_sort_budget(nests, spec: LoopNestSpec, cfg: SamplerConfig,
                     f"{limit / 2**30:.2f} GiB device budget.  Use {remedy}.")
 
 
+def _build_overlays(spec, var_refs, cfg, sched, clean, W: int, NW: int,
+                    body: int) -> tuple:
+    """Verified overlays of a nest's template-ineligible arrays, built on
+    its leading run of ultra windows (none when window 0 is not ultra:
+    the closed forms assume ``cid = (w*W + r)*T + t``)."""
+    T = cfg.thread_num
+    n_pref = int(np.argmin(np.concatenate([clean.all(axis=0), [False]])))
+    if n_pref == 0:
+        return ()
+    by_arr: dict[str, list] = {}
+    for fr in var_refs:
+        by_arr.setdefault(fr.ref.array, []).append(fr)
+    out = []
+    for arr, frs in by_arr.items():
+        ov = build_overlay(arr, frs, cfg, sched, spec, W, 0, body)
+        if ov is None:
+            continue
+        # verification pairs stay inside the leading ultra prefix (the
+        # brute replay walks windows 0..w) and the real thread range; the
+        # prefix's last window too when its brute chain is short
+        w_hi = min(n_pref - 1, 2)
+        pairs = {(0, 0), (T - 1, min(1, w_hi)), (min(1, T - 1), w_hi)}
+        if w_hi < n_pref - 1 <= 8:
+            pairs.add((T // 2, n_pref - 1))
+        if verify_overlay(ov, cfg, sched, NW, pairs):
+            out.append(ov)
+    return tuple(out)
+
+
 def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
          assignment: tuple[tuple[int, ...] | None, ...] | None = None,
          start_point: int | None = None,
-         window_accesses: int | None = None) -> StreamPlan:
+         window_accesses: int | None = None,
+         build_templates: bool = True,
+         build_overlays: bool = True,
+         build_rowpriv: bool = True) -> StreamPlan:
     """Build the static stream plan (host, numpy).
 
     ``assignment``: optional per-nest chunk->thread maps (dynamic
     scheduling); ``start_point``: resume iteration value applied to the
     first nest; ``window_accesses``: accesses per window per thread
-    (default WINDOW_TARGET).
+    (default WINDOW_TARGET).  ``build_templates=False`` skips the static
+    window templates (and with them the overlays, which need the clean
+    windows): for callers that only ever sort, as the subset sampler's
+    fresh-carry walks.  ``build_overlays=False`` skips the interleave
+    overlays and their brute-force verification; ``build_rowpriv=False``
+    keeps the row-private and sweep-group arrays on the sort path.
+
+    Templates and verified overlays of a default-scheduled nest are kept
+    in the disk plan cache (:func:`_plan_cache_root`).
     """
     T = cfg.thread_num
     geom = []
@@ -490,18 +692,40 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
         # (no linear cid progression), a bounded loop or a varying start
         # breaks; oversize windows would make the host template analysis
         # itself the bottleneck: all of those take the device sort path
-        if asg is None and not tri and not nest_has_varying_start(nest) \
+        cache_key = cached = None
+        if build_templates and asg is None and not tri \
+                and not nest_has_varying_start(nest) \
                 and W * cfg.chunk_size * body <= MAX_TEMPLATE_WINDOW:
             clean = _clean_windows(owned, W, NW, cfg.chunk_size, sched.trip)
+            if start_point is None:
+                cache_key = _plan_cache_key(spec, cfg, ni, W, NW)
+                cached = _plan_cache_get(cache_key)
             tpl_refs, split_var = _split_ref_groups(refs, sched, cfg)
             if tpl_refs:
-                tpl = _build_template(tpl_refs, W, cfg, sched, owned, clean,
-                                      spec.line_bases(cfg), spec.array_index,
-                                      body)
+                tpl = cached["tpl"] if cached is not None else \
+                    _build_template(tpl_refs, W, cfg, sched, owned, clean,
+                                    spec.line_bases(cfg), spec.array_index,
+                                    body)
                 if tpl is not None:
                     var_refs = split_var
+        overlays: tuple = ()
+        if build_overlays and clean is not None and var_refs \
+                and (start_point is None or ni != 0):
+            if cached is not None and cached["overlays"] is not None:
+                overlays = cached["overlays"]
+            else:
+                overlays = _build_overlays(spec, var_refs, cfg, sched, clean,
+                                           W, NW, body)
+                if cache_key:
+                    _plan_cache_put(cache_key,
+                                    {"tpl": tpl, "overlays": overlays})
+        elif cache_key and cached is None and tpl is not None:
+            # the template alone, when the overlays are not built
+            _plan_cache_put(cache_key, {"tpl": tpl, "overlays": None})
+        done = {ov.array for ov in overlays}
+        var_novl = tuple(fr for fr in var_refs if fr.ref.array not in done)
         refs_sort, rpg_hist, static_share = refs, None, None
-        if tri and not nest_is_quad(nest):
+        if tri and build_rowpriv and not nest_is_quad(nest):
             # closed-form arrays leave the sort for host histogram tables
             # (+ static share); each group is verified against a brute
             # replay and stays on the sort path on any mismatch
@@ -514,6 +738,7 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
                     else rpg_hist + swg_hist
         nests.append(NestPlan(
             sched, refs_sort, body, owned, W, NW, tpl, clean, var_refs,
+            overlays=overlays, var_refs_novl=var_novl,
             clock=clock, rpg_hist=rpg_hist, static_share=static_share,
             tri_buckets=_tri_buckets(refs_sort, owned, sched, cfg, W, NW)
             if tri else None))
@@ -522,6 +747,45 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
     return StreamPlan(spec=spec, cfg=cfg, nests=tuple(nests),
                       iters_per_thread=iters, nest_base=nest_base,
                       total_count=int(acc.sum()), pos_dtype=pos_dtype)
+
+
+def plan_path(pl: StreamPlan) -> str:
+    """Short label of the paths a plan's windows take: any of ``template``
+    (static-window analysis), ``overlay`` (interleave overlays),
+    ``closed_form`` (row-private and sweep-group tables) and ``sort``
+    (device sort windows), joined with ``+`` when one run mixes them."""
+    parts: list[str] = []
+
+    def add(p: str) -> None:
+        if p not in parts:
+            parts.append(p)
+
+    for np_ in pl.nests:
+        if np_.rpg_hist is not None:
+            add("closed_form")
+        if np_.tpl is not None:
+            add("template")
+        if np_.overlays:
+            add("overlay")
+        if np_.refs and (not bool(np_.ultra_windows().all())
+                         or np_.var_refs_novl):
+            add("sort")
+    return "+".join(parts) or "sort"
+
+
+def describe_path(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
+                  window_accesses: int | None = None, *,
+                  device=None) -> str:
+    """The :func:`plan_path` label of a default :func:`run` of ``spec`` on
+    ``device``, prefixed ``sliced:`` when the auto-dispatch ladder would
+    reroute it to :func:`run_sliced`.  Plans through the shared memo, so
+    it costs nothing after a run."""
+    pl = _plan_cached(spec, cfg, None, None, window_accesses)
+    label = plan_path(pl)
+    if not os.environ.get("PLUSS_NO_AUTO_DISPATCH") and _auto_dispatch(
+            pl, cfg, None, sort_budget(resolve_device(device))) is not None:
+        label = "sliced:" + label
+    return label
 
 
 def _segments_of(np_: NestPlan) -> list[tuple[bool, list[int], tuple | None]]:
@@ -553,14 +817,16 @@ def _array_ranges(refs, spec, cfg) -> tuple[tuple[int, int], ...]:
 
 def _ref_window(fr: FlatRef, np_: NestPlan, cfg: SamplerConfig,
                 owned: torch.Tensor, r0: int, nb: torch.Tensor,
-                line_base: int, pdt: torch.dtype,
+                line_base: int, pdt: torch.dtype, code: int,
                 clock: torch.Tensor | None = None):
-    """``[T, n]`` (line, pos, span, valid) of one ref over rounds
+    """``[T, n]`` (line, pos, code, valid) of one ref over rounds
     [r0, r0+W) for every thread; ``owned`` is the nest's [T, NW*W] chunk
     matrix on the device, ``nb`` the [T] nest clock offsets and ``clock``
-    (bounded nests only) the nest's [T, NW*W*CS] clock table.  Positions
-    and addresses are computed in int64; entries outside the bounds (and
-    padded chunks) may hold any value there, and are masked invalid."""
+    (bounded nests only) the nest's [T, NW*W*CS] clock table.  ``code``
+    (uint8) stands for the ref's share span in the sort, one byte where
+    the span would take four.  Positions and addresses are computed in
+    int64; entries outside the bounds (and padded chunks) may hold any
+    value there, and are masked invalid."""
     CS = cfg.chunk_size
     W = np_.window_rounds
     sched = np_.sched
@@ -611,51 +877,69 @@ def _ref_window(fr: FlatRef, np_: NestPlan, cfg: SamplerConfig,
     for lv, a, b, rl in fr.inner_bounds:
         # quad contract: idx[lv] < a + b*idx[rl], rl an inner level
         valid = valid & (iota(lv + 2) < a + b * iota(rl + 2))
-    line = line_base + torch.div(addr * cfg.ds, cfg.cls, rounding_mode="floor")
+    # in place: the address tensor is this function's own, and a full-size
+    # int64 temporary less lowers the sort window's enumeration peak
+    line = addr.mul_(cfg.ds).div_(cfg.cls, rounding_mode="floor") \
+        .add_(line_base)
+    del addr
     # cast before broadcasting: the copy the reshape makes is then the
     # only full-size one, in the final dtype
     flat = lambda x, dt: x.to(dt).expand(shape).reshape(T, -1)
     return (flat(line, torch.int32), flat(pos, pdt),
-            torch.full((T, int(np.prod(shape[1:]))), fr.ref.share_span or 0,
-                       dtype=torch.int32, device=dev),
+            torch.full((T, int(np.prod(shape[1:]))), code,
+                       dtype=torch.uint8, device=dev),
             flat(valid, torch.bool))
 
 
 def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
                  nb: torch.Tensor, pdt, last_pos: torch.Tensor,
-                 win_shift: int, hist: torch.Tensor, event_hist,
+                 win_shift: int, event_hist,
                  clock: torch.Tensor | None = None):
-    """One sort-path window over ``refs``, ghost-merged with the carry.
+    """One sort-path window over ``refs`` for the rows of ``owned``,
+    ghost-merged with the carry.
 
     The carried ``last_pos`` slices of the covered arrays enter the sort as
     ghost entries, so every access's predecessor is its sorted left
-    neighbour; ``event_hist`` bins the window's events into ``hist`` and the
-    segment tails are written back into ``last_pos`` (both in place).
-    Returns the window's event dict (for the share extraction).
+    neighbour; the segment tails are written back into ``last_pos`` in
+    place.  Returns ``(hist, ev)``: the window's ``[rows, NBINS]`` event
+    histogram from ``event_hist`` and its event dict (for the share
+    extraction).  ``event_hist=None`` is a warm walk: only the tails
+    update, nothing is binned or launched, and both are None.
     """
     r0 = w * np_.window_rounds
     bases = spec.line_bases(cfg)
+    # the sort carries a one-byte code per entry, an index into the
+    # window's share spans (ghosts: span 0), and looks the spans up after
+    spans = sorted({0, *(fr.ref.share_span or 0 for fr in refs)})
     parts = [_ref_window(fr, np_, cfg, owned, r0, nb,
-                         bases[spec.array_index(fr.ref.array)], pdt, clock)
+                         bases[spec.array_index(fr.ref.array)], pdt,
+                         spans.index(fr.ref.share_span or 0), clock)
              for fr in refs]
-    parts += [ghost_entries(last_pos[:, b:b + c], b) for b, c in ranges]
-    key_s, pos_s, span_s, valid_s = sort_stream(
-        *(torch.cat([p[i] for p in parts], dim=1) for i in range(4)))
-    del parts
+    for b, c in ranges:
+        line, pos, _, valid = ghost_entries(last_pos[:, b:b + c], b)
+        parts.append((line, pos, torch.zeros_like(valid, dtype=torch.uint8),
+                      valid))
+    cols = [torch.cat([p[i] for p in parts], dim=1) for i in range(4)]
+    del parts   # the per-ref blocks are not held through the sort
+    key_s, pos_s, code_s, valid_s = sort_columns(cols)   # empties cols
+    span_s = torch.tensor(spans, dtype=torch.int32,
+                          device=code_s.device)[code_s.long()]
+    del code_s
+    tails = extract_tails(key_s, pos_s, valid_s, sum(c for _, c in ranges))
+    off = 0
+    for b, c in ranges:
+        last_pos[:, b:b + c] = tails[:, off:off + c]
+        off += c
+    if event_hist is None:
+        return None, None
     if clock is None:
         win_start = (nb + w * win_shift).to(pdt)
     else:
         # bounded nest: the window's smallest position is the clock at its
         # first stream slot
         win_start = (nb + clock[:, r0 * cfg.chunk_size]).to(pdt)
-    hist += event_hist(key_s, pos_s, span_s, valid_s, win_start)
-    ev = carried_events(key_s, pos_s, span_s, valid_s, win_start)
-    tails = extract_tails(key_s, pos_s, valid_s, sum(c for _, c in ranges))
-    off = 0
-    for b, c in ranges:
-        last_pos[:, b:b + c] = tails[:, off:off + c]
-        off += c
-    return ev
+    return (event_hist(key_s, pos_s, span_s, valid_s, win_start),
+            carried_events(key_s, pos_s, span_s, valid_s, win_start))
 
 
 class _DeviceTemplate:
@@ -705,10 +989,13 @@ class SamplerResult:
     ``share[t]`` is ``_SharePRI[t]`` (raw keys under the share-ratio group
     T-1), ``max_iteration_count`` the printed "max iteration traversed"."""
 
-    noshare_dense: np.ndarray   # [T, NBINS] int64
+    noshare_dense: np.ndarray   # [T, NBINS] int64 (float64 when sampled)
     share_raw: list[dict]       # [T] {raw reuse: count}
     share_ratio: int
     max_iteration_count: int
+    #: fraction of the stream actually walked: 1.0 for a full run, below 1
+    #: only for :mod:`pluss_torch.sampling` estimates (float counts)
+    sampled_fraction: float = 1.0
 
     @property
     def thread_num(self) -> int:
@@ -751,11 +1038,14 @@ def add_static_share(share_raw: list[dict],
 
 
 def merge_share_windows(keys: list[torch.Tensor], cnts: list[torch.Tensor],
-                        thread_num: int) -> list[dict]:
+                        thread_num: int, sign: int = 1,
+                        out: list[dict] | None = None) -> list[dict]:
     """Host merge of the per-window share uniques into per-thread raw
     dicts: one device-side unique over every window's packed keys, one copy
-    to the host."""
-    out: list[dict] = [dict() for _ in range(thread_num)]
+    to the host.  ``sign=-1`` with an existing ``out`` subtracts (the
+    overlays' substituted template events that never happened)."""
+    if out is None:
+        out = [dict() for _ in range(thread_num)]
     if not keys:
         return out
     uniq, tot = share_unique(torch.cat(keys), torch.cat(cnts))
@@ -763,8 +1053,51 @@ def merge_share_windows(keys: list[torch.Tensor], cnts: list[torch.Tensor],
     tid = uniq >> SHARE_SHIFT
     vals = uniq & ((1 << SHARE_SHIFT) - 1)
     for t, v, c in zip(tid.tolist(), vals.tolist(), tot.tolist()):
-        out[t][v] = c
+        out[t][v] = out[t].get(v, 0) + sign * c
     return out
+
+
+def overlay_static_share(share_raw: list[dict], pl: StreamPlan) -> None:
+    """Host-side static share accounting of the overlay nests.
+
+    Per ultra window, every thread's window contributes each overlaid
+    group's static in-window share events (shift-invariant, like the main
+    template's), MINUS the sweeping group's per-line static share on that
+    window's collision lines: those lines' events were emitted exactly by
+    the device's arrival corrections instead.  Counts may go negative here
+    for a while; :func:`_finalize` settles them.
+    """
+    cfg = pl.cfg
+    T = cfg.thread_num
+    for np_ in pl.nests:
+        ultra = np.nonzero(np_.ultra_windows())[0]
+        if not len(ultra) or not np_.overlays:
+            continue
+        for ov in np_.overlays:
+            pairs = list(zip(ov.d_share_vals.tolist(),
+                             (ov.d_share_cnts * len(ultra)).tolist())) + \
+                list(zip(ov.s_share_vals.tolist(),
+                         (ov.s_share_cnts * len(ultra)).tolist()))
+            CSR = cfg.chunk_size * ov.R
+            for t in range(T):
+                d = share_raw[t]
+                for v, c in pairs:
+                    d[v] = d.get(v, 0) + c
+                # collision lines of every ultra window of this thread
+                lines = []
+                for w in ultra.tolist():
+                    for r in range(np_.window_rounds):
+                        rs = (((w * np_.window_rounds + r) * T + t)
+                              * cfg.chunk_size)
+                        lines.append(np.arange(rs * ov.R, rs * ov.R + CSR))
+                lines = np.concatenate(lines)
+                vals = ov.s_line_share_val[lines].ravel()
+                cnts = ov.s_line_share_cnt[lines].ravel()
+                nz = cnts > 0
+                uv, idx = np.unique(vals[nz], return_inverse=True)
+                uc = np.bincount(idx, weights=cnts[nz]).astype(np.int64)
+                for v, c in zip(uv.tolist(), uc.tolist()):
+                    d[v] = d.get(v, 0) - c
 
 
 def resolve_device(device=None) -> torch.device:
@@ -779,85 +1112,350 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def _normalize_thread_batch(thread_batch: int | None,
+                            cfg: SamplerConfig) -> int | None:
+    """Validate ``thread_batch`` and collapse the values that mean all
+    threads at once to None."""
+    if thread_batch is None:
+        return None
+    if thread_batch < 1:
+        raise ValueError(f"thread_batch must be >= 1, got {thread_batch}")
+    return None if thread_batch >= cfg.thread_num else thread_batch
+
+
+def _segment_entries_per_window(np_: NestPlan, cfg: SamplerConfig,
+                                n_lines: int, is_ultra: bool,
+                                brefs) -> int:
+    """Sorted entries one window of this segment puts on the device, per
+    thread.  Ultra windows sort only the template-ineligible remainder
+    (the template and overlay part is O(lines), counted as the ghost
+    term)."""
+    refs = np_.var_refs_novl if is_ultra else (brefs or np_.refs)
+    per_iter = sum(int(np.prod(fr.trips[1:], dtype=np.int64)) for fr in refs)
+    return np_.window_rounds * cfg.chunk_size * per_iter + n_lines
+
+
+def _dispatch_entry_budget() -> int:
+    """Sorted entries per slice of a sliced run, across its concurrent
+    threads (``PLUSS_MAX_DISPATCH_ENTRIES``, default 2^28)."""
+    return int(os.environ.get("PLUSS_MAX_DISPATCH_ENTRIES", 1 << 28))
+
+
+def _slice_schedule(pl: StreamPlan, cfg: SamplerConfig,
+                    thread_batch: int | None,
+                    budget: int) -> list[tuple[int, int, list]]:
+    """A sliced run's schedule: ``(ni, si, window ids)`` slices of the
+    segments (:func:`_segments_of`) in execution order, each sized to
+    ``budget`` sorted entries across the thread batch."""
+    n_lines = pl.spec.total_lines(cfg)
+    conc = thread_batch or cfg.thread_num
+    out: list[tuple[int, int, list]] = []
+    for ni, np_ in enumerate(pl.nests):
+        for si, (is_ultra, w_list, brefs) in enumerate(_segments_of(np_)):
+            epw = _segment_entries_per_window(np_, cfg, n_lines,
+                                              is_ultra, brefs)
+            wpd = max(1, min(len(w_list), budget // max(1, epw * conc)))
+            for lo in range(0, len(w_list), wpd):
+                out.append((ni, si, w_list[lo:lo + wpd]))
+    return out
+
+
+def _auto_dispatch(pl: StreamPlan, cfg: SamplerConfig,
+                   thread_batch: int | None, limit: int):
+    """How to run a plan within ``limit`` device bytes: None for the
+    plain run of every thread at once, or ``(thread_batch, reason)`` for
+    :func:`run_sliced`.
+
+    Two ceilings, the JAX package's: the estimated time of the whole
+    stream as one dispatch (sorted entries over ``PLUSS_DISPATCH_ENTRY_RATE``,
+    default 5e7/s, against ``PLUSS_MAX_DISPATCH_S``, default 30 s), and
+    memory: the largest sort window times the thread concurrency against
+    ``limit``, halving the concurrency until it fits (1 is the last rung:
+    one window must fit, or the run's budget check raises).  Host math
+    only: for the same plan, environment and limit this is the JAX
+    package's decision.
+    """
+    T = cfg.thread_num
+    n_lines = pl.spec.total_lines(cfg)
+    rate = float(os.environ.get("PLUSS_DISPATCH_ENTRY_RATE", 5e7))
+    ceiling_s = float(os.environ.get("PLUSS_MAX_DISPATCH_S", 30))
+    total_entries = 0
+    max_window_bytes = 0
+    for np_ in pl.nests:
+        for is_ultra, w_list, brefs in _segments_of(np_):
+            epw = _segment_entries_per_window(np_, cfg, n_lines, is_ultra,
+                                              brefs)
+            total_entries += epw * len(w_list) * T
+            refs = np_.var_refs_novl if is_ultra else (brefs or np_.refs)
+            if refs:
+                max_window_bytes = max(max_window_bytes, sort_window_bytes(
+                    np_, cfg, pl.pos_dtype, n_lines, refs))
+    conc = thread_batch or T
+    while conc > 1 and max_window_bytes * conc > limit:
+        conc = (conc + 1) // 2
+    est_s = total_entries / rate
+    if est_s <= ceiling_s and conc == (thread_batch or T):
+        return None
+    reasons = []
+    if est_s > ceiling_s:
+        reasons.append(f"estimated {est_s:.0f}s single-executable time "
+                       f"exceeds the {ceiling_s:.0f}s dispatch ceiling")
+    if conc != (thread_batch or T):
+        reasons.append(f"sort-window memory {max_window_bytes / 2**30:.2f}"
+                       f" GiB/window caps thread concurrency at {conc}")
+    return _normalize_thread_batch(conc, cfg), "; ".join(reasons)
+
+
+def _freeze(assignment):
+    """Per-nest assignments as hashable tuples (the plan memo's key)."""
+    if assignment is None:
+        return None
+    return tuple(tuple(a) if a is not None else None for a in assignment)
+
+
+@functools.lru_cache(maxsize=32)
+def _plan_cached(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
+                 start_point, window_accesses) -> StreamPlan:
+    """The process's plan memo, shared by :func:`run`, :func:`run_sliced`,
+    :func:`precompile` and :func:`describe_path`."""
+    return plan(spec, cfg, assignment, start_point, window_accesses)
+
+
+#: (spec, cfg, window_accesses) of default runs warmed in this process
+_warm_keys: set = set()
+
+
 def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
         assignment=None, start_point: int | None = None,
-        window_accesses: int | None = None) -> SamplerResult:
+        window_accesses: int | None = None,
+        thread_batch: int | None = None) -> SamplerResult:
     """Run the sampler on ``device`` (default: the CUDA card).
 
     ``assignment``: optional per-nest chunk->thread maps; ``start_point``:
     resume iteration value of the first nest; ``window_accesses``:
-    accesses per window per thread (default WINDOW_TARGET).  The sort
-    windows must fit the device's budget (:func:`sort_budget`), else this
-    raises before any window runs.
+    accesses per window per thread (default WINDOW_TARGET);
+    ``thread_batch``: threads whose windows run at once (default all).
+
+    A plan whose concurrent sort windows exceed the device's budget
+    (:func:`sort_budget`), or whose stream is past the one-dispatch time
+    ceiling, goes through :func:`run_sliced` with the thread batch that
+    :func:`_auto_dispatch` picks (same result; a line on stderr says so;
+    ``PLUSS_NO_AUTO_DISPATCH=1`` turns this off).  Sort windows that do
+    not fit even one at a time raise before any window runs.
     """
     dev = resolve_device(device)
-    if assignment is not None:
-        assignment = tuple(tuple(a) if a is not None else None
-                           for a in assignment)
-    pl = plan(spec, cfg, assignment, start_point, window_accesses)
-    check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, sort_budget(dev))
-    return _execute(pl, dev)
+    assignment = _freeze(assignment)
+    tb = _normalize_thread_batch(thread_batch, cfg)
+    pl = _plan_cached(spec, cfg, assignment, start_point, window_accesses)
+    limit = sort_budget(dev)
+    budget = None
+    if not os.environ.get("PLUSS_NO_AUTO_DISPATCH"):
+        decision = _auto_dispatch(pl, cfg, tb, limit)
+        if decision is not None:
+            tb, reason = decision
+            print(f"engine: auto-sliced dispatch (thread_batch="
+                  f"{tb or cfg.thread_num}): {reason}", file=sys.stderr)
+            budget = _dispatch_entry_budget()
+    check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, limit, tb)
+    if assignment is None and start_point is None:
+        _warm_keys.add((spec, cfg, window_accesses))
+    return _execute(pl, dev, thread_batch=tb, dispatch_entries=budget)
+
+
+def run_sliced(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
+               device=None, assignment=None, start_point=None,
+               window_accesses=None, thread_batch: int | None = None,
+               max_dispatch_entries: int | None = None) -> SamplerResult:
+    """The sampler run as slices of windows, ``thread_batch`` threads at
+    a time (default all).
+
+    The slices (:func:`_slice_schedule`, ``max_dispatch_entries`` sorted
+    entries each, default :func:`_dispatch_entry_budget`) run in stream
+    order; within a slice each thread batch walks the slice's windows
+    against its own rows of the carried table, so the device holds the
+    sort windows of one batch at a time, and the slice's share uniques
+    fold into one before the next slice.  Equal to :func:`run`.
+    """
+    dev = resolve_device(device)
+    assignment = _freeze(assignment)
+    tb = _normalize_thread_batch(thread_batch, cfg)
+    pl = _plan_cached(spec, cfg, assignment, start_point, window_accesses)
+    check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, sort_budget(dev),
+                      tb)
+    return _execute(pl, dev, thread_batch=tb,
+                    dispatch_entries=max_dispatch_entries
+                    or _dispatch_entry_budget())
+
+
+def precompile(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
+               device=None, assignment=None, start_point=None,
+               window_accesses=None,
+               thread_batch: int | None = None) -> str:
+    """Warm what :func:`run` needs, without running: the plan (into the
+    process memo and the disk plan cache) and, on a CUDA device when the
+    plan sorts anything, the event-histogram kernel.  Returns the path
+    :func:`run` would take: ``'sliced'`` when the auto-dispatch ladder
+    reroutes, else ``'full'``."""
+    dev = resolve_device(device)
+    assignment = _freeze(assignment)
+    tb = _normalize_thread_batch(thread_batch, cfg)
+    pl = _plan_cached(spec, cfg, assignment, start_point, window_accesses)
+    if dev.type == "cuda" and any(np_.refs for np_ in pl.nests):
+        build.load("event_hist")
+    if assignment is None and start_point is None:
+        _warm_keys.add((spec, cfg, window_accesses))
+    if os.environ.get("PLUSS_NO_AUTO_DISPATCH") or \
+            _auto_dispatch(pl, cfg, tb, sort_budget(dev)) is None:
+        return "full"
+    return "sliced"
+
+
+def is_warm(spec: LoopNestSpec, cfg: SamplerConfig,
+            window_accesses: int | None = None) -> bool:
+    """Whether a default run of ``spec`` (no assignment, no start point)
+    was planned by :func:`run` or :func:`precompile` in this process: a
+    hint (the memo may have evicted the plan since), never needed for a
+    correct result."""
+    return (spec, cfg, window_accesses) in _warm_keys
+
+
+class _NestTensors:
+    """One nest's plan arrays on the device, for every thread row."""
+
+    def __init__(self, np_: NestPlan, spec, cfg, pdt, device):
+        as_dev = lambda a: None if a is None else \
+            torch.as_tensor(a, device=device)
+        self.np_ = np_
+        self.owned = torch.as_tensor(np_.owned, device=device) \
+            .to(torch.int64)
+        self.clock = as_dev(np_.clock)
+        self.rpg = as_dev(np_.rpg_hist)
+        self.win_shift = np_.window_rounds * cfg.chunk_size * np_.body
+        self.all_ranges = _array_ranges(np_.refs, spec, cfg)
+        self.var_ranges = _array_ranges(np_.var_refs_novl, spec, cfg)
+        self.dtpl = None if np_.tpl is None else \
+            _DeviceTemplate(np_.tpl, pdt, device)
+        self.dovl = [DeviceOverlay(ov, device) for ov in np_.overlays]
+        self.segments = _segments_of(np_)
+
+
+class _Walk:
+    """The device state of one run: the carried ``last_pos [T, lines]``
+    table, the ``[T, NBINS]`` histogram and the share uniques, which
+    :meth:`window` advances for any contiguous range of thread rows."""
+
+    def __init__(self, pl: StreamPlan, device: torch.device, event_hist):
+        cfg, spec = pl.cfg, pl.spec
+        T = cfg.thread_num
+        self.pl, self.cfg, self.spec = pl, cfg, spec
+        self.event_hist = event_hist
+        self.pdt = torch.int32 if pl.pos_dtype == np.int32 else torch.int64
+        self.last_pos = torch.full((T, spec.total_lines(cfg)), -1,
+                                   dtype=self.pdt, device=device)
+        self.hist = torch.zeros((T, NBINS), dtype=torch.int64, device=device)
+        self.tids = torch.arange(T, dtype=torch.int64, device=device)
+        self.nest_base = torch.as_tensor(pl.nest_base, device=device)
+        self.nests = [_NestTensors(np_, spec, cfg, self.pdt, device)
+                      for np_ in pl.nests]
+        # share uniques to add, and the overlays' to subtract
+        self.plus: list[tuple[torch.Tensor, torch.Tensor]] = []
+        self.minus: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+    def window(self, ni: int, si: int, w: int, rows: slice) -> None:
+        """Window ``w`` of segment ``si`` of nest ``ni`` for thread
+        ``rows``: every update lands in place in those rows."""
+        nt = self.nests[ni]
+        np_, cfg, spec, pdt = nt.np_, self.cfg, self.spec, self.pdt
+        is_ultra, _, brefs = nt.segments[si]
+        last_pos, hist = self.last_pos[rows], self.hist[rows]
+        tids, nb, owned = self.tids[rows], self.nest_base[ni, rows], \
+            nt.owned[rows]
+        cand, minus = [], []
+        if is_ultra:
+            # template-ineligible arrays without an overlay sort inside the
+            # clean window too; the arrays' line ranges are disjoint, so
+            # the parts update the carried table independently
+            if np_.var_refs_novl:
+                dh, ev = _sort_window(np_, np_.var_refs_novl, nt.var_ranges,
+                                      spec, cfg, owned, w, nb, pdt, last_pos,
+                                      nt.win_shift, self.event_hist)
+                hist += dh
+                cand.append((ev["reuse"], ev["share"]))
+            for dov in nt.dovl:
+                dh, plus, sub = device_window(dov, cfg, w, tids, nb, last_pos)
+                hist += dh
+                cand.append(plus)
+                minus.append(sub)
+            if nt.dtpl is not None:
+                cand.append(_template_window(nt.dtpl, w, tids, nb, pdt,
+                                             last_pos, hist))
+        elif np_.refs:
+            # a window whose arrays are all closed-form sorts nothing and
+            # launches nothing
+            clock = None if nt.clock is None else nt.clock[rows]
+            dh, ev = _sort_window(np_, brefs or np_.refs, nt.all_ranges,
+                                  spec, cfg, owned, w, nb, pdt, last_pos,
+                                  nt.win_shift, self.event_hist, clock)
+            hist += dh
+            cand.append((ev["reuse"], ev["share"]))
+        if nt.rpg is not None:
+            hist += nt.rpg[rows, w]
+        for out, pairs in ((self.plus, cand), (self.minus, minus)):
+            if pairs:
+                out.append(share_unique(torch.cat(
+                    [share_keys(r, s, tids) for r, s in pairs])))
+
+    def fold(self) -> None:
+        """Merge the share uniques gathered so far into one pair each."""
+        for lst in (self.plus, self.minus):
+            if len(lst) > 1:
+                lst[:] = [share_unique(torch.cat([k for k, _ in lst]),
+                                       torch.cat([c for _, c in lst]))]
+
+    def result(self) -> SamplerResult:
+        return _finalize(self.pl, self.hist.cpu().numpy(), self.plus,
+                         self.minus)
 
 
 def _execute(pl: StreamPlan, device: torch.device,
-             event_hist=event_histogram) -> SamplerResult:
+             event_hist=event_histogram, thread_batch: int | None = None,
+             dispatch_entries: int | None = None) -> SamplerResult:
     """Run a plan's windows on ``device`` and finalize on the host.
 
-    ``event_hist`` is the sort windows' histogram function: the kernel
-    wrapper, or its plain version when ``chip_smoke.py`` cross-checks the
-    kernel end to end on the card.
+    ``thread_batch`` rows walk together (default all); with
+    ``dispatch_entries`` the segments split into :func:`_slice_schedule`'s
+    slices, each folding its share uniques, else each segment is one
+    slice.  ``event_hist`` is the sort windows' histogram function: the
+    kernel wrapper, or its plain version when ``chip_smoke.py``
+    cross-checks the kernel end to end on the card.
     """
-    cfg, spec = pl.cfg, pl.spec
+    cfg = pl.cfg
     T = cfg.thread_num
-    pdt = torch.int32 if pl.pos_dtype == np.int32 else torch.int64
-    last_pos = torch.full((T, spec.total_lines(cfg)), -1, dtype=pdt,
-                          device=device)
-    hist = torch.zeros((T, NBINS), dtype=torch.int64, device=device)
-    tids = torch.arange(T, dtype=torch.int64, device=device)
-    nest_base = torch.as_tensor(pl.nest_base, device=device)   # int64
-    as_dev = lambda a: None if a is None else torch.as_tensor(a, device=device)
-    keys: list[torch.Tensor] = []
-    cnts: list[torch.Tensor] = []
-    for ni, np_ in enumerate(pl.nests):
-        owned = torch.as_tensor(np_.owned, device=device).to(torch.int64)
-        nb = nest_base[ni]
-        clock = as_dev(np_.clock)
-        rpg = as_dev(np_.rpg_hist)
-        win_shift = np_.window_rounds * cfg.chunk_size * np_.body
-        all_ranges = _array_ranges(np_.refs, spec, cfg)
-        var_ranges = _array_ranges(np_.var_refs, spec, cfg)
-        dtpl = None if np_.tpl is None else \
-            _DeviceTemplate(np_.tpl, pdt, device)
-        for is_ultra, w_list, brefs in _segments_of(np_):
+    step = thread_batch or T
+    if dispatch_entries:
+        slices = _slice_schedule(pl, cfg, thread_batch, dispatch_entries)
+    else:
+        slices = [(ni, si, w_list) for ni, np_ in enumerate(pl.nests)
+                  for si, (_, w_list, _) in enumerate(_segments_of(np_))]
+    walk = _Walk(pl, device, event_hist)
+    for ni, si, w_list in slices:
+        for lo in range(0, T, step):
+            rows = slice(lo, min(T, lo + step))
             for w in w_list:
-                cand = []
-                if is_ultra:
-                    # template-ineligible arrays sort inside the clean
-                    # window too; disjoint line ranges make the two
-                    # updates order-independent
-                    if np_.var_refs:
-                        ev = _sort_window(np_, np_.var_refs, var_ranges,
-                                          spec, cfg, owned, w, nb, pdt,
-                                          last_pos, win_shift, hist,
-                                          event_hist)
-                        cand.append((ev["reuse"], ev["share"]))
-                    cand.append(_template_window(dtpl, w, tids, nb, pdt,
-                                                 last_pos, hist))
-                elif np_.refs:
-                    # a window whose arrays are all closed-form sorts
-                    # nothing and launches nothing
-                    ev = _sort_window(np_, brefs or np_.refs, all_ranges,
-                                      spec, cfg, owned, w, nb, pdt, last_pos,
-                                      win_shift, hist, event_hist, clock)
-                    cand.append((ev["reuse"], ev["share"]))
-                if rpg is not None:
-                    hist += rpg[:, w]
-                if cand:
-                    k, c = share_unique(torch.cat([share_keys(r, s)
-                                                   for r, s in cand]))
-                    keys.append(k)
-                    cnts.append(c)
-    share_raw = merge_share_windows(keys, cnts, T)
+                walk.window(ni, si, w, rows)
+        walk.fold()
+    return walk.result()
+
+
+def _finalize(pl: StreamPlan, hist: np.ndarray, plus, minus) -> SamplerResult:
+    """Merge the share uniques (the overlays' subtractions too), add the
+    host-side static share constants, and box the result.  Overlay runs
+    drop values whose net count is 0 and raise on a negative one."""
+    T = pl.cfg.thread_num
+    share_raw = merge_share_windows([k for k, _ in plus],
+                                    [c for _, c in plus], T)
+    merge_share_windows([k for k, _ in minus], [c for _, c in minus], T,
+                        sign=-1, out=share_raw)
     # static in-window share events of ultra windows are host-side
     # constants: identical values and counts for every clean window
     add_static_share(share_raw,
@@ -867,6 +1465,16 @@ def _execute(pl: StreamPlan, device: torch.device,
         for d, adds in zip(share_raw, n_.static_share or ()):
             for v, c in adds.items():
                 d[v] = d.get(v, 0) + c
-    return SamplerResult(noshare_dense=hist.cpu().numpy(),
-                         share_raw=share_raw, share_ratio=T - 1,
+    if any(n.overlays for n in pl.nests):
+        overlay_static_share(share_raw, pl)
+        for t, d in enumerate(share_raw):
+            bad = {v: c for v, c in d.items() if c < 0}
+            if bad:
+                raise RuntimeError(
+                    f"overlay share accounting went negative (thread {t}): "
+                    f"{bad}")
+            for v in [v for v, c in d.items() if c == 0]:
+                d.pop(v)
+    return SamplerResult(noshare_dense=hist, share_raw=share_raw,
+                         share_ratio=T - 1,
                          max_iteration_count=pl.total_count)

@@ -56,18 +56,37 @@ def sort_stream(line, pos, span, valid):
     order.  int64 positions take two stable sorts, position then line.
     Returns ``(key_s int32, pos_s, span_s int32, valid_s bool)``.
     """
+    return sort_columns([line, pos, span, valid])
+
+
+def sort_columns(cols: list):
+    """:func:`sort_stream` of ``cols = [line, pos, span, valid]``, which it
+    empties: each input is dropped as soon as it is consumed, so a caller
+    that keeps no other reference to them does not hold them through the
+    sort (its buffers and workspace set the sort window's peak memory)."""
+    line, pos, span, valid = cols
+    cols.clear()
     key = torch.where(valid, line, LINE_SENTINEL)
+    del line, valid
     if pos.dtype == torch.int32:
-        packed = (key.to(torch.int64) << 32) | (pos.to(torch.int64)
-                                                 - _INT32_MIN)
+        packed = key.to(torch.int64).bitwise_left_shift_(32)
+        del key
+        packed.bitwise_or_(pos.to(torch.int64) - _INT32_MIN)
+        del pos
         packed, order = torch.sort(packed, dim=-1)
         key_s = (packed >> 32).to(torch.int32)
         pos_s = ((packed & 0xFFFFFFFF) + _INT32_MIN).to(torch.int32)
+        del packed
     else:
-        _, order = torch.sort(pos, dim=-1, stable=True)
-        key_s, by_key = torch.sort(key.gather(-1, order), dim=-1, stable=True)
+        # the sorted values are not kept: only the permutation is needed
+        order = torch.sort(pos, dim=-1, stable=True)[1]
+        key = key.gather(-1, order)
+        key_s, by_key = torch.sort(key, dim=-1, stable=True)
+        del key
         order = order.gather(-1, by_key)
+        del by_key
         pos_s = pos.gather(-1, order)
+        del pos
     return key_s, pos_s, span.gather(-1, order), key_s != LINE_SENTINEL
 
 
@@ -147,24 +166,33 @@ def bin_histogram(bins: torch.Tensor, wgt: torch.Tensor,
     return out[..., :num_segments]
 
 
-def share_keys(reuse: torch.Tensor, share: torch.Tensor) -> torch.Tensor:
+def share_keys(reuse: torch.Tensor, share: torch.Tensor,
+               tids: torch.Tensor | None = None) -> torch.Tensor:
     """Packed ``thread << SHARE_SHIFT | reuse`` keys of the share events of a
-    ``[T, n]`` batch (row index = simulated thread), as a 1-D int64 tensor."""
-    tid = torch.arange(reuse.shape[0], dtype=torch.int64,
-                       device=reuse.device)[:, None].expand(reuse.shape)
-    return ((tid << SHARE_SHIFT) | reuse.to(torch.int64))[share]
+    ``[T, n]`` batch, as a 1-D int64 tensor.  Row ``i`` is simulated thread
+    ``tids[i]`` (default: the row index)."""
+    if tids is None:
+        tids = torch.arange(reuse.shape[0], device=reuse.device)
+    # select first: the packing then touches only the share events
+    tid = tids.to(torch.int64)[:, None].expand(reuse.shape)[share]
+    return (tid << SHARE_SHIFT) | reuse[share].to(torch.int64)
 
 
 def share_unique(keys: torch.Tensor, counts: torch.Tensor | None = None):
     """Exact ``(unique keys, counts)`` of packed share keys; ``counts``
     weighs each key (default 1).  The reference keeps share reuses raw until
     the racetrack post-pass, so values must be exact — no capacity, so no
-    overflow and no retry."""
+    overflow and no retry.
+
+    Both results are compact copies: on CUDA ``torch.unique`` shrinks its
+    outputs with ``resize_``, which keeps a buffer the size of ``keys``,
+    and a run holds every window's uniques until it merges them."""
     if counts is None:
-        return torch.unique(keys, return_counts=True)
+        uniq, cnt = torch.unique(keys, return_counts=True)
+        return uniq.clone(), cnt.clone()
     uniq, inv = torch.unique(keys, return_inverse=True)
     tot = torch.zeros(uniq.shape, dtype=torch.int64, device=keys.device)
-    return uniq, tot.scatter_add_(0, inv, counts.to(torch.int64))
+    return uniq.clone(), tot.scatter_add_(0, inv, counts.to(torch.int64))
 
 
 def window_events(key_s, pos_s, valid_s, last_pos):

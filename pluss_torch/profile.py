@@ -3,7 +3,8 @@
     python -m pluss_torch.profile --model mvt --n 4000
     python -m pluss_torch.profile --trace trace.bin
 
-Prints one JSON object per model: the host plan's seconds, the wall
+Prints one JSON object per model: the plan's window paths
+(``engine.plan_path``), the host plan's seconds, the wall
 seconds of the device part (``engine._execute``, which ends in the copy of
 the result to the host) and its refs/s and peak device memory, the device
 busy seconds (the sum of every kernel,
@@ -81,7 +82,8 @@ def profile_run(spec, cfg: SamplerConfig, top: int = 8) -> dict:
     _, wall, busy, ops, kernels = profiled(lambda: engine._execute(pl, dev),
                                            top)
     return {
-        "model": spec.name, "refs": pl.total_count, "plan_s": plan_s,
+        "model": spec.name, "refs": pl.total_count,
+        "path": engine.plan_path(pl), "plan_s": plan_s,
         "device_part_wall_s": wall,
         "refs_per_s": pl.total_count / wall,
         "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,

@@ -369,3 +369,69 @@ def test_bounded_nests_on_the_card_match_the_cpu(cuda_device, model, n, win,
     pl = engine.plan(spec, assignment=assignment, window_accesses=win)
     assert event_histogram.launches == sum(
         np_.n_windows for np_ in pl.nests if np_.refs)
+
+
+def sort_launches(pl, thread_batches: int = 1) -> int:
+    """Kernel-1 launches of a plan: one per window that sorts something
+    (every non-ultra window with refs; an ultra window only for arrays
+    left without a template or overlay), per thread batch."""
+    n = 0
+    for np_ in pl.nests:
+        ultra = np_.ultra_windows()
+        n += int((~ultra).sum()) * bool(np_.refs) \
+            + int(ultra.sum()) * bool(np_.var_refs_novl)
+    return n * thread_batches
+
+
+@pytest.mark.parametrize("model,n,cls", [("syrk", 32, 64), ("syrk", 48, 8),
+                                         ("syr2k", 32, 64)])
+def test_overlays_on_the_card_match_the_cpu(cuda_device, model, n, cls):
+    from pluss_torch import engine
+    from pluss_torch.config import SamplerConfig
+    from pluss_torch.models import REGISTRY
+
+    spec, cfg = REGISTRY[model](n), SamplerConfig(cls=cls)
+    pl = engine.plan(spec, cfg, window_accesses=1)
+    assert pl.nests[0].overlays
+    event_histogram.launches = 0
+    got = engine._execute(pl, cuda_device)
+    assert event_histogram.launches == sort_launches(pl)
+    want = engine._execute(pl, torch.device("cpu"))
+    np.testing.assert_array_equal(got.noshare_dense, want.noshare_dense)
+    assert got.share_raw == want.share_raw
+    off = engine._execute(engine.plan(spec, cfg, window_accesses=1,
+                                      build_overlays=False), cuda_device)
+    np.testing.assert_array_equal(off.noshare_dense, want.noshare_dense)
+    assert off.share_raw == want.share_raw
+
+
+@pytest.mark.parametrize("tb", [1, 2, 3])
+def test_sliced_runs_on_the_card_match_the_full_run(cuda_device, tb):
+    from pluss_torch import engine
+    from pluss_torch.models import REGISTRY
+
+    spec = REGISTRY["cholesky"](48)
+    want = engine.run(spec, device=cuda_device, window_accesses=1)
+    event_histogram.launches = 0
+    got = engine.run_sliced(spec, device=cuda_device, window_accesses=1,
+                            thread_batch=tb, max_dispatch_entries=1)
+    pl = engine.plan(spec, window_accesses=1)
+    assert event_histogram.launches == sort_launches(pl, -(-4 // tb))
+    np.testing.assert_array_equal(got.noshare_dense, want.noshare_dense)
+    assert got.share_raw == want.share_raw
+
+
+@pytest.mark.parametrize("mode", ["uniform", "prefix"])
+def test_sampling_on_the_card_matches_the_cpu(cuda_device, mode):
+    from pluss_torch import sampling
+    from pluss_torch.models import REGISTRY
+
+    spec = REGISTRY["gemm"](64)
+    kw = dict(rate=0.5, window_accesses=1, seed=1, mode=mode)
+    event_histogram.launches = 0
+    got = sampling.sampled_run(spec, device=cuda_device, **kw)
+    assert event_histogram.launches == 2
+    want = sampling.sampled_run(spec, device="cpu", **kw)
+    np.testing.assert_array_equal(got.noshare_dense, want.noshare_dense)
+    assert got.share_raw == want.share_raw
+    assert got.sampled_fraction == want.sampled_fraction

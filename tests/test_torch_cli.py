@@ -4,7 +4,8 @@
 timing banner, what ``python -m pluss.cli acc --cpu --backends vmap``
 prints for the same model (the reference's differential ``acc`` test);
 ``trace --cpu`` must print what ``python -m pluss.cli trace --cpu`` prints
-below its banner and write the same MRC CSV, byte for byte.
+below its banner and write the same MRC CSV, byte for byte; ``sample
+--cpu`` prints exactly what ``python -m pluss.cli sample --cpu`` prints.
 """
 
 import os
@@ -56,6 +57,43 @@ def test_module_entry_runs_with_jax_and_pluss_blocked(capsys):
     jax_cli.main(["acc", "--cpu", "--backends", "vmap", "--model", "gemm",
                   "--n", "16"])
     assert body(out.stdout) == body(capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--n", "32", "--window", "1", "--rates", "0.5,1.0"],
+    ["--n", "32", "--window", "1", "--rates", "0.5", "--sample-mode",
+     "prefix"],
+    ["--n", "32", "--window", "4096", "--context", "0", "--rates", "0.5"],
+])
+def test_sample_mode_matches_jax_cli(extra, capsys):
+    jax_cli.main(["sample", "--cpu", "--model", "gemm", *extra])
+    want = capsys.readouterr().out
+    assert cli.main(["sample", "--cpu", "--model", "gemm", *extra]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    assert got.splitlines()[1] == "rate,walked_fraction,l2_error"
+
+
+def test_sample_module_entry_runs_with_jax_and_pluss_blocked(capsys):
+    code = ("import runpy, sys; sys.modules['jax'] = None; "
+            "sys.modules['pluss'] = None; "
+            "sys.argv = ['pluss_torch.cli', 'sample', '--cpu', '--model', "
+            "'gemm', '--n', '16']; "
+            "runpy.run_module('pluss_torch.cli', run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    jax_cli.main(["sample", "--cpu", "--model", "gemm", "--n", "16"])
+    assert out.stdout == capsys.readouterr().out
+
+
+def test_start_point_matches_jax_cli(capsys):
+    args = ["acc", "--cpu", "--model", "trmm", "--n", "16", "--start-point",
+            "8"]
+    jax_cli.main(args + ["--backends", "vmap"])
+    want = capsys.readouterr().out
+    assert cli.main(args) == 0
+    assert body(capsys.readouterr().out) == body(want)
 
 
 def test_speed_and_mrc_modes(tmp_path, capsys):

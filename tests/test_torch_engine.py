@@ -4,7 +4,7 @@
   JAX package's), built by the JAX package and carried through its codec
   JSON, decodes to the port's own spec;
 - plan parity: the port's host plan equals ``pluss.engine.plan`` on
-  rectangular nests (without overlays, which the port does not build;
+  rectangular nests (overlays field by field: tests/test_torch_overlay.py;
   bounded nests: tests/test_torch_triangular.py);
 - end to end: ``pluss.engine.run`` vs ``pluss_torch.engine.run(device=
   "cpu")`` on JAX-built specs, then CRI and MRC.  Histograms, share dicts
@@ -53,7 +53,7 @@ PLAN_CASES = [
     ("gemm", 13, {}, None),        # partial chunks: sort windows
     ("gemm", 24, {}, 1),           # mixed ultra/sort segments
     ("mvt", 64, {}, None),         # template + sort (var refs)
-    ("syrk", 16, {}, None),        # mixed-coefficient array on the sort path
+    ("syrk", 16, {}, None),        # mixed-coefficient array: an overlay
     ("atax", 16, {"cls": 8}, None),
     ("bicg", 16, {"thread_num": 1}, None),
 ]
@@ -62,8 +62,7 @@ PLAN_CASES = [
 @pytest.mark.parametrize("model,n,kw,win", PLAN_CASES)
 def test_plan_matches_jax(model, n, kw, win):
     jp = jax_engine.plan(jax_models.REGISTRY[model](n), JaxConfig(**kw),
-                         window_accesses=win, build_overlays=False,
-                         build_rowpriv=False)
+                         window_accesses=win, build_rowpriv=False)
     tp = engine.plan(carried(model, n), SamplerConfig(**kw),
                      window_accesses=win)
     assert tp.pos_dtype == jp.pos_dtype
@@ -79,6 +78,10 @@ def test_plan_matches_jax(model, n, kw, win):
             np.testing.assert_array_equal(a.clean, b.clean)
         assert [f.ref.name for f in a.var_refs] == \
             [f.ref.name for f in b.var_refs]
+        assert [f.ref.name for f in a.var_refs_novl] == \
+            [f.ref.name for f in b.var_refs_novl]
+        assert [ov.array for ov in a.overlays] == \
+            [ov.array for ov in b.overlays]
         assert (a.tpl is None) == (b.tpl is None)
         if a.tpl is not None:
             for f in ("t0", "w0", "unit_w", "pos_shift"):
@@ -89,6 +92,7 @@ def test_plan_matches_jax(model, n, kw, win):
                 np.testing.assert_array_equal(getattr(a.tpl, f),
                                               getattr(b.tpl, f), err_msg=f)
         np.testing.assert_array_equal(a.ultra_windows(), b.ultra_windows())
+    assert engine.plan_path(tp) == jax_engine.plan_path(jp)
 
 
 def test_plan_cases_cover_both_window_paths():
@@ -101,6 +105,9 @@ def test_plan_cases_cover_both_window_paths():
                 for np_ in pl.nests for u in np_.ultra_windows()}
     seen = set().union(*(paths(*c) for c in PLAN_CASES))
     assert {(True, False), (True, True), (False, True)} <= seen
+    assert any(np_.overlays for m, n, kw, win in PLAN_CASES
+               for np_ in engine.plan(carried(m, n), SamplerConfig(**kw),
+                                      window_accesses=win).nests)
 
 
 E2E_CASES = [
@@ -113,7 +120,7 @@ E2E_CASES = [
     ("bicg", 32, {}, None),
     ("gesummv", 32, {}, None),
     ("2mm", 16, {}, None),
-    ("syrk", 16, {}, None),       # overlay in JAX, sort path in the port
+    ("syrk", 16, {}, None),       # the overlay path
     ("gemm", 16, {"thread_num": 1}, None),
     ("atax", 16, {"cls": 8}, None),
 ]
@@ -199,4 +206,5 @@ def test_port_imports_no_jax_and_no_pluss():
             "pluss_torch/errors.py", "pluss_torch/ops/wirecodec.py",
             "pluss_torch/ops/decode.py", "pluss_torch/rowpriv.py",
             "pluss_torch/sweepgroup.py", "pluss_torch/models/solvers.py",
-            "pluss_torch/models/stencils.py"} <= scanned
+            "pluss_torch/models/stencils.py", "pluss_torch/overlay.py",
+            "pluss_torch/sampling.py"} <= scanned
