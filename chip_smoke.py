@@ -6,10 +6,11 @@
 Drives ``pluss_torch``'s two main paths on the card — the sampler
 (``engine.run`` -> ``cri.distribute`` -> ``mrc.aet_mrc`` -> the ``acc``
 block; with its overlays, sliced runs and ``sampling.sampled_run``) and
-the streamed trace replay (``trace.replay_file`` -> the ``trace`` block)
-— and holds every kernel of those paths against its plain torch
-version.  Each phase prints one JSON line; any failed check raises,
-so the script exits non-zero and prints no result line.  Phases:
+the trace replay (``trace.replay_file`` -> the ``trace`` block, streamed
+and through the residency store; ``pack_file`` -> ``stage_resident`` ->
+``replay_staged``) — and holds every kernel of those paths against its
+plain torch version.  Each phase prints one JSON line; any failed check
+raises, so the script exits non-zero and prints no result line.  Phases:
 
 1. build: compile the three kernels from ``pluss_torch/csrc`` with one
    ``nvcc`` each, all at once; report each one's seconds and ptxas lines;
@@ -74,19 +75,32 @@ so the script exits non-zero and prints no result line.  Phases:
    blocks; part B: mostly 1-nibble delta blocks), captured in the part-A
    golden replay and in the resumed leg;
 18. trace_cli: ``python -m pluss_torch.cli trace`` on the card, in process;
-19. the kernels line, the card's name and power limit, and the result line.
+19. resident: phase 17's trace packed on the d24v wire (and on u24 for
+    its first batch, staged and replayed against the streamed prefix),
+    staged into device memory (kernel 3 once per record, 16) and replayed
+    from there three times at ``clock0`` 0, 1 and 2 (kernel 2 once per
+    batch, 16), then again with the plain versions (the same staged bytes
+    and histogram), on the legacy per-window scan (kernel 2 once per
+    window, 256), and through ``replay_file(resident_cache=True)``: a cold
+    stage-through whose published bytes equal the direct staging, a warm
+    hit with no copy and no decode, and a budget of 1024 bytes that
+    streams and publishes nothing; each equal to phase 17's replay;
+20. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
-(phases 5-16 and 17-18's first replay) and read just after it: the event
-kernel must launch once per plan window that sorts something (0 for GEMM
-and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
+(phases 5-16, 17-18's first replay and phase 19's staging, first staged
+replay, legacy scan, stage-through and hit) and read just after it: the
+event kernel must launch once per plan window that sorts something (0 for
+GEMM and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
 window of syrk and syr2k), per thread batch in a sliced run, and once
 per counted sampled window; the masked
-histogram and the decode once per trace batch.  Every sampler run must
-conserve its accesses (cold + no-share events + share events = refs).
+histogram and the decode once per trace batch (a resident replay: the
+histogram once per batch, or per window on the legacy scan, and no
+decode; staging a d24v pack: the decode once per record).  Every sampler
+run must conserve its accesses (cold + no-share events + share events = refs).
 The comparison launches of phases 2-4 and the cross-checks of phases 7,
-8, 11-12, 14 and 17 are not counted.  Exits non-zero, printing no result,
-when there is no CUDA device or when run outside the repository.
+8, 11-12, 14, 17 and 19 are not counted.  Exits non-zero, printing no
+result, when there is no CUDA device or when run outside the repository.
 """
 
 from __future__ import annotations
@@ -747,11 +761,13 @@ def main() -> int:
     # 17-18. the trace replay's main path, on a 2^28-ref trace -------------
     tmp = tempfile.mkdtemp(prefix="pluss_torch_smoke_")
     try:
-        batches = trace_phases(tmp, by_path)
+        batches, streamed = trace_phases(tmp, by_path)
+        # 19. the packed, device-resident replay of the same trace
+        resident_phase(tmp, streamed, by_path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 19. kernels line, card, result -----------------------------------------
+    # 20. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
@@ -992,10 +1008,10 @@ def sample_phase(cfg, by_path, full) -> None:
           "rates": rows, "gemm128_card_vs_cpu": True, "ok": True})
 
 
-def trace_phases(tmp: str, by_path: dict) -> dict:
+def trace_phases(tmp: str, by_path: dict) -> tuple:
     """Phases 17 and 18: the streamed replay on the card, and its CLI.
     Returns kernels 2 and 3's measurements on one real batch of each part
-    of the trace."""
+    of the trace, and the streamed replay's result."""
     import numpy as np
     import torch
 
@@ -1115,7 +1131,129 @@ def trace_phases(tmp: str, by_path: dict) -> dict:
           f"cli trace block / launches {counts}")
     emit({"phase": "trace_cli", "lines": len(lines), "launches": counts,
           "ok": True})
-    return batches
+    return batches, rep
+
+
+def resident_phase(tmp: str, rep, by_path: dict) -> None:
+    """Phase 19: the 2^28-ref trace of phase 17 packed (d24v, and u24 on
+    its first batch), staged into device memory (kernel 3 once per d24v
+    record) and replayed from there (kernel 2 once per batch, or once per
+    window on the legacy scan), then through ``replay_file``'s
+    residency store: a cold stage-through, a warm hit and a tiny budget.
+    Every replay must equal the streamed replay ``rep`` bit for bit."""
+    import numpy as np
+    import torch
+
+    from pluss_torch import residency, trace
+    from pluss_torch.trace import PLAIN
+
+    path = os.path.join(tmp, "smoke.bin")
+    batch = trace.WINDOWS_PER_BATCH * trace.TRACE_WINDOW
+    n_batches = -(-rep.total_count // batch)
+
+    def same(other, what):
+        check(np.array_equal(other.hist, rep.hist)
+              and other.total_count == rep.total_count
+              and other.n_lines == rep.n_lines, f"resident: {what}")
+
+    out = {"refs": rep.total_count, "batches": n_batches}
+    packed = os.path.join(tmp, "smoke.d24v")
+    t0 = time.perf_counter()
+    meta = trace.pack_file(path, packed, wire="d24v")
+    out["pack_s"] = time.perf_counter() - t0
+    out["pack_bytes"] = os.path.getsize(packed)
+    check(meta["fmt"] == "d24v" and meta["n"] == rep.total_count
+          and meta["n_lines"] == rep.n_lines,
+          f"d24v sidecar {meta['n']}/{meta['n_lines']} != streamed")
+    # the u24 pack of the first batch, staged and replayed
+    u24 = os.path.join(tmp, "smoke.u24")
+    t0 = time.perf_counter()
+    meta24 = trace.pack_file(path, u24, limit_refs=batch)
+    out["pack_u24_prefix_s"] = time.perf_counter() - t0
+    prefix = trace.replay_file(path, limit_refs=batch)
+    check(meta24["fmt"] == "u24" and meta24["n"] == prefix.total_count
+          and meta24["n_lines"] == prefix.n_lines, "u24 sidecar != streamed")
+    got = trace.replay_resident(u24, meta24)
+    check(np.array_equal(got.hist, prefix.hist)
+          and got.n_lines == prefix.n_lines, "u24 prefix: resident != stream")
+
+    torch.cuda.reset_peak_memory_stats()
+    (resident, n_run, info), counts = counted(
+        lambda: trace.stage_resident(packed, meta))
+    by_path["resident_stage"] = counts
+    check(counts["d24v_decode"] == n_batches == 16
+          and counts["masked_hist"] == 0, f"stage launches {counts}")
+    out.update(upload_s=info["upload_s"], upload_bytes=info["upload_bytes"],
+               resident_gib=resident.nbytes / 2**30, stage_launches=counts)
+    replay_s = []
+    for clock0 in (0, 1, 2):
+        got, counts = counted(lambda: trace.replay_staged(
+            resident, meta["n_lines"], n_run, clock0=clock0))
+        by_path.setdefault("resident_replay", counts)
+        check(counts["masked_hist"] == n_batches
+              and counts["d24v_decode"] == 0,
+              f"resident replay launches {counts}")
+        same(got, f"replay_staged clock0={clock0}")
+        replay_s.append(got.timing["replay_s"])
+    out.update(replay_s=replay_s, refs_per_s=n_run / min(replay_s),
+               peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+               replay_launches=by_path["resident_replay"])
+    # the plain versions: the same bytes staged, the same histogram
+    t0 = time.perf_counter()
+    plain, _, _ = trace.stage_resident(packed, meta, _kernels=PLAIN)
+    check(torch.equal(plain, resident), "stage: kernel 3 != plain bytes")
+    same(trace.replay_staged(plain, meta["n_lines"], n_run, _kernels=PLAIN),
+         "plain versions")
+    out["plain_s"] = time.perf_counter() - t0
+    del plain
+    # the legacy per-window scan: one kernel-2 launch per window
+    got, counts = counted(lambda: trace.replay_staged(
+        resident, meta["n_lines"], n_run, segmented=False))
+    by_path["resident_scan"] = counts
+    check(counts["masked_hist"] == n_batches * trace.WINDOWS_PER_BATCH,
+          f"legacy scan launches {counts}")
+    same(got, "legacy scan")
+    out["scan_s"] = got.timing["replay_s"]
+
+    # the residency store behind replay_file
+    residency.reset()
+    cold, counts = counted(lambda: trace.replay_file(path,
+                                                     resident_cache=True))
+    by_path["stage_through"] = counts
+    same(cold, "stage-through (cold)")
+    store = residency.store()
+    check(cold.timing["resident"] == "stage_through" and len(store) == 1,
+          f"stage-through: {cold.timing.get('resident')}, {len(store)}")
+    key = trace._residency_key(path, cls=64, window=trace.TRACE_WINDOW,
+                               bw=trace.WINDOWS_PER_BATCH,
+                               precompacted=False)
+    ent = store.lookup_pin(key, n_run=n_run)
+    check(ent is not None and torch.equal(ent.value, resident),
+          "stage-through bytes != direct staging")
+    store.unpin(key)
+    del ent, resident
+    warm, counts = counted(lambda: trace.replay_file(path,
+                                                     resident_cache=True))
+    by_path["resident_hit"] = counts
+    same(warm, "warm hit")
+    check(warm.timing["resident"] == "hit" and warm.timing["h2d_bytes"] == 0
+          and counts["d24v_decode"] == 0
+          and counts["masked_hist"] == n_batches,
+          f"warm hit {warm.timing}, launches {counts}")
+    residency.reset(budget=1024)
+    tiny = trace.replay_file(path, resident_cache=True)
+    same(tiny, "tiny budget")
+    check(tiny.timing["resident"] == "fallback"
+          and len(residency.store()) == 0, "tiny budget published")
+    residency.reset()
+    out.update(cold_wall_s=cold.timing["wall_s"],
+               warm_wall_s=warm.timing["wall_s"],
+               tiny_wall_s=tiny.timing["wall_s"],
+               stage_through_launches=by_path["stage_through"],
+               hit_launches=by_path["resident_hit"],
+               scan_launches=by_path["resident_scan"])
+    emit({"phase": "resident", **out, "match": True, "plain_match": True,
+          "scan_match": True, "stage_through_match": True, "ok": True})
 
 
 if __name__ == "__main__":

@@ -17,9 +17,10 @@
   ``rate,walked_fraction,l2_error`` per rate, byte for byte what
   ``python -m pluss.cli sample`` prints.
 - ``trace``: replay a raw address trace (``--file``, ``--fmt u64|text``)
-  with :func:`pluss_torch.trace.replay_file`; prints the banner, the reuse
-  histogram and ``N refs over L lines; wrote MRC to <out>``, and writes
-  the MRC to ``--out``.  Below the banner the block and the CSV are byte
+  with :func:`pluss_torch.trace.replay_file` (``--resident-cache`` rides
+  the residency store); prints the banner, the reuse histogram and ``N
+  refs over L lines; wrote MRC to <out>``, and writes the MRC to
+  ``--out``.  Below the banner the block and the CSV are byte
   for byte those of ``python -m pluss.cli trace``.
 
 The timed region of ``acc``/``speed`` is the reference's: sampler + CRI
@@ -108,6 +109,13 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--journal", default=None,
                    help="trace mode: checkpoint path (default "
                         "<file>.ckpt.npz with --resume)")
+    p.add_argument("--resident-cache", default=None,
+                   action=argparse.BooleanOptionalAction,
+                   help="trace mode: keep the staged trace resident in "
+                        "device memory (the residency store), so a repeat "
+                        "replay in this process skips the host feed; "
+                        "--no-resident-cache forces the plain streamed "
+                        "path (the default for a one-shot replay)")
     p.add_argument("--resume", action="store_true",
                    help="trace mode: checkpoint while replaying and resume "
                         "from an existing checkpoint")
@@ -180,6 +188,7 @@ def trace_mode(args, p, cfg: SamplerConfig, device, out) -> int:
                             resume=args.resume,
                             batch_windows=args.batch_windows,
                             feed_workers=args.feed_workers, wire=args.wire,
+                            resident_cache=args.resident_cache,
                             device=device)
     dt = time.perf_counter() - t0
     # stderr: the stdout block is held byte for byte against the JAX CLI's
@@ -194,7 +203,8 @@ def trace_mode(args, p, cfg: SamplerConfig, device, out) -> int:
           f"workers) read {tm.get('read_s', 0.0):.3f} s, compact "
           f"{tm.get('compact_s', 0.0):.3f} s, encode "
           f"{tm.get('encode_s', 0.0):.3f} s; wire {rep.wire}, "
-          f"{rep.feed_workers} feed workers; peak device memory {peak}; "
+          f"{rep.feed_workers} feed workers; resident cache "
+          f"{tm.get('resident', 'off')}; peak device memory {peak}; "
           f"peak host RSS "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.3f}"
           f" GiB", file=sys.stderr)

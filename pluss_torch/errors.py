@@ -1,8 +1,10 @@
-"""Classified input errors and the corrupt-artifact policy of the port.
+"""Classified errors and the corrupt-artifact policy of the port.
 
-The port's copies of ``DataLoss`` and ``quarantine_artifact`` from
-``pluss/resilience/errors.py``; the rest of that taxonomy (the resilient
-entry points and their degradation ladder) is not ported yet.
+The port's copies of ``pluss/resilience/errors.py``'s ``PlussError`` base
+(the retryable / degradable / fatal bits), ``ResourceExhausted``,
+``DataLoss``, ``CacheCorrupt`` and ``quarantine_artifact``; the rest of
+that taxonomy (the resilient entry points and their degradation ladder)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -11,20 +13,54 @@ import os
 import sys
 
 
-class DataLoss(Exception):
-    """Input bytes are missing or garbled (truncated u64 trace, garbage
-    text line).  No retry can invent the missing data; the message names
-    the byte or line offset so the operator can repair or re-capture.
+class PlussError(Exception):
+    """Base of the classified failures.
 
-    ``site`` names where the failure surfaced (``trace.load``)."""
+    ``site`` names where the failure surfaced (``trace.load``,
+    ``residency.stage``); ``cause`` keeps the raw exception, if any.
+    ``retryable``: the same attempt may succeed if repeated;
+    ``degradable``: a smaller or slower configuration routes around it;
+    ``fatal``: neither.
+    """
 
-    def __init__(self, message: str, site: str = ""):
+    retryable = False
+    degradable = False
+
+    def __init__(self, message: str, site: str = "",
+                 cause: BaseException | None = None):
         super().__init__(message)
         self.site = site
+        self.cause = cause
+
+    @property
+    def fatal(self) -> bool:
+        return not (self.retryable or self.degradable)
 
     def __str__(self) -> str:
         base = super().__str__()
         return f"[{self.site}] {base}" if self.site else base
+
+
+class ResourceExhausted(PlussError):
+    """Device (or host) memory exhausted, or a request that can never fit
+    its budget (the residency store's ``reserve``).  Degradable: the
+    caller streams instead, or runs smaller."""
+
+    degradable = True
+
+
+class DataLoss(PlussError):
+    """Input bytes are missing or garbled (truncated u64 trace or pack,
+    garbage text line).  Fatal: no retry can invent the missing data; the
+    message names the byte offset, line or record so the operator can
+    repair or re-capture."""
+
+
+class CacheCorrupt(PlussError):
+    """A rebuildable artifact (a journal) failed to load.  Retryable: it
+    rebuilds from scratch."""
+
+    retryable = True
 
 
 def quarantine_artifact(path: str, label: str, exc: BaseException,

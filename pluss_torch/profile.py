@@ -2,6 +2,7 @@
 
     python -m pluss_torch.profile --model mvt --n 4000
     python -m pluss_torch.profile --trace trace.bin
+    python -m pluss_torch.profile --resident trace.bin
 
 Prints one JSON object per model: the plan's window paths
 (``engine.plan_path``), the host plan's seconds, the wall
@@ -19,7 +20,12 @@ its defaults: wall seconds, refs/s, device busy seconds and idle share,
 the replay's own main-thread split (feed stall, staging, device dispatch
 and final wait), the peak device memory, the top device operations and
 the port's kernels.
-The warm-up replays one batch.  Needs a CUDA card.
+The warm-up replays one batch.
+
+With ``--resident FILE``, the same for ``trace.replay_staged`` of the
+file's d24v pack (``pack_cached``, written next to the file) staged into
+device memory: the pack and staging seconds, then the profiled replay
+after one unprofiled one.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -112,6 +118,28 @@ def profile_trace(path: str, top: int = 8) -> dict:
     }
 
 
+def profile_resident(path: str, top: int = 8) -> dict:
+    t0 = time.perf_counter()
+    meta, _, packed = trace.pack_cached(path, wire="d24v")
+    pack_s = time.perf_counter() - t0
+    resident, n_run, info = trace.stage_resident(packed, meta)
+    trace.replay_staged(resident, meta["n_lines"], n_run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rep, wall, busy, ops, kernels = profiled(
+        lambda: trace.replay_staged(resident, meta["n_lines"], n_run,
+                                    clock0=1), top)
+    return {
+        "resident": os.path.basename(path), "refs": rep.total_count,
+        "pack_s": pack_s, **info, "wall_s": wall,
+        "refs_per_s": rep.total_count / wall, "device_busy_s": busy,
+        "device_idle_share": None if busy is None else 1 - busy / wall,
+        "n_lines": rep.n_lines,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "top_device_ops": ops, "port_kernels": kernels,
+    }
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="pluss_torch.profile",
                                 description=__doc__,
@@ -122,10 +150,13 @@ def main(argv: list[str] | None = None) -> int:
                    help="problem size, one per --model (default 1024)")
     p.add_argument("--trace", action="append", default=[],
                    help="u64 trace file to replay (repeatable)")
+    p.add_argument("--resident", action="append", default=[],
+                   help="u64 trace file to pack, stage and replay from "
+                        "device memory (repeatable)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         p.error("no CUDA device is available")
-    models = args.model or ([] if args.trace else ["gemm"])
+    models = args.model or ([] if args.trace or args.resident else ["gemm"])
     sizes = args.n or [1024] * len(models)
     if len(sizes) != len(models):
         p.error("give one --n per --model")
@@ -139,6 +170,9 @@ def main(argv: list[str] | None = None) -> int:
               flush=True)
     for path in args.trace:
         print(json.dumps({"card": card, **profile_trace(path)}), flush=True)
+    for path in args.resident:
+        print(json.dumps({"card": card, **profile_resident(path)}),
+              flush=True)
     return 0
 
 

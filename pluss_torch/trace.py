@@ -1,13 +1,15 @@
 """Dynamic trace replay: reuse histograms from raw address streams.
 
-The port of ``pluss/trace.py``'s single-device streamed replay (BASELINE
-config 5: raw DynamoRIO-style memory traces at 1e9 refs).
+The port of ``pluss/trace.py``'s single-device replay (BASELINE config 5:
+raw DynamoRIO-style memory traces at 1e9 refs), streamed and
+device-resident.
 
 1. Host: byte addresses are masked to cache lines (``addr >> log2(CLS)``)
-   and remapped to dense ids by cluster probing (:class:`_Compactor`),
-   batch by batch, in a pool of feed threads (:class:`_FeedPool`) that read
-   and wire-encode extents of the file in parallel and compact them in
-   stream order.
+   and remapped to dense ids by cluster probing (:class:`_Compactor`; while
+   the table holds one cluster, the native mapper of
+   :mod:`pluss_torch.native` does it in one pass), batch by batch, in a
+   pool of feed threads (:class:`_FeedPool`) that read and wire-encode
+   extents of the file in parallel and compact them in stream order.
 2. Wire: each batch crosses to the card as the content-adaptive ``d24v``
    encoding (the default on the card, decoded there by the CUDA kernel of
    :mod:`pluss_torch.ops.decode`) or as the fixed-width ``pack``
@@ -18,16 +20,31 @@ config 5: raw DynamoRIO-style memory traces at 1e9 refs).
    on the line key, one carried gather, one tail scatter into the
    ``last_pos`` table) and one masked histogram (the CUDA kernel of
    :func:`pluss_torch.ops.event_hist.masked_histogram`), accumulated as
-   int64 on the card.
+   int64 on the card.  ``segmented=False`` takes the legacy per-window
+   scan instead (:func:`_scan_batch`, the A/B reference: one sort and one
+   histogram per window); both give the same histogram.
 
 A replayed trace is single-clock, so the result feeds
 :func:`pluss_torch.mrc.aet_mrc` directly, with no CRI dilation.
 
-Entry points: :func:`replay_file` (streams a file in bounded host memory,
-with checkpoint/resume) and :func:`replay` (an in-memory stream); both run
-on the CUDA card unless the caller passes ``device="cpu"``.  Histograms,
-``total_count`` and ``n_lines`` equal ``pluss.trace``'s, and the two
-packages' checkpoints resume in each other.
+Entry points, all on the CUDA card unless the caller passes
+``device="cpu"``:
+
+- :func:`replay_file` streams a file in bounded host memory, with
+  checkpoint/resume, and with ``resident_cache=True`` rides the
+  residency store (:mod:`pluss_torch.residency`): a hit replays the
+  resident copy with no feed; a miss stages the stream into the store
+  while it replays.  :func:`replay` replays an in-memory stream.
+- :func:`pack_file` / :func:`pack_cached` compact and encode a trace once
+  into a packed file (u24, i32 past 2^24 lines, or d24v records) with a
+  JSON sidecar; :func:`stage_resident` uploads a pack into device memory
+  (d24v records decoded there by the kernel), :func:`replay_staged`
+  replays it any number of times, :func:`replay_resident` does both, and
+  :func:`ensure_resident` packs, stages and publishes into the store.
+
+Histograms, ``total_count`` and ``n_lines`` equal ``pluss.trace``'s; the
+two packages' checkpoints, pack journals, packs and sidecars are
+interchangeable.
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -47,9 +65,11 @@ from collections import deque
 import numpy as np
 import torch
 
+from pluss_torch import residency
 from pluss_torch.config import NBINS
 from pluss_torch.engine import resolve_device
-from pluss_torch.errors import DataLoss, quarantine_artifact
+from pluss_torch.errors import DataLoss, ResourceExhausted, quarantine_artifact
+from pluss_torch.journal import Journal
 from pluss_torch.ops import wirecodec
 from pluss_torch.ops.decode import decode_d24v
 from pluss_torch.ops.event_hist import masked_histogram, masked_histogram_plain
@@ -62,6 +82,11 @@ TRACE_WINDOW = 1 << 20
 WINDOWS_PER_BATCH = 16
 
 WIRE_CHOICES = ("auto", "pack", "d24v")
+
+#: packed-trace wire-format version stamped in pack_file's sidecar (the
+#: JAX package's): pack caches and resident keys carry it, so a pack of
+#: another format is never replayed as this one
+WIRE_VERSION = 1
 
 #: batches above this many ids stay on the plain pack even under
 #: ``wire="d24v"`` (the JAX package's limit, kept so both packages pick
@@ -143,13 +168,16 @@ def _resolve_wire(wire: str | None, device: torch.device) -> str:
     return wire
 
 
+def _host_workers() -> int:
+    """Most of the host's cores, at least 2 and at most 8."""
+    return max(2, min(8, (os.cpu_count() or 1) - 1))
+
+
 def _default_feed_workers(device: torch.device) -> int:
     """On the CPU the replay computes on the same cores, so one feed
     thread; with a card the host cores idle while it computes: use most
     of them."""
-    if device.type == "cpu":
-        return 1
-    return max(2, min(8, (os.cpu_count() or 1) - 1))
+    return 1 if device.type == "cpu" else _host_workers()
 
 
 class _threaded:
@@ -363,13 +391,22 @@ def _encode_wire(ids: np.ndarray, n_lines: int, wirefmt: str):
 
 def _widen_ids(t: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`_pack_ids` on the device: u8 [n, 3] (24-bit) |
-    int16 (the u16 pack, reinterpreted) | int32 -> int32."""
+    u8 [n, 4] (the i32 pack's little-endian bytes) | int16 (the u16 pack,
+    reinterpreted) | int32 -> int32."""
+    if t.dtype == torch.uint8 and t.shape[-1] == 4:
+        return t.contiguous().view(torch.int32).reshape(-1)
     if t.dtype == torch.uint8:
         b = t.to(torch.int32)
         return b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
     if t.dtype == torch.int16:
         return t.to(torch.int32) & 0xFFFF
     return t
+
+
+def _u24_bytes(ids: torch.Tensor) -> torch.Tensor:
+    """int32 ids < 2^24 -> their ``[n, 3]`` little-endian bytes (the
+    resident u24 layout; a view of ``ids``)."""
+    return ids.contiguous().view(torch.uint8).view(-1, 4)[:, :3]
 
 
 def _extent_reader(path: str, batch: int, n: int):
@@ -390,9 +427,11 @@ def _compact_stage(comp, shift: int, precompacted: bool, snapshot: bool):
     with the batch, so a checkpoint records the state consistent with what
     the consumer has processed while producers run ahead."""
     def compact_batch(b, raw):
-        lines = raw.astype(np.int64) if precompacted \
-            else raw.astype(np.int64) >> shift
-        ids = comp.map(lines)
+        ids = comp.map_raw(raw, 0 if precompacted else shift)
+        if ids is None:
+            lines = raw.astype(np.int64) if precompacted \
+                else raw.astype(np.int64) >> shift
+            ids = comp.map(lines)
         return ids, comp.next_free, comp.snapshot() if snapshot else None
     return compact_batch
 
@@ -409,14 +448,39 @@ def _segmented_batch(last_pos, hist, base: int, ids, n_valid: int, pdt,
     hist += event_histogram(ev, hist_fn=hist_fn)
 
 
+def _scan_batch(last_pos, hist, base: int, ids, n_valid: int, pdt, hist_fn,
+                *, window: int) -> None:
+    """The legacy per-window scan of one batch (the JAX package's
+    ``_scan_batch``, its A/B reference for :func:`_segmented_batch`): each
+    ``window`` slice is sorted on its own (one stable sort on the line
+    key), resolved against ``last_pos`` and binned, one histogram per
+    window.  Reuse gaps do not depend on how the stream is cut, so the
+    histogram equals the segmented batch's."""
+    for lo in range(0, ids.shape[0], window):
+        pos = torch.arange(base + lo, base + lo + window, dtype=pdt,
+                           device=ids.device)
+        ev = batch_events(ids[lo:lo + window], pos, pos < n_valid, last_pos)
+        hist += event_histogram(ev, hist_fn=hist_fn)
+
+
+def _batch_fn(segmented: bool | None, window: int):
+    """The per-batch step: the segmented batch (``segmented`` None, the
+    default, or True) or the legacy per-window scan (False)."""
+    if segmented is None or segmented:
+        return _segmented_batch
+    return functools.partial(_scan_batch, window=window)
+
+
 def replay(addrs: np.ndarray, cls: int = 64, window: int = TRACE_WINDOW,
            precompacted: bool = False, batch_windows: int | None = None,
-           *, device=None, _kernels: TraceKernels = KERNELS) -> ReplayResult:
+           segmented: bool | None = None, *, device=None,
+           _kernels: TraceKernels = KERNELS) -> ReplayResult:
     """Replay an in-memory address stream into a reuse histogram, on
     ``device`` (default: the CUDA card).
 
     ``addrs``: 1-D array of byte addresses (or dense line ids when
-    ``precompacted``).
+    ``precompacted``).  ``segmented=False`` takes the legacy per-window
+    scan.
     """
     dev = resolve_device(device)
     addrs = np.asarray(addrs)
@@ -428,7 +492,7 @@ def replay(addrs: np.ndarray, cls: int = 64, window: int = TRACE_WINDOW,
     lines = addrs.astype(np.int64) if precompacted else lines_of(addrs, cls)
     ids, n_lines = _compact(lines, window)
     return _replay_ids(ids, n_lines, n, window, batch_windows, dev,
-                       _kernels.histogram)
+                       _kernels.histogram, _batch_fn(segmented, window))
 
 
 def _compact(lines: np.ndarray, window: int) -> tuple[np.ndarray, int]:
@@ -451,9 +515,9 @@ class _Compactor:
     probed against the discovered cluster table (one searchsorted over a
     few clusters) and only the misses are sorted.  A new cluster reserves
     ``slack`` id slots past its observed end so right-growth keeps
-    assigned ids stable; ``next_free`` counts allocated table slots.  The
-    JAX package's native single-cluster mapper is not ported: this numpy
-    path assigns the same ids.
+    assigned ids stable; ``next_free`` counts allocated table slots.
+    While the table holds one cluster, :meth:`map_raw` maps a raw batch
+    in one native pass (:func:`pluss_torch.native.line_mapper`).
     """
 
     def __init__(self, slack: int = 1024):
@@ -478,6 +542,20 @@ class _Compactor:
         comp.bases = np.asarray(snap["bases"], np.int64)
         comp.next_free = int(snap["next_free"])
         return comp
+
+    def map_raw(self, raw: np.ndarray, shift: int) -> np.ndarray | None:
+        """u64 byte addresses (``shift`` = log2 of the line size; 0 for
+        precompacted line ids) -> int32 ids in one native pass, while the
+        table holds a single cluster that covers the whole chunk.  None
+        otherwise: the caller maps ``raw >> shift`` with :meth:`map`,
+        which also discovers new clusters.  The first call builds the
+        native library, and a failed build raises."""
+        if len(self.starts) != 1:
+            return None
+        from pluss_torch import native
+
+        return native.line_mapper()(raw, shift, int(self.starts[0]),
+                                    int(self.widths[0]), int(self.bases[0]))
 
     def _map_into(self, chunk, out):
         cl = np.searchsorted(self.starts, chunk, side="right") - 1
@@ -528,14 +606,16 @@ class _Compactor:
         return out
 
 
-def _pos_dtype(n_batches: int, batch: int) -> torch.dtype:
-    """int32 positions while every padded position fits; int64 past."""
-    return torch.int32 if n_batches * batch < 2**31 - 2 else torch.int64
+def _pos_dtype(n_batches: int, batch: int, clock0: int = 0) -> torch.dtype:
+    """int32 positions while every padded position (from ``clock0`` on)
+    fits; int64 past."""
+    return torch.int32 if clock0 + n_batches * batch < 2**31 - 2 \
+        else torch.int64
 
 
 def _replay_ids(ids: np.ndarray, n_lines: int, n: int, window: int,
                 batch_windows: int | None, dev: torch.device,
-                hist_fn) -> ReplayResult:
+                hist_fn, batch_fn) -> ReplayResult:
     """Stream dense line ids through the device in fixed-shape batches."""
     bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
     batch = bw * window
@@ -549,8 +629,8 @@ def _replay_ids(ids: np.ndarray, n_lines: int, n: int, window: int,
         pad = batch - len(chunk)
         if pad:
             chunk = np.concatenate([chunk, np.zeros(pad, np.int32)])
-        _segmented_batch(last_pos, hist, lo, torch.from_numpy(chunk).to(dev),
-                         n, pdt, hist_fn)
+        batch_fn(last_pos, hist, lo, torch.from_numpy(chunk).to(dev), n, pdt,
+                 hist_fn)
     return ReplayResult(hist.cpu().numpy(), n, n_lines)
 
 
@@ -659,6 +739,8 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
                 feed_workers: int | None = None,
                 wire: str | None = None,
                 stage_depth: int | None = None,
+                segmented: bool | None = None,
+                resident_cache: bool | None = None,
                 *, device=None,
                 _kernels: TraceKernels = KERNELS) -> ReplayResult:
     """Replay a trace FILE in bounded host memory, on ``device`` (default:
@@ -685,16 +767,31 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
     from the checkpoint, equal to an uninterrupted run.  A checkpoint of a
     different run identity is ignored with a notice.  The defaults are the
     JAX package's accelerator defaults on the card and its CPU defaults on
-    the CPU.
+    the CPU.  ``segmented=False`` takes the legacy per-window scan.
+
+    ``resident_cache=True`` rides the residency store
+    (:mod:`pluss_torch.residency`): a hit replays the resident copy through
+    :func:`replay_staged`, with no feed, no copy and no decode
+    (``timing["resident"] == "hit"``); a miss reserves room for the u24
+    copy and accumulates every staged batch into it while streaming,
+    byte for byte what :func:`stage_resident` makes of the pack, and
+    publishes it when the stream ran to its end (``"stage_through"``).
+    A budget that cannot hold it streams plainly (``"fallback"``), and a
+    table past 2^24 lines abandons the copy (``"abandoned"``).
+    Checkpointed, resumed and ``deadline_s``-truncated runs never touch
+    the store.  None or False keeps the store out of the path.
     """
     dev = resolve_device(device)
     window = _positive("window", window, TRACE_WINDOW)
     if fmt == "text":  # line-oriented; no random access worth streaming
         return replay(load_trace(path, fmt), cls, window,
                       precompacted=precompacted, batch_windows=batch_windows,
-                      device=dev, _kernels=_kernels)
+                      segmented=segmented, device=dev, _kernels=_kernels)
     if fmt != "u64":
         raise ValueError(f"unknown trace format {fmt!r}")
+    if resident_cache is not None and not isinstance(resident_cache, bool):
+        raise ValueError(
+            f"resident_cache must be a bool or None, got {resident_cache!r}")
     n = _u64_count(path)
     if limit_refs is not None:
         n = min(n, limit_refs)
@@ -713,6 +810,27 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
                         _default_feed_workers(dev))
     sd = _positive("stage_depth", stage_depth, 2)
     qd = _positive("queue_depth", queue_depth, 2)
+    batch_fn = _batch_fn(segmented, window)
+
+    # a checkpointed or resumed run enters mid-stream, so its staging
+    # would be partial: the store stays out of its path
+    store = key = None
+    if resident_cache and checkpoint_path is None and not resume:
+        store = residency.store()
+        key = _residency_key(path, cls=cls, window=window, bw=bw,
+                             precompacted=precompacted, device=dev)
+        ent = store.lookup_pin(key, n_run=n)
+        if ent is not None:
+            t0 = time.perf_counter()
+            try:
+                rep = replay_staged(ent.value, ent.n_lines, ent.n_run, window,
+                                    segmented=segmented, _kernels=_kernels)
+            finally:
+                store.unpin(key)
+            rep.timing.update(resident="hit", h2d_bytes=0, read_s=0.0,
+                              compact_s=0.0, encode_s=0.0,
+                              wall_s=time.perf_counter() - t0)
+            return rep
 
     b0 = 0
     comp = _Compactor()
@@ -789,6 +907,17 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
     main = torch.cuda.current_stream(dev) if cuda else None
     side = torch.cuda.Stream(dev) if cuda else None
 
+    # stage-through: the u24 copy of every batch, for the store
+    acc = resident = None
+    if store is not None:
+        try:
+            store.reserve(n_batches * batch * 3)
+            acc = torch.zeros((n_batches, bw, window, 3), dtype=torch.uint8,
+                              device=dev)
+            resident = "stage_through"
+        except ResourceExhausted:
+            resident = "fallback"
+
     def stage(item):
         """Start one batch's copy (and d24v decode) on the side stream
         now; the main stream waits for its event before using the ids."""
@@ -858,8 +987,15 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
             td = time.perf_counter()
             if ready is not None:
                 main.wait_event(ready)
-            _segmented_batch(last_pos, hist, b * batch, ids_dev, n, pdt,
-                             _kernels.histogram)
+            if acc is not None:
+                if n_lines >= 1 << 24:
+                    # the ids no longer fit the 3-byte layout
+                    acc = None
+                    resident = "abandoned"
+                else:
+                    acc[b].view(batch, 3).copy_(_u24_bytes(ids_dev))
+            batch_fn(last_pos, hist, b * batch, ids_dev, n, pdt,
+                     _kernels.histogram)
             del ids_dev
             st["device_s"] += time.perf_counter() - td
             st_n["batches"] += 1
@@ -907,10 +1043,19 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
         # must not resume from this one's final state
         with contextlib.suppress(OSError):
             os.unlink(checkpoint_path)
+    if acc is not None:
+        if done >= n and not truncated:
+            # the whole stream went through: the copy is the whole trace
+            store.put(key, acc, n_lines=n_lines, n_run=n, nbytes=acc.nbytes,
+                      meta={"path": path, "stage_through": True})
+        else:
+            resident = "truncated"
     feed = it.stage_s if isinstance(it, _FeedPool) else stage_s
     return ReplayResult(hist_np, done, n_lines, wire=wirefmt,
                         feed_workers=workers,
                         timing={**st, **st_n, **feed,
+                                **({"resident": resident} if resident
+                                   else {}),
                                 "wall_s": time.perf_counter() - t0})
 
 
@@ -951,3 +1096,510 @@ def load_trace(path: str, fmt: str = "u64") -> np.ndarray:
                         site="trace.load") from None
         return np.asarray(out, np.int64)
     raise ValueError(f"unknown trace format {fmt!r}")
+
+
+# --- packed traces ---------------------------------------------------------
+
+def pack_file(path: str, out_path: str, cls: int = 64,
+              window: int = TRACE_WINDOW, precompacted: bool = False,
+              limit_refs: int | None = None,
+              resume: bool = False, _wide: bool = False,
+              batch_windows: int | None = None,
+              feed_workers: int | None = None,
+              wire: str | None = None) -> dict:
+    """Compact and encode a raw u64 trace once, into the replay's packed
+    wire (``out_path``) and a JSON sidecar (``out_path + '.json'``);
+    returns the sidecar dict.  Both files are byte for byte the JAX
+    package's (``pluss.trace.pack_file``), so either package stages the
+    other's packs.
+
+    The stream goes through the same feed as :func:`replay_file` (the
+    ``feed_workers`` pool, the compactor under its stream-order turnstile,
+    the native mapper while the table holds one cluster).  Formats:
+
+    - ``u24`` (3 bytes per ref) while the id table stays under 2^24 lines.
+      The final table size is unknown mid-stream, so the 3-byte format is
+      written first and the pack restarts as ``i32`` (4 little-endian
+      bytes per ref) the moment the table reaches 2^24.
+    - ``wire='d24v'``: per-batch records ``u32 used | width map |
+      payload[:used]`` of the compressed wire, with the records' offsets
+      and the ``batch`` they were cut at in the sidecar (staging must
+      slice at the same grid).  Batches are capped at ``_D24V_MAX_BATCH``
+      refs.  ``auto``/``pack``/None write the fixed-width formats.
+
+    The sidecar holds ``n``, ``n_lines``, ``fmt``, ``src_fp`` (the source's
+    fingerprint) and ``wire`` (:data:`WIRE_VERSION`); it is written
+    atomically.  Progress journals to ``out_path + '.journal'`` after each
+    flushed batch (:class:`pluss_torch.journal.Journal`: the output offset
+    and the compactor's table); ``resume=True`` truncates the partial
+    ``out_path + '.tmp'`` to the last journaled batch and continues, equal
+    to an uninterrupted pack.  The journal records the format, so a resumed
+    pack stays in it (an i32 restart stays i32, a d24v pack stays d24v).
+    """
+    n = _u64_count(path)
+    if limit_refs is not None:
+        n = min(n, limit_refs)
+    if cls & (cls - 1):
+        raise ValueError(f"cache line size {cls} is not a power of two")
+    if wire is not None and wire not in WIRE_CHOICES:
+        raise ValueError(f"unknown wire format {wire!r} (choices: "
+                         f"{', '.join(WIRE_CHOICES)})")
+    workers = _positive("feed_workers", feed_workers, _host_workers())
+    shift = int(cls).bit_length() - 1
+    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
+    window = _positive("window", window, TRACE_WINDOW)
+    batch = bw * window
+    if wire == "d24v" and batch > _D24V_MAX_BATCH:
+        # the decode's bit offsets are 32-bit: a record past the cap
+        # would not stage, so refuse it now
+        raise ValueError(
+            f"d24v records cap at {_D24V_MAX_BATCH} refs/batch (int32 "
+            f"decode offsets); batch_windows*window = {batch}: reduce the "
+            "batch or pack with wire='pack'")
+    n_batches = -(-n // batch)
+    comp = _Compactor()
+    tmp = out_path + ".tmp"
+    jpath = out_path + ".journal"
+    b0 = 0
+    fp = _trace_fingerprint(path)
+    fmt = "i32" if _wide else ("d24v" if wire == "d24v" else "u24")
+    offsets: list[int] = []   # d24v record offsets (sidecar, for staging)
+    if resume and not _wide and os.path.exists(jpath):
+        rec0 = Journal(jpath).get({"batch": 0})
+        if rec0 is not None and rec0.get("fmt") == "i32":
+            # the interrupted pack had restarted in the wide format:
+            # resume in it
+            return pack_file(path, out_path, cls, window, precompacted,
+                             limit_refs, resume=True, _wide=True,
+                             batch_windows=bw, feed_workers=workers)
+        if rec0 is not None and rec0.get("fmt") == "d24v" \
+                and wire in (None, "auto"):
+            # a d24v pack resumed without wire='d24v' stays d24v (an
+            # explicit wire='pack' is another identity: a fresh pack)
+            fmt = "d24v"
+    if resume and os.path.exists(jpath) and os.path.exists(tmp):
+        jr = Journal(jpath)
+        best = None
+        # journal batch indices count bw-sized batches: bw is identity
+        ident = {"n": n, "window": window, "cls": cls,
+                 "precompacted": bool(precompacted), "fp": fp, "fmt": fmt,
+                 "bw": bw}
+        out_bytes_seen: list[int] = []   # out_bytes after batch j
+        for b in range(n_batches):
+            rec = jr.get({"batch": b})
+            if rec is None:
+                break
+            if any(rec.get(k) != v for k, v in ident.items()):
+                best = None   # a journal of another pack
+                out_bytes_seen = []
+                break
+            best = rec
+            out_bytes_seen.append(rec["out_bytes"])
+        if best is not None and os.path.getsize(tmp) < best["out_bytes"]:
+            # the journal outlived the bytes it describes: walk back to
+            # the last batch whose bytes are on disk (truncating forward
+            # would zero-extend the stream)
+            size = os.path.getsize(tmp)
+            while best is not None and best["out_bytes"] > size:
+                b_prev = best["key"]["batch"] - 1
+                best = jr.get({"batch": b_prev}) if b_prev >= 0 else None
+        if best is not None:
+            b0 = best["key"]["batch"] + 1
+            comp = _Compactor.restore(best["comp"])
+            offsets = [0] + out_bytes_seen[:b0 - 1]
+            with open(tmp, "r+b") as out:
+                out.truncate(best["out_bytes"])
+            print(f"trace: resuming pack at batch {b0}/{n_batches} "
+                  f"({best['out_bytes']} bytes already packed)",
+                  file=sys.stderr)
+    if b0 == 0:
+        # a fresh start: a stale journal of an earlier pack must not
+        # survive into a later resume's contiguity scan
+        with contextlib.suppress(OSError):
+            os.unlink(jpath)
+        offsets = []
+    journal = Journal(jpath)
+
+    read_raw = _extent_reader(path, batch, n)
+    compact_batch = _compact_stage(comp, shift, precompacted, snapshot=True)
+
+    def encode_rec(b, mid):
+        """The on-disk record of one batch (parallel across pool workers).
+        A table of 2^24 lines or more is not encoded: the consumer
+        restarts the pack in the wide format before writing."""
+        ids, nl, snap = mid
+        if not _wide and nl >= 1 << 24:
+            return None, nl, snap
+        if fmt == "d24v":
+            payload, wm = wirecodec.encode_d24v(ids)
+            used = wirecodec.used_bytes(wm)
+            rec = (np.asarray([used], dtype="<u4"), wm, payload[:used])
+        elif _wide:
+            rec = (np.ascontiguousarray(ids, dtype="<i4"),)
+        else:
+            rec = (_pack24(ids),)
+        return rec, nl, snap
+
+    def items():
+        for b in range(b0, n_batches):
+            yield encode_rec(b, compact_batch(b, read_raw(b)))
+
+    if workers > 1:
+        src = _FeedPool(b0, n_batches, read_raw, compact_batch, encode_rec,
+                        workers, depth=2)
+    else:
+        src = contextlib.nullcontext(items())
+    with src as it, open(tmp, "r+b" if b0 else "wb") as out:
+        out.seek(0, os.SEEK_END)
+        for b, item in zip(range(b0, n_batches), it):
+            rec, nl, snap = item
+            if not _wide and nl >= 1 << 24:
+                print(f"trace: line table overflowed 2^24 ids at batch {b}; "
+                      "restarting the pack in the int32 wire format",
+                      file=sys.stderr)
+                for f in (jpath, tmp):
+                    with contextlib.suppress(OSError):
+                        os.unlink(f)
+                return pack_file(path, out_path, cls, window, precompacted,
+                                 limit_refs, _wide=True, batch_windows=bw,
+                                 feed_workers=workers)
+            if fmt == "d24v":
+                offsets.append(out.tell())
+            for arr in rec:
+                arr.tofile(out)
+            out.flush()
+            # the data is durable before the journal line that promises it
+            os.fsync(out.fileno())
+            journal.record({"batch": b}, out_bytes=out.tell(), comp=snap,
+                           n=n, window=window, cls=cls,
+                           precompacted=bool(precompacted), fp=fp, fmt=fmt,
+                           bw=bw)
+    os.replace(tmp, out_path)
+    meta = {"n": n, "n_lines": comp.next_free, "fmt": fmt, "src_fp": fp,
+            "wire": WIRE_VERSION}
+    if fmt == "d24v":
+        # records are cut at the pack's batch: staging slices the same way
+        meta["batch"] = batch
+        meta["offsets"] = offsets
+    # atomic sidecar: a reader sees the old meta or the new, never a torn
+    # write
+    sidecar_tmp = out_path + ".json.tmp"
+    with open(sidecar_tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(sidecar_tmp, out_path + ".json")
+    with contextlib.suppress(OSError):
+        os.unlink(jpath)   # the pack is durable; the journal is spent
+    return meta
+
+
+def pack_cached(path: str, packed_path: str | None = None, *,
+                cls: int = 64, window: int = TRACE_WINDOW,
+                precompacted: bool = False,
+                limit_refs: int | None = None,
+                batch_windows: int | None = None,
+                feed_workers: int | None = None,
+                wire: str = "d24v",
+                allow_pack: bool = True) -> tuple[dict | None, bool, str]:
+    """Disk pack cache: ``(sidecar meta, was_cached, packed path)``.
+
+    Packs ``path`` with :func:`pack_file` once (into ``packed_path``,
+    default ``path + '.pack'``) and reuses the pack while its sidecar
+    matches the source: the ref count, the source fingerprint,
+    :data:`WIRE_VERSION` and, for d24v, the batch grid.  Any mismatch
+    repacks; a stale pack is never replayed.  ``allow_pack=False`` only
+    probes: a fresh pack returns as usual, a missing or stale one returns
+    ``(None, False, packed)`` without packing.
+    """
+    packed = packed_path if packed_path is not None else path + ".pack"
+    sidecar = packed + ".json"
+    n = _u64_count(path)
+    if limit_refs is not None:
+        n = min(n, limit_refs)
+    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
+    if os.path.exists(packed) and os.path.exists(sidecar):
+        try:
+            with open(sidecar) as f:
+                meta = json.load(f)
+        except ValueError:
+            meta = {}
+        # d24v packs stage only at their own batch grid; the fixed-width
+        # formats slice at any
+        fmt_ok = meta.get("fmt") in ("u24", "i32") or (
+            meta.get("fmt") == "d24v" and meta.get("batch") == bw * window)
+        if meta.get("n") == n \
+                and meta.get("src_fp") == _trace_fingerprint(path) \
+                and meta.get("wire") == WIRE_VERSION and fmt_ok:
+            return meta, True, packed
+    if not allow_pack:
+        return None, False, packed
+    meta = pack_file(path, packed, cls=cls, window=window,
+                     precompacted=precompacted, limit_refs=limit_refs,
+                     batch_windows=bw, feed_workers=feed_workers, wire=wire)
+    return meta, False, packed
+
+
+# --- device-resident replay ------------------------------------------------
+
+def _device_fingerprint(dev: torch.device) -> tuple:
+    """``(type, index)`` of a torch device, the current card's index when
+    ``dev`` names none."""
+    if dev.type == "cuda" and dev.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (dev.type, dev.index)
+
+
+def _residency_key(path: str, *, cls: int, window: int, bw: int,
+                   precompacted: bool, device=None) -> tuple:
+    """Identity of one trace's resident staging: the file's content
+    fingerprint and size, :data:`WIRE_VERSION`, the line size, window,
+    batch grid, ``precompacted`` and the device.  Any change misses the
+    store.  The replayed prefix (``n_run``) is checked at lookup, not in
+    the key, so one trace never holds two near-identical copies."""
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        size = -1
+    return ("trace", _trace_fingerprint(path), size, WIRE_VERSION, int(cls),
+            int(window), int(bw), bool(precompacted),
+            _device_fingerprint(resolve_device(device)))
+
+
+def ensure_resident(path: str, *, cls: int = 64, window: int = TRACE_WINDOW,
+                    precompacted: bool = False,
+                    limit_refs: int | None = None,
+                    packed_path: str | None = None,
+                    upload_budget_s: float | None = None,
+                    batch_windows: int | None = None,
+                    feed_workers: int | None = None,
+                    wire: str = "d24v", device=None,
+                    _kernels: TraceKernels = KERNELS) -> residency.Entry:
+    """Pack (through the disk cache), stage and publish one trace into the
+    residency store; returns its :class:`pluss_torch.residency.Entry`,
+    from the store on a hit.  An ``upload_budget_s``-shrunk prefix comes
+    back unpublished (``meta['published']`` False): the sidecar's
+    ``n_lines`` is exact only for the whole pack, and a hit must equal the
+    streamed run it stands for.  Raises :class:`ResourceExhausted` when
+    the staged bytes can never fit the budget."""
+    dev = resolve_device(device)
+    st = residency.store()
+    n_file = _u64_count(path)
+    n_req = n_file if limit_refs is None else min(n_file, limit_refs)
+    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
+    key = _residency_key(path, cls=cls, window=window, bw=bw,
+                         precompacted=precompacted, device=dev)
+    ent = st.lookup_pin(key, n_run=n_req)
+    if ent is not None:
+        st.unpin(key)
+        return ent
+    meta, _, packed = pack_cached(path, packed_path, cls=cls, window=window,
+                                  precompacted=precompacted,
+                                  limit_refs=limit_refs, batch_windows=bw,
+                                  feed_workers=feed_workers, wire=wire)
+    bpr = 4 if meta["fmt"] == "i32" else 3
+    batch = bw * window
+    st.reserve(-(-n_req // batch) * batch * bpr)
+    staged, n_run, info = stage_resident(
+        packed, meta, window, limit_refs=n_req,
+        upload_budget_s=upload_budget_s, batch_windows=bw,
+        feed_workers=feed_workers, device=dev, _kernels=_kernels)
+    meta_e = {"path": path, "packed": packed, **info}
+    if n_run == n_req:
+        return st.put(key, staged, n_lines=meta["n_lines"], n_run=n_run,
+                      nbytes=staged.nbytes,
+                      meta={**meta_e, "published": True})
+    return residency.Entry(key=key, value=staged, n_lines=meta["n_lines"],
+                           n_run=n_run,
+                           nbytes=0 if staged is None else staged.nbytes,
+                           meta={**meta_e, "published": False})
+
+
+def stage_resident(packed_path: str, meta: dict,
+                   window: int = TRACE_WINDOW,
+                   limit_refs: int | None = None,
+                   upload_budget_s: float | None = None,
+                   batch_windows: int | None = None,
+                   feed_workers: int | None = None, *, device=None,
+                   _kernels: TraceKernels = KERNELS):
+    """Upload a packed trace into device memory.  Returns ``(resident,
+    n_run, stats)``: the ``[n_batches, batch_windows, window, bpr]`` uint8
+    tensor on ``device`` (default: the CUDA card; ``bpr`` 4 for ``i32``
+    packs, else 3), the staged ref count (a prefix under
+    ``upload_budget_s``) and ``{upload_s, upload_bytes}``.
+
+    Fixed-width records are copied as they are, zero-padded to the batch.
+    A d24v record crosses compressed and the decode kernel (kernel 3,
+    ``_kernels.decode``) expands it on the device; its ids are then
+    restacked into the u24 bytes (plain torch ops), so every format stages
+    to the layout :func:`replay_staged` reads.  Reads run in the
+    ``feed_workers`` pool.  A record cut short raises :class:`DataLoss`
+    naming it.  ``upload_budget_s`` stops the upload at the first
+    16-batch mark past it (the device is synced there, so the clock is
+    real) and keeps the staged prefix.
+    """
+    dev = resolve_device(device)
+    fmt = meta["fmt"]
+    if fmt not in ("u24", "i32", "d24v"):
+        raise ValueError(f"unknown packed trace format {fmt!r}")
+    d24v = fmt == "d24v"
+    bpr = 4 if fmt == "i32" else 3   # resident bytes per ref
+    n = meta["n"] if limit_refs is None else min(meta["n"], limit_refs)
+    if n == 0:
+        return None, 0, {"upload_s": 0.0, "upload_bytes": 0}
+    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
+    window = _positive("window", window, TRACE_WINDOW)
+    batch = bw * window
+    n_batches = -(-n // batch)
+    workers = _positive("feed_workers", feed_workers,
+                        _default_feed_workers(dev))
+    if d24v and meta.get("batch") != batch:
+        raise ValueError(
+            f"d24v pack {packed_path} was cut at {meta.get('batch')} "
+            f"refs/batch; this replay slices at {batch} (batch_windows * "
+            "window): match the pack's batching or repack")
+    offsets = meta.get("offsets")
+
+    def read_fixed(b):
+        """One fixed-width record (the caller zero-pads it)."""
+        want = min(batch, n - b * batch) * bpr
+        with open(packed_path, "rb") as f:
+            f.seek(b * batch * bpr)
+            raw = np.fromfile(f, dtype=np.uint8, count=want)
+        if raw.size != want:
+            raise DataLoss(
+                f"truncated {fmt} pack {packed_path}: record {b} at byte "
+                f"offset {b * batch * bpr} is cut short", site="trace.load")
+        return raw, raw.size
+
+    def read_d24v(b):
+        """One compressed record (header | width map | payload), its
+        payload padded for the decode kernel."""
+        count = min(batch, meta["n"] - b * batch)
+        nb_blocks = -(-count // wirecodec.BLOCK)
+        with open(packed_path, "rb") as f:
+            f.seek(offsets[b])
+            hdr = np.fromfile(f, dtype="<u4", count=1)
+            wm = np.fromfile(f, dtype=np.uint8, count=nb_blocks)
+            used = int(hdr[0]) if hdr.size else -1
+            payload = np.fromfile(f, dtype=np.uint8, count=max(used, 0))
+        if used < 0 or wm.size != nb_blocks or payload.size != used:
+            raise DataLoss(
+                f"truncated d24v pack {packed_path}: record {b} at byte "
+                f"offset {offsets[b]} is cut short", site="trace.load")
+        pp = np.zeros(wirecodec.pad_len(used), np.uint8)
+        pp[:used] = payload
+        return (pp, wm, count), 4 + wm.nbytes + used
+
+    read_rec = read_d24v if d24v else read_fixed
+    if workers > 1:
+        src = _FeedPool(0, n_batches, read_rec, lambda b, raw: raw,
+                        lambda b, mid: mid, workers, depth=2)
+    else:
+        src = contextlib.nullcontext(read_rec(b) for b in range(n_batches))
+    cuda = dev.type == "cuda"
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        return t.pin_memory().to(dev, non_blocking=True) if cuda else t
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    resident = torch.zeros((n_batches, bw, window, bpr), dtype=torch.uint8,
+                           device=dev)
+    staged = 0
+    file_bytes = 0   # bytes read from the pack, without the padding
+    with src as it:
+        for b, (rec, nbytes) in zip(range(n_batches), it):
+            file_bytes += nbytes
+            if d24v:
+                pp, wm, count = rec
+                ids = _kernels.decode(put(pp), put(wm))
+                resident[b].view(batch, 3)[:count].copy_(
+                    _u24_bytes(ids[:count]))
+            else:
+                resident[b].view(-1)[:rec.size].copy_(put(rec))
+            staged = b + 1
+            if upload_budget_s is not None and staged < n_batches \
+                    and staged % 16 == 0:
+                # copies are asynchronous: only a sync makes the clock
+                # count them
+                sync()
+                if time.perf_counter() - t0 > upload_budget_s:
+                    break
+    sync()
+    upload_s = time.perf_counter() - t0
+    if staged < n_batches:
+        resident = resident[:staged]
+    return resident, min(n, staged * batch), {
+        "upload_s": upload_s,
+        "upload_bytes": file_bytes if d24v else staged * batch * bpr}
+
+
+def replay_staged(resident: torch.Tensor, n_lines: int, n_run: int,
+                  window: int = TRACE_WINDOW, clock0: int = 0,
+                  stats: dict | None = None,
+                  segmented: bool | None = None, *,
+                  _kernels: TraceKernels = KERNELS) -> ReplayResult:
+    """Replay a staged resident trace (:func:`stage_resident`) on the
+    device that holds it: a loop over its batches, each widened to int32
+    ids and run through the segmented batch (or, with ``segmented=False``,
+    the legacy per-window scan), binned by kernel 2
+    (``_kernels.histogram``).
+
+    ``clock0`` shifts the positions' origin: reuses are differences, so the
+    histogram does not change; positions are int64 once ``clock0 +
+    n_batches * batch`` reaches 2^31 - 2.  ``stats``, when given, gains
+    ``replay_s`` and ``refs``; the result's ``timing`` holds them too.
+    """
+    n_batches, bw = resident.shape[0], resident.shape[1]
+    batch = bw * window
+    if resident.shape[2] != window:
+        raise ValueError(f"resident trace has windows of "
+                         f"{resident.shape[2]}, not {window}")
+    pdt = _pos_dtype(n_batches, batch, clock0)
+    batch_fn = _batch_fn(segmented, window)
+    dev = resident.device
+    t0 = time.perf_counter()
+    last_pos = torch.full((n_lines + 1,), -1, dtype=pdt, device=dev)
+    hist = torch.zeros(NBINS, dtype=torch.int64, device=dev)
+    for b in range(n_batches):
+        ids = _widen_ids(resident[b].view(batch, resident.shape[3]))
+        batch_fn(last_pos, hist, clock0 + b * batch, ids, clock0 + n_run,
+                 pdt, _kernels.histogram)
+    hist_np = hist.cpu().numpy()   # the copy waits for the device
+    replay_s = time.perf_counter() - t0
+    if stats is not None:
+        stats.update(replay_s=replay_s, refs=n_run)
+    return ReplayResult(hist_np, n_run, n_lines,
+                        timing={"replay_s": replay_s, "batches": n_batches})
+
+
+def replay_resident(packed_path: str, meta: dict,
+                    window: int = TRACE_WINDOW,
+                    limit_refs: int | None = None,
+                    upload_budget_s: float | None = None,
+                    clock0: int = 0,
+                    stats: dict | None = None,
+                    batch_windows: int | None = None,
+                    segmented: bool | None = None,
+                    feed_workers: int | None = None, *, device=None,
+                    _kernels: TraceKernels = KERNELS) -> ReplayResult:
+    """Stage a packed trace into device memory (:func:`stage_resident`)
+    and replay it from there (:func:`replay_staged`), on ``device``
+    (default: the CUDA card).  ``meta`` is :func:`pack_file`'s sidecar.
+    ``stats`` gains ``upload_s``, ``upload_bytes``, ``replay_s`` and
+    ``refs``; under ``upload_budget_s`` the replay covers the staged
+    prefix (``stats['refs']``)."""
+    resident, n_run, info = stage_resident(
+        packed_path, meta, window, limit_refs, upload_budget_s,
+        batch_windows=batch_windows, feed_workers=feed_workers,
+        device=device, _kernels=_kernels)
+    if stats is not None:
+        stats.update(info)
+    if n_run == 0:
+        return ReplayResult(np.zeros(NBINS, np.int64), 0, 0)
+    return replay_staged(resident, meta["n_lines"], n_run, window,
+                         clock0=clock0, stats=stats, segmented=segmented,
+                         _kernels=_kernels)

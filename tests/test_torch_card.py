@@ -140,6 +140,79 @@ def test_replay_on_the_card_matches_the_cpu(tmp_path, cuda_device, wire):
                                                 cpu.n_lines)
 
 
+def _two_region_trace(path, n, seed=4):
+    rng = np.random.default_rng(seed)
+    lines = np.where(rng.random(n) < 0.5, rng.integers(0, 1 << 8, n),
+                     rng.integers(0, 1 << 13, n))
+    lines = np.where((np.arange(n) // 5000) % 3 == 2,
+                     (1 << 30) + (np.arange(n) // 8) % 4000, lines)
+    (lines.astype(np.uint64) << np.uint64(6)).astype("<u8").tofile(path)
+    return str(path)
+
+
+@pytest.mark.parametrize("wire", ["d24v", "pack"])
+def test_staging_on_the_card_matches_plain_staging(tmp_path, cuda_device,
+                                                   wire):
+    """A pack staged on the card (d24v records through kernel 3, one
+    launch per record) holds the bytes the CPU staging (the plain decode)
+    makes; the card's staged replay (kernel 2 once per batch) and its
+    legacy scan (once per window) equal the streamed replay."""
+    path = _two_region_trace(tmp_path / "t.bin", 7 * 4096 + 123)
+    geo = dict(window=1024, batch_windows=4)
+    packed = str(tmp_path / "t.pack")
+    meta = trace.pack_file(path, packed, wire=wire, feed_workers=2, **geo)
+    decode_d24v.launches = 0
+    card, n_run, _ = trace.stage_resident(packed, meta, device=cuda_device,
+                                          **geo)
+    assert decode_d24v.launches == (8 if wire == "d24v" else 0)
+    cpu, _, _ = trace.stage_resident(packed, meta, device="cpu", **geo)
+    assert card.is_cuda and torch.equal(card.cpu(), cpu)
+    want = trace.replay_file(path, device="cpu", **geo)
+    for clock0, seg, launches in ((0, None, 8), (3, None, 8),
+                                  (0, False, 32)):
+        masked_histogram.launches = 0
+        got = trace.replay_staged(card, meta["n_lines"], n_run, 1024,
+                                  clock0=clock0, segmented=seg)
+        assert masked_histogram.launches == launches
+        np.testing.assert_array_equal(got.hist, want.hist)
+        assert (got.total_count, got.n_lines) == (want.total_count,
+                                                  want.n_lines)
+
+
+def test_stage_through_on_the_card(tmp_path, cuda_device):
+    """Cold replay_file(resident_cache=True) on the card publishes the
+    bytes a direct staging makes; the warm hit launches no decode and
+    equals the stream."""
+    from pluss_torch import residency
+
+    path = _two_region_trace(tmp_path / "t.bin", 6 * 4096 + 7)
+    geo = dict(window=1024, batch_windows=4)
+    residency.reset()
+    try:
+        cold = trace.replay_file(path, resident_cache=True, wire="d24v",
+                                 device=cuda_device, **geo)
+        assert cold.timing["resident"] == "stage_through"
+        decode_d24v.launches = 0
+        warm = trace.replay_file(path, resident_cache=True,
+                                 device=cuda_device, **geo)
+        assert warm.timing["resident"] == "hit"
+        assert decode_d24v.launches == 0 and warm.timing["h2d_bytes"] == 0
+        for rep in (cold, warm):
+            np.testing.assert_array_equal(
+                rep.hist, trace.replay_file(path, device="cpu", **geo).hist)
+        key = trace._residency_key(path, cls=64, window=1024, bw=4,
+                                   precompacted=False, device=cuda_device)
+        ent = residency.store().lookup_pin(key)
+        residency.store().unpin(key)
+        packed = str(tmp_path / "t.pack")
+        meta = trace.pack_file(path, packed, wire="d24v", **geo)
+        direct, _, _ = trace.stage_resident(packed, meta, device=cuda_device,
+                                            **geo)
+        assert torch.equal(ent.value, direct)
+    finally:
+        residency.reset()
+
+
 # ---------------------------------------------------------------- kernel 2
 # edge cases of the redesigned masked histogram: runs of 16 with a scalar
 # head and tail, 16-byte vector loads where a view allows them,

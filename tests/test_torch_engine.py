@@ -207,4 +207,6 @@ def test_port_imports_no_jax_and_no_pluss():
             "pluss_torch/ops/decode.py", "pluss_torch/rowpriv.py",
             "pluss_torch/sweepgroup.py", "pluss_torch/models/solvers.py",
             "pluss_torch/models/stencils.py", "pluss_torch/overlay.py",
-            "pluss_torch/sampling.py"} <= scanned
+            "pluss_torch/sampling.py", "pluss_torch/residency.py",
+            "pluss_torch/journal.py", "pluss_torch/native.py",
+            "pluss_torch/tracebench.py"} <= scanned
