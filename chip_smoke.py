@@ -85,11 +85,34 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     stage-through whose published bytes equal the direct staging, a warm
     hit with no copy and no decode, and a budget of 1024 bytes that
     streams and publishes nothing; each equal to phase 17's replay;
-20. the kernels line, the card's name and power limit, and the result line.
+20. telemetry: mvt-4000 and phase 17's replay again, with a telemetry
+    session writing to a temp ``events.jsonl`` (``pluss_torch.obs``):
+    each equal bit for bit to its telemetry-off run, with the same kernel
+    launch counts; the stream passes ``stats --check``, its
+    ``engine.refs_processed`` and ``trace.refs_replayed`` equal the refs
+    run, and its ``trace replay breakdown`` lines are printed beside the
+    on and off walls (off: the earlier phase's run and one more after the
+    on run);
+21. resilience: ``run_resilient`` (``pluss_torch.resilience``) of (a)
+    mvt-4000 under ``PLUSS_FAULT_PLAN=oom`` (stamp ``shrink_window``),
+    (b) trmm-1000 under ``oom,oom@2,oom@3`` (the last rung
+    ``sliced_pipeline``), (c) cholesky-2000 with no fault plan in a
+    process capped by ``torch.cuda.set_per_process_memory_fraction`` at
+    about half of its full run's peak, so the card's own
+    ``torch.OutOfMemoryError`` stops the first attempt and a later rung
+    fits (the rungs limited to the card's three; the ``resilience.rung``
+    events of a telemetry session name each failed attempt's raw cause,
+    which must be that error, and the first must come after kernel-1
+    launches, not from the plan-time budget guard), and (d) a small
+    sort-path model walked down to ``cpu_fallback``, whose stamp names it
+    while a later plain run still launches on the card; each equal to its
+    clean run; (e) every result of phases 5-19 carries the empty stamp;
+22. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
-(phases 5-16, 17-18's first replay and phase 19's staging, first staged
-replay, legacy scan, stage-through and hit) and read just after it: the
+(phases 5-16, 17-18's first replay, phase 19's staging, first staged
+replay, legacy scan, stage-through and hit, and every run of phases 20-21)
+and read just after it: the
 event kernel must launch once per plan window that sorts something (0 for
 GEMM and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
 window of syrk and syr2k), per thread batch in a sliced run, and once
@@ -126,6 +149,18 @@ def emit(obj: dict) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+#: (label, degradations) of every main-path result of phases 5-19: a plain
+#: run never degrades, so each stamp must be empty (phase 21 (e))
+STAMPS: list[tuple[str, tuple]] = []
+
+
+def clean(label: str, res):
+    """Record ``res``'s resilience stamp, which must be empty; return it."""
+    STAMPS.append((label, res.degradations))
+    check(res.degradations == (), f"{label}: stamped {res.degradations}")
+    return res
 
 
 def card_line() -> str:
@@ -582,6 +617,7 @@ def main() -> int:
         t0 = time.perf_counter()
         res, counts = counted(lambda: engine.run(spec, cfg))
         t1 = time.perf_counter()
+        clean(label, res)
         by_path[label] = counts
         launches = counts["carried_event_hist"]
         peak = torch.cuda.max_memory_allocated()
@@ -711,7 +747,6 @@ def main() -> int:
     # and trmm-1000 rerouted by the auto-dispatch ladder on a quarter of
     # its budget
     sliced_phase(cfg, by_path, resc, rest, sort_windows)
-    del resc, rest
 
     # 14. subset sampling on GEMM-1024, against the full run's MRC
     sample_phase(cfg, by_path, res1k)
@@ -724,7 +759,7 @@ def main() -> int:
             if name in ("syrk", "syr2k"):
                 check(bool(engine.plan(sp, cfg).nests[0].overlays),
                       f"{name}16: no overlay")
-            on_card = engine.run(sp, cfg)
+            on_card = clean(f"{name}16", engine.run(sp, cfg))
             on_cpu = engine.run(sp, cfg, device="cpu")
             check(bool((on_card.noshare_dense == on_cpu.noshare_dense).all())
                   and on_card.share_raw == on_cpu.share_raw
@@ -764,10 +799,18 @@ def main() -> int:
         batches, streamed = trace_phases(tmp, by_path)
         # 19. the packed, device-resident replay of the same trace
         resident_phase(tmp, streamed, by_path)
+        # 20. the mvt-4000 run and the streamed replay under telemetry
+        telemetry_phase(tmp, cfg, by_path, resm, by_path["mvt4000"],
+                        streamed, by_path["trace"])
+        # 21. the degradation ladder: injected faults, a genuine card OOM,
+        # the CPU rung, and the empty stamps of every earlier phase
+        resilience_phase(tmp, cfg, by_path, resm, rest, resc,
+                         mc["peak_device_gib"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    del resc, rest
 
-    # 20. kernels line, card, result -----------------------------------------
+    # 22. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
@@ -840,6 +883,7 @@ def overlay_phase(spec, cfg, dev, by_path, sort_windows, conserved) -> None:
     res, counts = counted(lambda: engine.run(spec, cfg))
     engine_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    clean(label, res)
     by_path[label] = counts
     check(counts["carried_event_hist"] == sort_windows(pl),
           f"{label}: {counts['carried_event_hist']} launches, "
@@ -899,6 +943,7 @@ def sliced_phase(cfg, by_path, chol_full, trmm_full, sort_windows) -> None:
         res, counts = counted(lambda: engine.run(spec, cfg, thread_batch=tb))
         secs = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        clean(f"cholesky2000_tb{tb}", res)
         by_path[f"cholesky2000_tb{tb}"] = counts
         batches = -(-cfg.thread_num // tb)
         check(counts["carried_event_hist"] == sort_windows(pl) * batches,
@@ -930,6 +975,7 @@ def sliced_phase(cfg, by_path, chol_full, trmm_full, sort_windows) -> None:
         peak = torch.cuda.max_memory_allocated()
     finally:
         engine.sort_budget = real_budget
+    clean("trmm1000_rerouted", res)
     by_path["trmm1000_rerouted"] = counts
     check(counts["carried_event_hist"] == sort_windows(pl) * cfg.thread_num,
           f"trmm1000 rerouted: launches {counts}")
@@ -970,6 +1016,7 @@ def sample_phase(cfg, by_path, full) -> None:
             spec, cfg, rate, seed=0, mode=mode))
         secs = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        clean(label, est)
         by_path[label] = counts
         walks = max(1, round(rate * nw)) if mode == "uniform" \
             else min(nw - 1, max(0, round(rate * nw) - 1)) + 1
@@ -1031,6 +1078,7 @@ def trace_phases(tmp: str, by_path: dict) -> tuple:
     rep, counts = counted(lambda: trace.replay_file(path))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    clean("trace", rep)
     by_path["trace"] = counts
     check(rep.total_count == n == 1 << 28, f"trace refs {rep.total_count}")
     check(counts["masked_hist"] == counts["d24v_decode"] == n_batches == 16,
@@ -1220,7 +1268,7 @@ def resident_phase(tmp: str, rep, by_path: dict) -> None:
     cold, counts = counted(lambda: trace.replay_file(path,
                                                      resident_cache=True))
     by_path["stage_through"] = counts
-    same(cold, "stage-through (cold)")
+    same(clean("stage_through", cold), "stage-through (cold)")
     store = residency.store()
     check(cold.timing["resident"] == "stage_through" and len(store) == 1,
           f"stage-through: {cold.timing.get('resident')}, {len(store)}")
@@ -1235,14 +1283,14 @@ def resident_phase(tmp: str, rep, by_path: dict) -> None:
     warm, counts = counted(lambda: trace.replay_file(path,
                                                      resident_cache=True))
     by_path["resident_hit"] = counts
-    same(warm, "warm hit")
+    same(clean("resident_hit", warm), "warm hit")
     check(warm.timing["resident"] == "hit" and warm.timing["h2d_bytes"] == 0
           and counts["d24v_decode"] == 0
           and counts["masked_hist"] == n_batches,
           f"warm hit {warm.timing}, launches {counts}")
     residency.reset(budget=1024)
     tiny = trace.replay_file(path, resident_cache=True)
-    same(tiny, "tiny budget")
+    same(clean("resident_tiny", tiny), "tiny budget")
     check(tiny.timing["resident"] == "fallback"
           and len(residency.store()) == 0, "tiny budget published")
     residency.reset()
@@ -1254,6 +1302,211 @@ def resident_phase(tmp: str, rep, by_path: dict) -> None:
                scan_launches=by_path["resident_scan"])
     emit({"phase": "resident", **out, "match": True, "plain_match": True,
           "scan_match": True, "stage_through_match": True, "ok": True})
+
+
+def telemetry_phase(tmp: str, cfg, by_path: dict, res_off, counts_off: dict,
+                    rep_off, trace_counts_off: dict) -> None:
+    """Phase 20: mvt-4000 and the 2^28-ref replay with a telemetry session
+    on, each equal bit for bit to its telemetry-off run (``res_off``,
+    ``rep_off``) with the same launch counts; the stream passes ``stats
+    --check`` and counts the refs that ran.  The off walls are the earlier
+    phase's and one more run after the on run (host clocks spread on a
+    shared host: the pair, not one number, is the comparison)."""
+    import numpy as np
+
+    from pluss_torch import engine, obs, trace
+    from pluss_torch.models import mvt
+    from pluss_torch.obs import stats as stats_mod
+
+    ev = os.path.join(tmp, "events.jsonl")
+    path = os.path.join(tmp, "smoke.bin")
+    spec = mvt(4000)
+    # an off run first: the plan memo may have dropped mvt-4000's plan
+    # since phase 7, and the walls below compare runs, not plans
+    t0 = time.perf_counter()
+    check(same_result(engine.run(spec, cfg), res_off),
+          "telemetry: mvt4000 off run")
+    walls = {"mvt4000_off_s": [time.perf_counter() - t0],
+             "mvt4000_on_s": []}
+    obs.configure(ev)
+    try:
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: engine.run(spec, cfg))
+        walls["mvt4000_on_s"].append(time.perf_counter() - t0)
+        by_path["telemetry_mvt4000"] = counts
+        check(same_result(res, res_off) and counts == counts_off,
+              f"telemetry mvt4000: result or launches {counts} differ "
+              f"from the telemetry-off run's {counts_off}")
+        t0 = time.perf_counter()
+        rep, counts = counted(lambda: trace.replay_file(path))
+        trace_on_s = time.perf_counter() - t0
+        by_path["telemetry_trace"] = counts
+        check(np.array_equal(rep.hist, rep_off.hist)
+              and rep.total_count == rep_off.total_count
+              and rep.n_lines == rep_off.n_lines
+              and counts == trace_counts_off,
+              f"telemetry trace: result or launches {counts} differ from "
+              f"the telemetry-off run's {trace_counts_off}")
+    finally:
+        obs.shutdown()
+    t0 = time.perf_counter()
+    off = trace.replay_file(path)
+    trace_off2_s = time.perf_counter() - t0
+    check(np.array_equal(off.hist, rep_off.hist), "telemetry: off rerun")
+    # mvt's walls alternate off/on after the first pair
+    for on in (True, False, True, False):
+        if on:
+            obs.configure(os.path.join(tmp, "events2.jsonl"))
+        try:
+            t0 = time.perf_counter()
+            again = engine.run(spec, cfg)
+            walls[f"mvt4000_{'on' if on else 'off'}_s"].append(
+                time.perf_counter() - t0)
+        finally:
+            obs.shutdown()
+        check(same_result(again, res_off), "telemetry: mvt4000 rerun")
+    out, err = io.StringIO(), io.StringIO()
+    rc = stats_mod.main(ev, out, err, check=True)
+    check(rc == 0, f"stats --check: {err.getvalue()}")
+    recs, _, _ = stats_mod.load(ev)
+    ctr = {r["name"]: r["value"] for r in recs if r.get("ev") == "counter"}
+    spans = [r for r in recs if r.get("ev") == "span"]
+    (replay_span,) = [r for r in spans if r["name"] == "trace.replay_file"]
+    check(ctr["engine.refs_processed"] == res_off.max_iteration_count
+          and ctr["trace.refs_replayed"] == rep_off.total_count,
+          f"telemetry counts {ctr.get('engine.refs_processed')} / "
+          f"{ctr.get('trace.refs_replayed')}")
+    breakdown = stats_mod.trace_breakdown(ctr, replay_span["dur"])
+    for ln in breakdown:
+        print(ln, flush=True)
+    emit({"phase": "telemetry", "records": len(recs), "spans": len(spans),
+          "stats_check": out.getvalue().strip(), **walls,
+          "trace_off_s": [rep_off.timing["wall_s"], trace_off2_s],
+          "trace_on_s": trace_on_s,
+          "trace_span_s": replay_span["dur"],
+          "engine_dispatch_s": [r["dur"] for r in spans
+                                if r["name"] == "engine.dispatch"],
+          "breakdown": breakdown,
+          "counters": {k: ctr[k] for k in sorted(ctr)},
+          "launches": {"mvt4000": by_path["telemetry_mvt4000"],
+                       "trace": by_path["telemetry_trace"]},
+          "match": True, "ok": True})
+
+
+def resilience_phase(tmp: str, cfg, by_path: dict, resm, rest, resc,
+                     chol_peak_gib: float) -> None:
+    """Phase 21: the sampler's degradation ladder on the card
+    (``pluss_torch.resilience.run_resilient``): injected faults (a, b), a
+    genuine ``torch.OutOfMemoryError`` under a capped allocator (c), the
+    CPU rung (d), and the empty stamps of phases 5-19 (e)."""
+    import torch
+
+    from pluss_torch import engine, obs
+    from pluss_torch.models import cholesky, mvt, trmm
+    from pluss_torch.ops.event_hist import event_histogram
+    from pluss_torch.resilience import LADDER, FaultPlan, Retry, faults, \
+        run_resilient
+
+    retry = Retry(backoff_s=0.0)
+    out = {}
+
+    def ladder(label, spec, plan, want, **kw):
+        faults.install(FaultPlan.parse(plan) if plan else None)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            res, counts = counted(lambda: run_resilient(
+                spec, cfg, retry=retry, **kw))
+        finally:
+            faults.install(None)
+        wall = time.perf_counter() - t0
+        by_path[f"resilience_{label}"] = counts
+        check(same_result(res, want), f"resilience {label}: result differs "
+              "from the clean run")
+        out[label] = {"fault_plan": plan, "rungs": list(res.degradations),
+                      "attempts": len(res.degradations) + 1, "wall_s": wall,
+                      "peak_device_gib":
+                      torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": counts, "match": True}
+        return res
+
+    # (a) one injected OOM: the window shrinks, the result holds
+    res = ladder("mvt4000", mvt(4000), "oom", resm)
+    check(res.degradations == ("shrink_window",),
+          f"(a) stamp {res.degradations}")
+    # (b) three: the last rung is the dispatch-sliced pipeline
+    res = ladder("trmm1000", trmm(1000), "oom,oom@2,oom@3", rest)
+    check(res.degradations == LADDER[:3], f"(b) stamp {res.degradations}")
+    # the sliced attempt ran at the twice-shrunk window, one thread at a
+    # time: kernel 1 once per sort window per thread
+    pl = engine._plan_cached(trmm(1000), cfg, None, None,
+                             max(engine.WINDOW_TARGET // 64, 1 << 10))
+    sorts = sum(int(np_.n_windows) for np_ in pl.nests if np_.refs)
+    check(by_path["resilience_trmm1000"]["carried_event_hist"]
+          == sorts * cfg.thread_num,
+          f"(b): {by_path['resilience_trmm1000']} launches, {sorts} sort "
+          "windows per thread")
+    # (c) the card's own OOM: cholesky-2000 under an allocator cap of
+    # about half its full run's peak; the rungs stop before the CPU.  Each
+    # failed attempt's rung event is read as it is emitted, with kernel
+    # 1's launches so far: (raw cause, launches before the failure)
+    failed = []
+
+    def on_record(rec):
+        if rec.get("name") == "resilience.rung":
+            failed.append((rec["attrs"]["cause"], event_histogram.launches))
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap_gib = 0.55 * chol_peak_gib
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap_gib * 2**30 / total)
+    obs.configure(os.path.join(tmp, "resilience.jsonl")).add_tap(on_record)
+    try:
+        res = ladder("cholesky2000_capped", cholesky(2000), "", resc,
+                     rungs=LADDER[:3])
+    finally:
+        obs.shutdown()
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    check(len(failed) == len(res.degradations) >= 1
+          and all(cause == "OutOfMemoryError" for cause, _ in failed)
+          and failed[0][1] > 0,
+          f"(c): the failed attempts (raw cause, kernel-1 launches so far) "
+          f"{failed} are not the card's own out-of-memory errors after "
+          "kernel launches")
+    out["cholesky2000_capped"].update(
+        cap_gib=cap_gib, full_peak_gib=chol_peak_gib,
+        failed_attempts=[{"cause": c, "kernel1_launches_so_far": n}
+                         for c, n in failed])
+    # (d) the CPU rung on a small sort-path model: stamped, equal to the
+    # card's run, and the next plain run still launches on the card
+    small = cholesky(48)
+    on_card, counts = counted(lambda: engine.run(small, cfg))
+    check(counts["carried_event_hist"] > 0, "(d): cholesky48 sorts nothing")
+    res = ladder("cholesky48_cpu", small, "oom,oom@2,oom@3,oom@4", on_card)
+    check(res.degradations == LADDER and "cpu_pinned" not in
+          res.degradations, f"(d) stamp {res.degradations}")
+    check(by_path["resilience_cholesky48_cpu"]["carried_event_hist"] == 0,
+          "(d): the CPU attempt launched a kernel")
+    again, counts = counted(lambda: engine.run(small, cfg))
+    check(counts["carried_event_hist"] > 0 and again.degradations == ()
+          and same_result(again, on_card),
+          "(d): a later run did not stay on the card")
+    out["cholesky48_cpu"]["later_run_launches"] = counts
+    # (e) every main-path result of phases 5-19 is stamped ()
+    check(len(STAMPS) > 40 and all(st == () for _, st in STAMPS),
+          f"(e): stamps {[x for x in STAMPS if x[1]]}")
+    out["clean_stamps"] = len(STAMPS)
+    for label in ("mvt4000", "trmm1000", "cholesky2000_capped",
+                  "cholesky48_cpu"):
+        o = out[label]
+        print(f"resilience {label}: plan {o['fault_plan'] or '-'}; rungs "
+              f"{','.join(o['rungs']) or '()'}; {o['attempts']} attempts; "
+              f"{o['wall_s']:.3f} s", flush=True)
+    print(f"resilience cholesky2000_capped: failed attempts (raw cause, "
+          f"kernel-1 launches so far) {failed}", flush=True)
+    emit({"phase": "resilience", **out, "ok": True})
 
 
 if __name__ == "__main__":

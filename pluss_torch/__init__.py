@@ -11,6 +11,9 @@ carried-event histogram kernel) -> ``cri.distribute`` -> ``mrc.aet_mrc`` ->
 the reference's ``acc`` block (``python -m pluss_torch.cli acc``).  And the
 single-device streamed trace replay: ``trace.replay_file`` (with the CUDA
 d24v wire decode and masked event histogram kernels) -> the ``trace``
-block (``python -m pluss_torch.cli trace``).  Runs go to the CUDA card
-unless the caller asks for the CPU.
+block (``python -m pluss_torch.cli trace``), packed and device-resident
+replay beside it.  Every layer reports to :mod:`pluss_torch.obs`
+(telemetry), and :mod:`pluss_torch.resilience` wraps both paths in the
+degradation ladder.  Runs go to the CUDA card unless the caller asks for
+the CPU.
 """

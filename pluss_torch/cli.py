@@ -1,9 +1,11 @@
-"""`acc` / `speed` / `mrc` / `sample` / `trace` CLI of the port — the reference's run modes.
+"""`acc` / `speed` / `mrc` / `sample` / `trace` / `stats` CLI of the port — the reference's run modes.
 
     python -m pluss_torch.cli acc --model gemm --n 1024      # on the CUDA card
     python -m pluss_torch.cli acc --cpu --model gemm --n 16  # on the host
     python -m pluss_torch.cli sample --model gemm --n 1024 --rates 0.05,0.1
     python -m pluss_torch.cli trace --file t.bin --out mrc.csv
+    python -m pluss_torch.cli acc --cpu --telemetry ev.jsonl
+    python -m pluss_torch.cli stats ev.jsonl --check
 
 - ``acc``: one timed run; prints the reference's block (timing banner, the
   three histogram dumps, "max iteration traversed").  Below the banner the
@@ -17,11 +19,21 @@
   ``rate,walked_fraction,l2_error`` per rate, byte for byte what
   ``python -m pluss.cli sample`` prints.
 - ``trace``: replay a raw address trace (``--file``, ``--fmt u64|text``)
-  with :func:`pluss_torch.trace.replay_file` (``--resident-cache`` rides
-  the residency store); prints the banner, the reuse histogram and ``N
+  through the degradation ladder,
+  :func:`pluss_torch.resilience.replay_file_resilient`
+  (``--resident-cache`` rides the residency store; the rungs taken, if
+  any, go to stderr); prints the banner, the reuse histogram and ``N
   refs over L lines; wrote MRC to <out>``, and writes the MRC to
   ``--out``.  Below the banner the block and the CSV are byte
   for byte those of ``python -m pluss.cli trace``.
+- ``stats <events.jsonl>``: aggregate a telemetry stream (``--check``
+  validates it instead, ``--trace RID`` renders one request's spans,
+  ``--follow`` tails a growing stream): host code only, no card, and
+  byte for byte what ``python -m pluss.cli stats`` prints.
+
+``--telemetry PATH`` (or ``PLUSS_TELEMETRY``) writes the run's spans,
+counters, gauges and events to PATH as JSONL
+(:mod:`pluss_torch.obs`).
 
 The timed region of ``acc``/``speed`` is the reference's: sampler + CRI
 distribute (…omp.cpp:337-339), after one untimed warm-up run that builds
@@ -38,7 +50,7 @@ import time
 
 import torch
 
-from pluss_torch import cri, engine, mrc, sampling, trace
+from pluss_torch import cri, engine, mrc, obs, sampling, trace
 from pluss_torch.config import SamplerConfig
 from pluss_torch.io import RI_TITLE, acc_block, print_histogram, speed_block
 from pluss_torch.models import REGISTRY
@@ -72,7 +84,28 @@ def banner_of(device) -> str:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="pluss_torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("mode", choices=("acc", "speed", "mrc", "sample", "trace"))
+    p.add_argument("mode", choices=("acc", "speed", "mrc", "sample", "trace",
+                                    "stats"))
+    p.add_argument("target", nargs="?", default=None,
+                   help="stats mode: the telemetry event stream "
+                        "(events.jsonl) to aggregate")
+    p.add_argument("--check", action="store_true",
+                   help="stats mode: validate the event stream against "
+                        "the telemetry schema instead of rendering it "
+                        "(exit 1 on any violation)")
+    p.add_argument("--trace", default=None, metavar="RID",
+                   help="stats mode: render the causal span tree of ONE "
+                        "request (every span/event stamped trace=RID) "
+                        "instead of the aggregate rollup")
+    p.add_argument("--follow", action="store_true",
+                   help="stats mode: live-tail a growing event stream, "
+                        "rendering records as they land (stops at the "
+                        "stream's end record or Ctrl-C)")
+    p.add_argument("--telemetry", metavar="PATH", default=None,
+                   help="write a structured telemetry event stream "
+                        "(spans/counters/gauges as JSONL) to PATH; "
+                        "equivalently set PLUSS_TELEMETRY.  Aggregate "
+                        "with `python -m pluss_torch.cli stats PATH`")
     p.add_argument("--model", default="gemm", choices=sorted(REGISTRY))
     p.add_argument("--n", type=int, default=128, help="problem size")
     p.add_argument("--threads", type=int, default=4, help="simulated threads")
@@ -123,12 +156,38 @@ def main(argv: list[str] | None = None) -> int:
                    help="run on the host CPU instead of the CUDA card")
     args = p.parse_args(argv)
 
+    if args.target is not None and args.mode != "stats":
+        p.error(f"unexpected argument {args.target!r} for mode "
+                f"{args.mode!r} (positional input is for stats mode only)")
+    if args.mode == "stats":
+        # host aggregation of a recorded stream: no device, and no
+        # telemetry session of its own
+        from pluss_torch.obs import stats as stats_mod
+
+        if not args.target:
+            p.error("stats mode requires an events.jsonl path")
+        if args.check and (args.trace or args.follow):
+            p.error("stats --check excludes --trace/--follow")
+        return stats_mod.main(args.target, sys.stdout, sys.stderr,
+                              check=args.check, trace=args.trace,
+                              follow_stream=args.follow)
+    if args.telemetry:
+        obs.configure(args.telemetry)
     try:
         device = engine.resolve_device("cpu" if args.cpu else None)
     except RuntimeError as e:
         p.error(str(e))
     cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk)
-    out = sys.stdout
+    try:
+        return run_mode(args, p, cfg, device, sys.stdout)
+    finally:
+        # counters land in the stream even when the process lives on
+        # (the session itself closes at exit, or at the next configure)
+        obs.flush_metrics()
+
+
+def run_mode(args, p, cfg: SamplerConfig, device, out) -> int:
+    """The run modes (every mode but ``stats``)."""
     if args.mode == "trace":
         return trace_mode(args, p, cfg, device, out)
     spec = REGISTRY[args.model](args.n)
@@ -182,16 +241,28 @@ def trace_mode(args, p, cfg: SamplerConfig, device, out) -> int:
         ckpt = args.journal or (args.file + ".ckpt.npz")
         print(f"pluss_torch: trace checkpoint at {ckpt} "
               f"(resume {'on' if args.resume else 'off'})", file=sys.stderr)
+    from pluss_torch.resilience import replay_file_resilient
+    from pluss_torch.resilience.ladder import TRACE_LADDER
+
+    # on the card the ladder stops before its CPU rung: the banner and the
+    # timing below are the card's, never a host replay's
+    rungs = TRACE_LADDER if device.type == "cpu" else tuple(
+        r for r in TRACE_LADDER if r != "cpu_fallback")
     t0 = time.perf_counter()
-    rep = trace.replay_file(args.file, args.fmt, cls=cfg.cls,
-                            window=args.window, checkpoint_path=ckpt,
-                            resume=args.resume,
-                            batch_windows=args.batch_windows,
-                            feed_workers=args.feed_workers, wire=args.wire,
-                            resident_cache=args.resident_cache,
-                            device=device)
+    rep = replay_file_resilient(args.file, args.fmt, rungs=rungs,
+                                cls=cfg.cls, window=args.window,
+                                checkpoint_path=ckpt,
+                                resume=args.resume,
+                                batch_windows=args.batch_windows,
+                                feed_workers=args.feed_workers,
+                                wire=args.wire,
+                                resident_cache=args.resident_cache,
+                                device=device)
     dt = time.perf_counter() - t0
     # stderr: the stdout block is held byte for byte against the JAX CLI's
+    if rep.degradations:
+        print("pluss_torch: trace replay degraded: "
+              + ",".join(rep.degradations), file=sys.stderr)
     tm = rep.timing
     peak = f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB" \
         if device.type == "cuda" else "n/a"

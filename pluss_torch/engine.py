@@ -60,9 +60,9 @@ import uuid
 import numpy as np
 import torch
 
-from pluss_torch import rowpriv, sweepgroup
+from pluss_torch import obs, rowpriv, sweepgroup
 from pluss_torch.config import DEFAULT, NBINS, SamplerConfig
-from pluss_torch.errors import quarantine_artifact
+from pluss_torch.obs import xprof
 from pluss_torch.ops import build
 from pluss_torch.ops.event_hist import event_histogram
 from pluss_torch.overlay import (DeviceOverlay, build_overlay, device_window,
@@ -79,6 +79,8 @@ from pluss_torch.ops.reuse import (
     share_unique,
     sort_columns,
 )
+from pluss_torch.resilience import faults
+from pluss_torch.resilience.errors import quarantine_artifact
 from pluss_torch.sched import ChunkSchedule
 from pluss_torch.spec import (
     FlatRef,
@@ -149,25 +151,12 @@ def _plan_cache_key(spec, cfg, ni: int, W: int, NW: int) -> str:
     ).hexdigest()[:32]
 
 
-@functools.lru_cache(maxsize=8)
-def _cache_max_of(raw: str) -> int:
-    if not raw.strip():
-        return 256
-    try:
-        cap = int(raw)
-    except ValueError:
-        cap = -1
-    if cap < 0:
-        print(f"pluss_torch: ignoring malformed PLUSS_PLAN_CACHE_MAX={raw!r}; "
-              "using the default 256", file=sys.stderr)
-        return 256
-    return cap
-
-
 def plan_cache_max() -> int:
     """Disk plan-cache entry cap (``PLUSS_PLAN_CACHE_MAX``, default 256; 0
     disables eviction; a malformed value warns once and means 256)."""
-    return _cache_max_of(os.environ.get("PLUSS_PLAN_CACHE_MAX", ""))
+    from pluss_torch.utils.envknob import env_int
+
+    return env_int("PLUSS_PLAN_CACHE_MAX", 256, minimum=0)
 
 
 def _plan_cache_evict() -> None:
@@ -196,6 +185,7 @@ def _plan_cache_evict() -> None:
             os.unlink(path)
         except OSError:
             continue
+        obs.counter_add("engine.plan_cache.evict")
 
 
 def _plan_cache_get(key: str):
@@ -203,14 +193,22 @@ def _plan_cache_get(key: str):
     does not unpickle is renamed aside (``.corrupt``) and reported once,
     so the rebuilt artifact can take its slot."""
     path = _plan_cache_path(key)
-    if path is None or not os.path.exists(path):
+    if path is None:
         return None
+    if not os.path.exists(path):
+        obs.counter_add("engine.plan_cache.miss")
+        obs.trace_event("plan_cache.consult", outcome="miss")
+        return None
+    faults.corrupt("plan_cache.get", path)   # chaos: corrupt_cache site
     try:
         with open(path, "rb") as f:
             value = pickle.load(f)
     except Exception as e:   # any unpickling failure means corrupt bytes
+        obs.counter_add("engine.plan_cache.corrupt")
         quarantine_artifact(path, "engine plan-cache", e)
         return None
+    obs.counter_add("engine.plan_cache.hit")
+    obs.trace_event("plan_cache.consult", outcome="hit")
     try:
         os.utime(path)   # recency for _plan_cache_evict
     except OSError:
@@ -774,17 +772,23 @@ def plan_path(pl: StreamPlan) -> str:
 
 
 def describe_path(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
-                  window_accesses: int | None = None, *,
-                  device=None) -> str:
+                  window_accesses: int | None = None,
+                  degradations: tuple = (), *, device=None) -> str:
     """The :func:`plan_path` label of a default :func:`run` of ``spec`` on
     ``device``, prefixed ``sliced:`` when the auto-dispatch ladder would
-    reroute it to :func:`run_sliced`.  Plans through the shared memo, so
-    it costs nothing after a run."""
+    reroute it to :func:`run_sliced`, and suffixed ``[degraded: ...]``
+    when the caller passes a result's resilience stamp
+    (``res.degradations``).  Plans through the shared memo, so it costs
+    nothing after a run."""
     pl = _plan_cached(spec, cfg, None, None, window_accesses)
     label = plan_path(pl)
     if not os.environ.get("PLUSS_NO_AUTO_DISPATCH") and _auto_dispatch(
             pl, cfg, None, sort_budget(resolve_device(device))) is not None:
         label = "sliced:" + label
+    if degradations:
+        from pluss_torch.resilience.ladder import degradation_label
+
+        label = degradation_label(label, tuple(degradations))
     return label
 
 
@@ -996,6 +1000,10 @@ class SamplerResult:
     #: fraction of the stream actually walked: 1.0 for a full run, below 1
     #: only for :mod:`pluss_torch.sampling` estimates (float counts)
     sampled_fraction: float = 1.0
+    #: degradation-ladder rungs taken to produce this result
+    #: (:func:`pluss_torch.resilience.run_resilient`); empty for a clean
+    #: first attempt and for every plain :func:`run`
+    degradations: tuple = ()
 
     @property
     def thread_num(self) -> int:
@@ -1218,7 +1226,18 @@ def _plan_cached(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
                  start_point, window_accesses) -> StreamPlan:
     """The process's plan memo, shared by :func:`run`, :func:`run_sliced`,
     :func:`precompile` and :func:`describe_path`."""
-    return plan(spec, cfg, assignment, start_point, window_accesses)
+    with obs.span("engine.plan", model=spec.name, threads=cfg.thread_num,
+                  chunk=cfg.chunk_size):
+        return plan(spec, cfg, assignment, start_point, window_accesses)
+
+
+def _build_kernels(pl: StreamPlan, dev: torch.device) -> None:
+    """Build the kernels a run of ``pl`` on ``dev`` launches (the
+    event-histogram kernel, when a window sorts and the device is CUDA):
+    the ``engine.compile`` fault site, once per run attempt."""
+    faults.check("engine.compile")
+    if dev.type == "cuda" and any(np_.refs for np_ in pl.nests):
+        build.load("event_hist")
 
 
 #: (spec, cfg, window_accesses) of default runs warmed in this process
@@ -1243,6 +1262,7 @@ def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
     ``PLUSS_NO_AUTO_DISPATCH=1`` turns this off).  Sort windows that do
     not fit even one at a time raise before any window runs.
     """
+    faults.check("engine.run")   # chaos injection site (per entry attempt)
     dev = resolve_device(device)
     assignment = _freeze(assignment)
     tb = _normalize_thread_batch(thread_batch, cfg)
@@ -1255,8 +1275,12 @@ def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
             tb, reason = decision
             print(f"engine: auto-sliced dispatch (thread_batch="
                   f"{tb or cfg.thread_num}): {reason}", file=sys.stderr)
+            obs.counter_add("engine.auto_dispatch_reroutes")
+            obs.event("engine.auto_dispatch", model=spec.name,
+                      thread_batch=tb or cfg.thread_num, reason=reason)
             budget = _dispatch_entry_budget()
     check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, limit, tb)
+    _build_kernels(pl, dev)
     if assignment is None and start_point is None:
         _warm_keys.add((spec, cfg, window_accesses))
     return _execute(pl, dev, thread_batch=tb, dispatch_entries=budget)
@@ -1276,12 +1300,14 @@ def run_sliced(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
     sort windows of one batch at a time, and the slice's share uniques
     fold into one before the next slice.  Equal to :func:`run`.
     """
+    faults.check("engine.run")   # chaos injection site, per attempt
     dev = resolve_device(device)
     assignment = _freeze(assignment)
     tb = _normalize_thread_batch(thread_batch, cfg)
     pl = _plan_cached(spec, cfg, assignment, start_point, window_accesses)
     check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, sort_budget(dev),
                       tb)
+    _build_kernels(pl, dev)
     return _execute(pl, dev, thread_batch=tb,
                     dispatch_entries=max_dispatch_entries
                     or _dispatch_entry_budget())
@@ -1299,15 +1325,17 @@ def precompile(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
     dev = resolve_device(device)
     assignment = _freeze(assignment)
     tb = _normalize_thread_batch(thread_batch, cfg)
-    pl = _plan_cached(spec, cfg, assignment, start_point, window_accesses)
-    if dev.type == "cuda" and any(np_.refs for np_ in pl.nests):
-        build.load("event_hist")
-    if assignment is None and start_point is None:
-        _warm_keys.add((spec, cfg, window_accesses))
-    if os.environ.get("PLUSS_NO_AUTO_DISPATCH") or \
-            _auto_dispatch(pl, cfg, tb, sort_budget(dev)) is None:
-        return "full"
-    return "sliced"
+    with obs.span("engine.precompile", model=spec.name,
+                  threads=cfg.thread_num, chunk=cfg.chunk_size):
+        pl = _plan_cached(spec, cfg, assignment, start_point,
+                          window_accesses)
+        _build_kernels(pl, dev)
+        if assignment is None and start_point is None:
+            _warm_keys.add((spec, cfg, window_accesses))
+        if os.environ.get("PLUSS_NO_AUTO_DISPATCH") or \
+                _auto_dispatch(pl, cfg, tb, sort_budget(dev)) is None:
+            return "full"
+        return "sliced"
 
 
 def is_warm(spec: LoopNestSpec, cfg: SamplerConfig,
@@ -1412,10 +1440,6 @@ class _Walk:
                 lst[:] = [share_unique(torch.cat([k for k, _ in lst]),
                                        torch.cat([c for _, c in lst]))]
 
-    def result(self) -> SamplerResult:
-        return _finalize(self.pl, self.hist.cpu().numpy(), self.plus,
-                         self.minus)
-
 
 def _execute(pl: StreamPlan, device: torch.device,
              event_hist=event_histogram, thread_batch: int | None = None,
@@ -1428,23 +1452,42 @@ def _execute(pl: StreamPlan, device: torch.device,
     slice.  ``event_hist`` is the sort windows' histogram function: the
     kernel wrapper, or its plain version when ``chip_smoke.py``
     cross-checks the kernel end to end on the card.
+
+    Telemetry: the ``engine.dispatch`` span (``backend`` ``vmap`` for one
+    pass over all rows, ``sliced`` with its ``thread_batch`` and
+    ``dispatches``) ends at the copy of the histogram to the host, which
+    waits for every launch, so it covers the device's work; then
+    ``engine.refs_processed`` (and ``engine.sliced_dispatches``) count,
+    and :func:`_finalize` runs in its own span.
     """
     cfg = pl.cfg
     T = cfg.thread_num
     step = thread_batch or T
     if dispatch_entries:
         slices = _slice_schedule(pl, cfg, thread_batch, dispatch_entries)
+        attrs = {"backend": "sliced", "thread_batch": step}
     else:
         slices = [(ni, si, w_list) for ni, np_ in enumerate(pl.nests)
                   for si, (_, w_list, _) in enumerate(_segments_of(np_))]
+        attrs = {"backend": "vmap"}
+    name = pl.spec.name
     walk = _Walk(pl, device, event_hist)
-    for ni, si, w_list in slices:
-        for lo in range(0, T, step):
-            rows = slice(lo, min(T, lo + step))
-            for w in w_list:
-                walk.window(ni, si, w, rows)
-        walk.fold()
-    return walk.result()
+    with obs.span("engine.dispatch", model=name, **attrs) as sp, \
+            xprof.session(), xprof.annotate(f"pluss.engine.{name}"):
+        for ni, si, w_list in slices:
+            for lo in range(0, T, step):
+                rows = slice(lo, min(T, lo + step))
+                for w in w_list:
+                    walk.window(ni, si, w, rows)
+            walk.fold()
+        hist = walk.hist.cpu().numpy()   # the copy waits for the device
+        if dispatch_entries:
+            sp.set(dispatches=len(slices))
+    if dispatch_entries:
+        obs.counter_add("engine.sliced_dispatches", len(slices))
+    obs.counter_add("engine.refs_processed", pl.total_count)
+    with obs.span("engine.finalize", model=name):
+        return _finalize(pl, hist, walk.plus, walk.minus)
 
 
 def _finalize(pl: StreamPlan, hist: np.ndarray, plus, minus) -> SamplerResult:

@@ -34,6 +34,12 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
+class BuildError(RuntimeError):
+    """A native build failed (the compiler's output is in the message).
+    :func:`pluss_torch.resilience.errors.classify` maps it to
+    ``CompileError``."""
+
+
 def nvcc() -> str:
     """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on
     ``PATH``, else the toolkit's default install location."""
@@ -78,7 +84,7 @@ def build(*names: str) -> dict[str, dict]:
     already, one compiler process per source, all started together.
     Returns, per name, the seconds from the start to that compiler's exit
     and its ``ptxas info`` lines (0 and empty when nothing was compiled);
-    raises ``RuntimeError`` with the compilers' output if a build fails
+    raises :class:`BuildError` with the compilers' output if a build fails
     (a missing compiler included)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     todo = [n for n in names if not os.path.exists(library_path(n))]
@@ -109,7 +115,7 @@ def build(*names: str) -> dict[str, dict]:
                          "ptxas": [ln for ln in proc.stdout.splitlines()
                                    if "ptxas info" in ln or "spill" in ln]}
     if failed:
-        raise RuntimeError("native build failed: " + "\n".join(failed))
+        raise BuildError("native build failed: " + "\n".join(failed))
     return out
 
 

@@ -42,6 +42,7 @@ import torch
 from pluss_torch import engine, trace
 from pluss_torch.config import SamplerConfig
 from pluss_torch.models import REGISTRY
+from pluss_torch.obs import xprof
 
 #: symbol prefixes of the port's CUDA kernels (pluss_torch/csrc/*.cu)
 PORT_KERNELS = ("carried_event_hist", "masked_hist", "d24v_")
@@ -52,10 +53,7 @@ def profiled(fn, top: int):
     result, wall seconds, device busy seconds (None when the profiler saw
     no device time), top device operations and the port's kernels among
     all of them (device seconds and launches by symbol prefix)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with xprof.profiler() as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()

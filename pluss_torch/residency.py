@@ -23,22 +23,22 @@ entries:
   :meth:`ResidencyStore.reserve` raises :class:`ResourceExhausted` when
   the pinned bytes leave no room, and the caller streams instead.
 
-The JAX package's ``residency.*`` counters and resident-bytes gauge are
-not ported yet (they come with the port's telemetry).
+Telemetry, at the JAX package's places: ``residency.hit``, ``.miss``,
+``.pin``, ``.evict`` and ``.fallback`` count the store's traffic, and the
+``trace.hbm_resident_bytes`` gauge follows the bytes held.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-import sys
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Hashable
 
 import torch
 
-from pluss_torch.errors import ResourceExhausted
+from pluss_torch import obs
+from pluss_torch.resilience.errors import ResourceExhausted
+from pluss_torch.utils import envknob
 
 __all__ = ["Entry", "ResidencyStore", "budget_bytes",
            "device_budget_default", "reset", "store"]
@@ -58,30 +58,9 @@ def device_budget_default() -> int:
     return _FALLBACK_BUDGET
 
 
-@functools.lru_cache(maxsize=16)
-def _env_bytes(raw: str, default: int) -> int:
-    """``PLUSS_HBM_BUDGET``'s value, or ``default`` with one notice on
-    stderr when it is malformed or below 1 (never a crash)."""
-    if not raw.strip():
-        return default
-    try:
-        v = int(raw)
-    except ValueError:
-        print(f"pluss_torch: ignoring malformed PLUSS_HBM_BUDGET={raw!r}; "
-              f"using the default {default}", file=sys.stderr)
-        return default
-    if v < 1:
-        print(f"pluss_torch: ignoring out-of-range PLUSS_HBM_BUDGET={raw!r} "
-              f"(must be >= 1); using the default {default}",
-              file=sys.stderr)
-        return default
-    return v
-
-
 def budget_bytes() -> int:
     """The effective byte budget (``PLUSS_HBM_BUDGET``, lenient)."""
-    return _env_bytes(os.environ.get("PLUSS_HBM_BUDGET", ""),
-                      device_budget_default())
+    return envknob.env_int("PLUSS_HBM_BUDGET", device_budget_default())
 
 
 @dataclass
@@ -125,6 +104,11 @@ class ResidencyStore:
         with self._lock:
             return sum(e.nbytes for e in self._entries.values())
 
+    def _publish(self) -> None:
+        # under self._lock
+        obs.gauge_set("trace.hbm_resident_bytes",
+                      sum(e.nbytes for e in self._entries.values()))
+
     def lookup_pin(self, key: Hashable, *,
                    n_run: int | None = None) -> Entry | None:
         """The entry for ``key``, pinned (the caller must :meth:`unpin`),
@@ -133,10 +117,16 @@ class ResidencyStore:
         with self._lock:
             ent = self._entries.get(key)
             if ent is None or (n_run is not None and ent.n_run != n_run):
+                obs.counter_add("residency.miss")
+                obs.trace_event("residency.consult", outcome="miss")
                 return None
             ent.pins += 1
             self._tick += 1
             ent.tick = self._tick
+            obs.counter_add("residency.hit")
+            obs.counter_add("residency.pin")
+            obs.trace_event("residency.consult", outcome="hit",
+                            nbytes=int(ent.nbytes))
             return ent
 
     def unpin(self, key: Hashable) -> None:
@@ -153,6 +143,7 @@ class ResidencyStore:
         budget = self.budget()
         with self._lock:
             if nbytes > budget:
+                obs.counter_add("residency.fallback")
                 raise ResourceExhausted(
                     f"resident trace of {nbytes} bytes exceeds the device "
                     f"budget of {budget} bytes (PLUSS_HBM_BUDGET)",
@@ -161,11 +152,14 @@ class ResidencyStore:
                    > budget):
                 victims = [e for e in self._entries.values() if e.pins == 0]
                 if not victims:
+                    obs.counter_add("residency.fallback")
                     raise ResourceExhausted(
                         f"cannot fit {nbytes} bytes under the device budget "
                         f"of {budget} bytes: every resident entry is pinned "
                         f"by a running replay", site=site)
                 del self._entries[min(victims, key=lambda e: e.tick).key]
+                obs.counter_add("residency.evict")
+            self._publish()
 
     def put(self, key: Hashable, value: Any, *, n_lines: int, n_run: int,
             nbytes: int, meta: dict | None = None) -> Entry:
@@ -177,15 +171,18 @@ class ResidencyStore:
                         n_run=int(n_run), nbytes=int(nbytes),
                         meta=dict(meta or {}), tick=self._tick)
             self._entries[key] = ent
+            self._publish()
             return ent
 
     def discard(self, key: Hashable) -> None:
         with self._lock:
-            self._entries.pop(key, None)
+            if self._entries.pop(key, None) is not None:
+                self._publish()
 
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
+            self._publish()
 
     def __len__(self) -> int:
         with self._lock:

@@ -22,7 +22,7 @@ import json
 import os
 import sys
 
-from pluss_torch.errors import CacheCorrupt
+from pluss_torch.resilience.errors import CacheCorrupt
 
 
 def _canon(key: dict) -> str:

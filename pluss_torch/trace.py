@@ -65,21 +65,35 @@ from collections import deque
 import numpy as np
 import torch
 
-from pluss_torch import residency
+from pluss_torch import obs, residency
 from pluss_torch.config import NBINS
 from pluss_torch.engine import resolve_device
-from pluss_torch.errors import DataLoss, ResourceExhausted, quarantine_artifact
-from pluss_torch.journal import Journal
+from pluss_torch.obs import xprof
 from pluss_torch.ops import wirecodec
 from pluss_torch.ops.decode import decode_d24v
 from pluss_torch.ops.event_hist import masked_histogram, masked_histogram_plain
 from pluss_torch.ops.reuse import batch_events, event_histogram
+from pluss_torch.resilience import faults
+from pluss_torch.resilience.errors import (DataLoss, ResourceExhausted,
+                                          quarantine_artifact)
+from pluss_torch.resilience.journal import Journal
 
 #: default accesses per window (the batch is ``batch_windows`` windows)
 TRACE_WINDOW = 1 << 20
 
+
+def _env_int(name: str, default: int, minimum: int = 1) -> int:
+    """An integer env knob, parsed leniently (warn once and fall back;
+    :mod:`pluss_torch.utils.envknob`).  Explicit keyword arguments keep
+    their loud validation (:func:`_positive`)."""
+    from pluss_torch.utils.envknob import env_int
+
+    return env_int(name, default, minimum)
+
+
 #: default windows per device batch: 16 x 2^20 = 2^24 refs per sort
-WINDOWS_PER_BATCH = 16
+#: (``PLUSS_BATCH_WINDOWS`` overrides it for the process)
+WINDOWS_PER_BATCH = _env_int("PLUSS_BATCH_WINDOWS", 16)
 
 WIRE_CHOICES = ("auto", "pack", "d24v")
 
@@ -123,7 +137,10 @@ class ReplayResult:
     [2^e, 2^{e+1}).  ``histogram()`` returns the reference-keyed dict view
     (cold key -1), directly consumable by :func:`pluss_torch.mrc.aet_mrc`.
     ``wire``/``feed_workers`` are the streamed feed's effective settings
-    (empty/0 without one); ``timing`` is its main-thread time split
+    (empty/0 without one); ``degradations`` are the ladder rungs taken
+    (:func:`pluss_torch.resilience.replay_file_resilient`; empty for a
+    clean first attempt and for every plain replay); ``timing`` is its
+    main-thread time split
     (``prefetch_stall_s``, ``h2d_s``, ``device_s``, ``ckpt_save_s``,
     ``grow_s``, ``wall_s``), the feed's seconds per stage summed over its
     workers (``read_s``, ``compact_s``, ``encode_s``; they run beside the
@@ -133,6 +150,7 @@ class ReplayResult:
     hist: np.ndarray          # [NBINS] int64
     total_count: int
     n_lines: int
+    degradations: tuple = ()
     wire: str = ""
     feed_workers: int = 0
     timing: dict = dataclasses.field(default_factory=dict)
@@ -156,10 +174,14 @@ def _positive(name: str, value, default: int) -> int:
 
 
 def _resolve_wire(wire: str | None, device: torch.device) -> str:
-    """``auto``/None: d24v on the card (the compressed bytes cross PCIe
-    and the kernel expands them), pack on the CPU (no transport to
-    compress for)."""
-    wire = "auto" if wire is None else wire
+    """``auto``: d24v on the card (the compressed bytes cross PCIe and the
+    kernel expands them), pack on the CPU (no transport to compress for).
+    None reads ``PLUSS_WIRE`` (default ``auto``; an unknown value warns and
+    falls back), where an explicit bad value raises."""
+    if wire is None:
+        from pluss_torch.utils.envknob import env_choice
+
+        wire = env_choice("PLUSS_WIRE", "auto", WIRE_CHOICES)
     if wire not in WIRE_CHOICES:
         raise ValueError(f"unknown wire format {wire!r} (choices: "
                          f"{', '.join(WIRE_CHOICES)})")
@@ -234,6 +256,10 @@ class _threaded:
         self._t.join(timeout=60)
         return False
 
+    def qsize(self) -> int:
+        """Items waiting in the queue (the occupancy gauge)."""
+        return self._q.qsize()
+
 
 class _FeedPool:
     """Ordered N-worker feed pipeline: read (parallel) -> compact (in
@@ -246,14 +272,17 @@ class _FeedPool:
     batches in exact stream order.  numpy reads and packs release the GIL,
     so the overlap is real.  A worker exception is delivered at ITS batch
     index, after every earlier batch, so checkpoint/resume keeps the same
-    prefix semantics as the single reader.  In-flight batches (claimed but
-    not yet consumed) are bounded by ``depth + workers``.
+    prefix semantics as the single reader.  ``claim_fn(b)`` runs under
+    the claim lock in exact batch order: the ``trace.read_batch`` fault
+    site lives there, so ``trace_loss@n`` fires on the n-th stream batch,
+    not on whichever worker gets there first.  In-flight batches (claimed
+    but not yet consumed) are bounded by ``depth + workers``.
     """
 
-    def __init__(self, b0: int, end: int, read_fn, compact_fn, encode_fn,
-                 workers: int, depth: int):
+    def __init__(self, b0: int, end: int, claim_fn, read_fn, compact_fn,
+                 encode_fn, workers: int, depth: int):
         self._end = end
-        self._read_fn = read_fn
+        self._claim_fn, self._read_fn = claim_fn, read_fn
         self._compact_fn, self._encode_fn = compact_fn, encode_fn
         self.workers = workers
         self._budget = depth + workers
@@ -263,6 +292,7 @@ class _FeedPool:
         self._next_out = b0
         self._done: dict[int, object] = {}
         self._stop = False
+        self.busy = 0          # workers mid-batch (telemetry gauge)
         # seconds summed over the workers, per stage
         self.stage_s = {"read_s": 0.0, "compact_s": 0.0, "encode_s": 0.0}
         self._threads = [
@@ -282,6 +312,11 @@ class _FeedPool:
         for t in self._threads:
             t.join(timeout=60)
         return False
+
+    def qsize(self) -> int:
+        """Finished batches awaiting in-order delivery (the occupancy
+        gauge: persistently zero means the feed is the bottleneck)."""
+        return len(self._done)
 
     def __iter__(self):
         return self
@@ -314,12 +349,19 @@ class _FeedPool:
                     return
                 b = self._next_claim
                 self._next_claim += 1
-            err = raw = mid = item = None
+                self.busy += 1
+                err = None
+                try:
+                    self._claim_fn(b)   # ordered under the lock
+                except BaseException as e:
+                    err = e
+            raw = mid = item = None
             t0 = time.perf_counter()
-            try:
-                raw = self._read_fn(b)
-            except BaseException as e:
-                err = e
+            if err is None:
+                try:
+                    raw = self._read_fn(b)
+                except BaseException as e:
+                    err = e
             t1 = time.perf_counter()
             # compact turnstile, strictly in stream order.  A failed batch
             # still takes and releases its turn, so later batches (to be
@@ -351,6 +393,7 @@ class _FeedPool:
                               ("encode_s", t4 - t3)):
                     self.stage_s[k] += dt
                 self._done[b] = err if err is not None else item
+                self.busy -= 1
                 self._cv.notify_all()
 
 
@@ -806,10 +849,12 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
     pdt = _pos_dtype(n_batches, batch)
     np_pdt = np.int32 if pdt == torch.int32 else np.int64
     wirefmt = _resolve_wire(wire, dev)
-    workers = _positive("feed_workers", feed_workers,
-                        _default_feed_workers(dev))
-    sd = _positive("stage_depth", stage_depth, 2)
-    qd = _positive("queue_depth", queue_depth, 2)
+    workers = _positive("feed_workers", feed_workers, _env_int(
+        "PLUSS_FEED_WORKERS", _default_feed_workers(dev)))
+    sd = _positive("stage_depth", stage_depth,
+                   _env_int("PLUSS_TRACE_STAGE_DEPTH", 2))
+    qd = _positive("queue_depth", queue_depth,
+                   _env_int("PLUSS_TRACE_QUEUE_DEPTH", 2))
     batch_fn = _batch_fn(segmented, window)
 
     # a checkpointed or resumed run enters mid-stream, so its staging
@@ -866,6 +911,7 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
         """Single-reader feed: the same three stages in one thread, in
         order."""
         for b in range(b0, n_batches):
+            faults.check("trace.read_batch")  # chaos injection site
             t1 = time.perf_counter()
             raw = read_raw(b)
             t2 = time.perf_counter()
@@ -878,8 +924,9 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
             yield item
 
     if workers > 1:
-        src = _FeedPool(b0, n_batches, read_raw, compact_batch, encode_batch,
-                        workers, qd)
+        src = _FeedPool(b0, n_batches,
+                        lambda b: faults.check("trace.read_batch"),
+                        read_raw, compact_batch, encode_batch, workers, qd)
     else:
         src = _threaded(batches, depth=qd)
 
@@ -898,11 +945,16 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
         hist = torch.zeros(NBINS, dtype=torch.int64, device=dev)
         n_lines = 0
         done = 0
+    done0 = done   # checkpoint-restored refs: not this run's work
 
     # the main thread is, at any instant, in one of these buckets
     st = {"prefetch_stall_s": 0.0, "h2d_s": 0.0, "device_s": 0.0,
           "ckpt_save_s": 0.0, "grow_s": 0.0}
     st_n = {"h2d_bytes": 0, "batches": 0, "ckpt_saves": 0, "growths": 0}
+    # the int32 ids the kernels read per staged batch (the wire-vs-device
+    # byte ratio of `stats` reads off it; a counter only, not in timing)
+    device_bytes = 0
+    obs_on = obs.enabled()
     cuda = dev.type == "cuda"
     main = torch.cuda.current_stream(dev) if cuda else None
     side = torch.cuda.Stream(dev) if cuda else None
@@ -936,7 +988,9 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
         ids.record_stream(main)
         return ids, ready, n_lines_b, snap_b, nbytes
 
-    with src as it:
+    with obs.span("trace.replay_file", refs=n, window=window,
+                  batch_windows=bw, resume_batch=b0, feed_workers=workers,
+                  wire=wirefmt) as sp, xprof.session(), src as it:
         stream = iter(it)
         pending: deque = deque()
         exhausted = False
@@ -947,7 +1001,7 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
             """Refill the staged-ahead pipeline to ``stage_depth``
             batches.  A feed error is held, not raised: batches already
             staged are processed (and checkpointed) first."""
-            nonlocal exhausted, feed_err
+            nonlocal exhausted, feed_err, device_bytes
             while not exhausted and len(pending) < sd:
                 t1 = time.perf_counter()
                 try:
@@ -965,79 +1019,108 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
                 out = stage(item)
                 st["h2d_s"] += time.perf_counter() - t2
                 st_n["h2d_bytes"] += out[4]
+                device_bytes += batch * 4
                 pending.append(out)
 
-        pump()
-        b = b0
-        while pending:
-            ids_dev, ready, n_lines, snap, _ = pending.popleft()
-            if n_lines > capacity:
-                # the compactor's host-side table size says when to grow:
-                # no device value is read
-                tg = time.perf_counter()
-                old = capacity
-                while capacity < n_lines:
-                    capacity *= 2
-                grown = torch.full((capacity + 1,), -1, dtype=pdt,
-                                   device=dev)
-                grown[:old] = last_pos[:old]
-                last_pos = grown
-                st["grow_s"] += time.perf_counter() - tg
-                st_n["growths"] += 1
-            td = time.perf_counter()
-            if ready is not None:
-                main.wait_event(ready)
-            if acc is not None:
-                if n_lines >= 1 << 24:
-                    # the ids no longer fit the 3-byte layout
-                    acc = None
-                    resident = "abandoned"
-                else:
-                    acc[b].view(batch, 3).copy_(_u24_bytes(ids_dev))
-            batch_fn(last_pos, hist, b * batch, ids_dev, n, pdt,
-                     _kernels.histogram)
-            del ids_dev
-            st["device_s"] += time.perf_counter() - td
-            st_n["batches"] += 1
-            done = min(n, (b + 1) * batch)
-            if checkpoint_path and done < n \
-                    and (b + 1 - b0) % checkpoint_every == 0:
-                # the copy to the host waits for the device: the price of
-                # a durable point, amortized by checkpoint_every.  It runs
-                # before the next prefetch, so a feed fault in batch b+1
-                # never costs batch b's durable point.
-                tc = time.perf_counter()
-                live = min(int(snap["next_free"]), capacity)
-                _ckpt_save(checkpoint_path, b + 1, n, window, cls,
-                           precompacted, fp,
-                           last_pos[:live].cpu().numpy(), capacity,
-                           hist.cpu().numpy().astype(np_pdt), snap, bw,
-                           wirefmt)
-                st["ckpt_save_s"] += time.perf_counter() - tc
-                st_n["ckpt_saves"] += 1
-            # the unsynced clock runs every batch; the device sync that
-            # makes it real is paid only once it is over, so a fast run
-            # never syncs and a slow one overshoots by one batch at most
-            if deadline_s is not None and done < n \
-                    and time.perf_counter() - t0 > deadline_s:
-                ts = time.perf_counter()
-                if cuda:
-                    torch.cuda.synchronize(dev)
-                st["device_s"] += time.perf_counter() - ts
-                if time.perf_counter() - t0 > deadline_s:
-                    truncated = True
-                    break
+        try:
             pump()
-            b += 1
-        if feed_err is not None and not truncated:
-            # every staged batch has been processed and checkpointed; now
-            # the held feed error surfaces
-            raise feed_err
-        # the copy to the host waits for every outstanding launch: that
-        # wait is device time
-        td = time.perf_counter()
-        hist_np = hist.cpu().numpy()
-        st["device_s"] += time.perf_counter() - td
+            b = b0
+            while pending:
+                ids_dev, ready, n_lines, snap, _ = pending.popleft()
+                if n_lines > capacity:
+                    # the compactor's host-side table size says when to grow:
+                    # no device value is read
+                    tg = time.perf_counter()
+                    old = capacity
+                    while capacity < n_lines:
+                        capacity *= 2
+                    grown = torch.full((capacity + 1,), -1, dtype=pdt,
+                                       device=dev)
+                    grown[:old] = last_pos[:old]
+                    last_pos = grown
+                    st["grow_s"] += time.perf_counter() - tg
+                    st_n["growths"] += 1
+                td = time.perf_counter()
+                if ready is not None:
+                    main.wait_event(ready)
+                if acc is not None:
+                    if n_lines >= 1 << 24:
+                        # the ids no longer fit the 3-byte layout
+                        acc = None
+                        resident = "abandoned"
+                        obs.counter_add("residency.fallback")
+                    else:
+                        acc[b].view(batch, 3).copy_(_u24_bytes(ids_dev))
+                with xprof.annotate("pluss.trace.batch"):
+                    batch_fn(last_pos, hist, b * batch, ids_dev, n, pdt,
+                             _kernels.histogram)
+                del ids_dev
+                st["device_s"] += time.perf_counter() - td
+                st_n["batches"] += 1
+                if obs_on:
+                    obs.gauge_set("trace.queue_occupancy", it.qsize())
+                    if isinstance(it, _FeedPool):
+                        obs.gauge_set("trace.feed_workers_busy", it.busy)
+                done = min(n, (b + 1) * batch)
+                if checkpoint_path and done < n \
+                        and (b + 1 - b0) % checkpoint_every == 0:
+                    # the copy to the host waits for the device: the price of
+                    # a durable point, amortized by checkpoint_every.  It runs
+                    # before the next prefetch, so a feed fault in batch b+1
+                    # never costs batch b's durable point.
+                    tc = time.perf_counter()
+                    live = min(int(snap["next_free"]), capacity)
+                    _ckpt_save(checkpoint_path, b + 1, n, window, cls,
+                               precompacted, fp,
+                               last_pos[:live].cpu().numpy(), capacity,
+                               hist.cpu().numpy().astype(np_pdt), snap, bw,
+                               wirefmt)
+                    st["ckpt_save_s"] += time.perf_counter() - tc
+                    st_n["ckpt_saves"] += 1
+                # the unsynced clock runs every batch; the device sync that
+                # makes it real is paid only once it is over, so a fast run
+                # never syncs and a slow one overshoots by one batch at most
+                if deadline_s is not None and done < n \
+                        and time.perf_counter() - t0 > deadline_s:
+                    ts = time.perf_counter()
+                    if cuda:
+                        torch.cuda.synchronize(dev)
+                    st["device_s"] += time.perf_counter() - ts
+                    if time.perf_counter() - t0 > deadline_s:
+                        if obs_on:
+                            obs.event("trace.deadline_truncated", done=done,
+                                      refs=n)
+                        truncated = True
+                        break
+                pump()
+                b += 1
+            if feed_err is not None and not truncated:
+                # every staged batch has been processed and checkpointed; now
+                # the held feed error surfaces
+                raise feed_err
+            # the copy to the host waits for every outstanding launch: that
+            # wait is device time
+            td = time.perf_counter()
+            hist_np = hist.cpu().numpy()
+            st["device_s"] += time.perf_counter() - td
+        finally:
+            # recorded even when the replay aborts mid-stream (an injected
+            # DataLoss, a real read failure): the partial run's breakdown
+            # is what the post-mortem wants to see
+            if obs_on:
+                for k, v in {**st, **st_n}.items():
+                    obs.counter_add(f"trace.{k}", v)
+                obs.counter_add("trace.device_bytes", device_bytes)
+                # encode seconds run beside the main thread's buckets (the
+                # pool's workers): a counter of their own, not a bucket
+                feed = it.stage_s if isinstance(it, _FeedPool) else stage_s
+                obs.counter_add("trace.wire_encode_s", feed["encode_s"])
+                # only the refs this run replayed: a resumed run's span
+                # covers the tail after its checkpoint
+                obs.counter_add("trace.refs_replayed", done - done0)
+                sp.set(refs_replayed=done - done0, stream_done=done,
+                       n_lines=n_lines)
+                obs.flush_metrics()
     if checkpoint_path and done >= n:
         # a finished run retires its checkpoint: a later, different run
         # must not resume from this one's final state
@@ -1048,6 +1131,9 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
             # the whole stream went through: the copy is the whole trace
             store.put(key, acc, n_lines=n_lines, n_run=n, nbytes=acc.nbytes,
                       meta={"path": path, "stage_through": True})
+            obs.counter_add("residency.stage_through")
+            obs.trace_event("residency.stage_through",
+                            nbytes=int(acc.nbytes))
         else:
             resident = "truncated"
     feed = it.stage_s if isinstance(it, _FeedPool) else stage_s
@@ -1130,10 +1216,10 @@ def pack_file(path: str, out_path: str, cls: int = 64,
     The sidecar holds ``n``, ``n_lines``, ``fmt``, ``src_fp`` (the source's
     fingerprint) and ``wire`` (:data:`WIRE_VERSION`); it is written
     atomically.  Progress journals to ``out_path + '.journal'`` after each
-    flushed batch (:class:`pluss_torch.journal.Journal`: the output offset
-    and the compactor's table); ``resume=True`` truncates the partial
-    ``out_path + '.tmp'`` to the last journaled batch and continues, equal
-    to an uninterrupted pack.  The journal records the format, so a resumed
+    flushed batch (:class:`pluss_torch.resilience.journal.Journal`: the
+    output offset and the compactor's table); ``resume=True`` truncates
+    the partial ``out_path + '.tmp'`` to the last journaled batch and
+    continues, equal to an uninterrupted pack.  The journal records the format, so a resumed
     pack stays in it (an i32 restart stays i32, a d24v pack stays d24v).
     """
     n = _u64_count(path)
@@ -1144,7 +1230,8 @@ def pack_file(path: str, out_path: str, cls: int = 64,
     if wire is not None and wire not in WIRE_CHOICES:
         raise ValueError(f"unknown wire format {wire!r} (choices: "
                          f"{', '.join(WIRE_CHOICES)})")
-    workers = _positive("feed_workers", feed_workers, _host_workers())
+    workers = _positive("feed_workers", feed_workers,
+                        _env_int("PLUSS_FEED_WORKERS", _host_workers()))
     shift = int(cls).bit_length() - 1
     bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
     window = _positive("window", window, TRACE_WINDOW)
@@ -1242,14 +1329,19 @@ def pack_file(path: str, out_path: str, cls: int = 64,
 
     def items():
         for b in range(b0, n_batches):
+            faults.check("trace.read_batch")  # chaos injection site
             yield encode_rec(b, compact_batch(b, read_raw(b)))
 
     if workers > 1:
-        src = _FeedPool(b0, n_batches, read_raw, compact_batch, encode_rec,
-                        workers, depth=2)
+        src = _FeedPool(b0, n_batches,
+                        lambda b: faults.check("trace.read_batch"),
+                        read_raw, compact_batch, encode_rec, workers,
+                        depth=2)
     else:
         src = contextlib.nullcontext(items())
-    with src as it, open(tmp, "r+b" if b0 else "wb") as out:
+    with obs.span("trace.pack_file", refs=n, fmt=fmt, resume_batch=b0,
+                  feed_workers=workers), \
+            src as it, open(tmp, "r+b" if b0 else "wb") as out:
         out.seek(0, os.SEEK_END)
         for b, item in zip(range(b0, n_batches), it):
             rec, nl, snap = item
@@ -1289,6 +1381,7 @@ def pack_file(path: str, out_path: str, cls: int = 64,
     os.replace(sidecar_tmp, out_path + ".json")
     with contextlib.suppress(OSError):
         os.unlink(jpath)   # the pack is durable; the journal is spent
+    obs.counter_add("trace.pack_refs", n)
     return meta
 
 
@@ -1407,6 +1500,9 @@ def ensure_resident(path: str, *, cls: int = 64, window: int = TRACE_WINDOW,
         return st.put(key, staged, n_lines=meta["n_lines"], n_run=n_run,
                       nbytes=staged.nbytes,
                       meta={**meta_e, "published": True})
+    # a budget-shrunk prefix: usable by the caller, never served from the
+    # store (its exact line count is unknown)
+    obs.counter_add("residency.fallback")
     return residency.Entry(key=key, value=staged, n_lines=meta["n_lines"],
                            n_run=n_run,
                            nbytes=0 if staged is None else staged.nbytes,
@@ -1449,8 +1545,8 @@ def stage_resident(packed_path: str, meta: dict,
     window = _positive("window", window, TRACE_WINDOW)
     batch = bw * window
     n_batches = -(-n // batch)
-    workers = _positive("feed_workers", feed_workers,
-                        _default_feed_workers(dev))
+    workers = _positive("feed_workers", feed_workers, _env_int(
+        "PLUSS_FEED_WORKERS", _default_feed_workers(dev)))
     if d24v and meta.get("batch") != batch:
         raise ValueError(
             f"d24v pack {packed_path} was cut at {meta.get('batch')} "
@@ -1491,8 +1587,9 @@ def stage_resident(packed_path: str, meta: dict,
 
     read_rec = read_d24v if d24v else read_fixed
     if workers > 1:
-        src = _FeedPool(0, n_batches, read_rec, lambda b, raw: raw,
-                        lambda b, mid: mid, workers, depth=2)
+        src = _FeedPool(0, n_batches, lambda b: None, read_rec,
+                        lambda b, raw: raw, lambda b, mid: mid, workers,
+                        depth=2)
     else:
         src = contextlib.nullcontext(read_rec(b) for b in range(n_batches))
     cuda = dev.type == "cuda"
@@ -1510,7 +1607,8 @@ def stage_resident(packed_path: str, meta: dict,
                            device=dev)
     staged = 0
     file_bytes = 0   # bytes read from the pack, without the padding
-    with src as it:
+    with obs.span("trace.stage_resident", refs=n, fmt=fmt,
+                  batch_windows=bw, feed_workers=workers) as sp, src as it:
         for b, (rec, nbytes) in zip(range(n_batches), it):
             file_bytes += nbytes
             if d24v:
@@ -1528,8 +1626,11 @@ def stage_resident(packed_path: str, meta: dict,
                 sync()
                 if time.perf_counter() - t0 > upload_budget_s:
                     break
-    sync()
-    upload_s = time.perf_counter() - t0
+        sync()   # the staged bytes are on the card: the span covers them
+        upload_s = time.perf_counter() - t0
+        sp.set(staged_batches=staged, shrunk=staged < n_batches)
+    obs.counter_add("trace.upload_s", upload_s)
+    obs.counter_add("trace.upload_bytes", file_bytes)
     if staged < n_batches:
         resident = resident[:staged]
     return resident, min(n, staged * batch), {
@@ -1562,14 +1663,20 @@ def replay_staged(resident: torch.Tensor, n_lines: int, n_run: int,
     batch_fn = _batch_fn(segmented, window)
     dev = resident.device
     t0 = time.perf_counter()
-    last_pos = torch.full((n_lines + 1,), -1, dtype=pdt, device=dev)
-    hist = torch.zeros(NBINS, dtype=torch.int64, device=dev)
-    for b in range(n_batches):
-        ids = _widen_ids(resident[b].view(batch, resident.shape[3]))
-        batch_fn(last_pos, hist, clock0 + b * batch, ids, clock0 + n_run,
-                 pdt, _kernels.histogram)
-    hist_np = hist.cpu().numpy()   # the copy waits for the device
+    with obs.span("trace.replay_staged", refs=n_run), xprof.session(), \
+            xprof.annotate("pluss.trace.replay_staged"):
+        last_pos = torch.full((n_lines + 1,), -1, dtype=pdt, device=dev)
+        hist = torch.zeros(NBINS, dtype=torch.int64, device=dev)
+        for b in range(n_batches):
+            ids = _widen_ids(resident[b].view(batch, resident.shape[3]))
+            batch_fn(last_pos, hist, clock0 + b * batch, ids,
+                     clock0 + n_run, pdt, _kernels.histogram)
+        hist_np = hist.cpu().numpy()   # the copy waits for the device
     replay_s = time.perf_counter() - t0
+    # resident refs have their own counter: trace.refs_replayed feeds the
+    # streamed path's rate (refs over the replay_file span's wall)
+    obs.counter_add("trace.resident_replay_s", replay_s)
+    obs.counter_add("trace.resident_refs", n_run)
     if stats is not None:
         stats.update(replay_s=replay_s, refs=n_run)
     return ReplayResult(hist_np, n_run, n_lines,

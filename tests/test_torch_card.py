@@ -508,3 +508,71 @@ def test_sampling_on_the_card_matches_the_cpu(cuda_device, mode):
     np.testing.assert_array_equal(got.noshare_dense, want.noshare_dense)
     assert got.share_raw == want.share_raw
     assert got.sampled_fraction == want.sampled_fraction
+
+
+# ---------------------------------------------------------------------------
+# resilience and telemetry on the card
+
+
+def test_real_card_oom_classifies_as_resource_exhausted(cuda_device):
+    from pluss_torch.resilience import ResourceExhausted, classify
+
+    free, total = torch.cuda.mem_get_info(cuda_device)
+    with pytest.raises(torch.OutOfMemoryError) as ei:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda_device)
+    err = classify(ei.value, site="engine.run")
+    assert isinstance(err, ResourceExhausted) and err.degradable
+    assert torch.cuda.OutOfMemoryError is torch.OutOfMemoryError
+
+
+def test_run_resilient_recovers_an_injected_oom(cuda_device):
+    from pluss_torch import engine
+    from pluss_torch.models import REGISTRY
+    from pluss_torch.resilience import FaultPlan, Retry, faults, \
+        run_resilient
+
+    spec = REGISTRY["cholesky"](48)   # the sort path: kernel 1 launches
+    clean = engine.run(spec, device=cuda_device)
+    faults.install(FaultPlan.parse("oom@1"))
+    try:
+        res = run_resilient(spec, device=cuda_device,
+                            retry=Retry(backoff_s=0.0))
+    finally:
+        faults.install(None)
+    assert res.degradations == ("shrink_window",)
+    np.testing.assert_array_equal(res.noshare_dense, clean.noshare_dense)
+    assert res.share_raw == clean.share_raw
+    assert engine.run(spec, device=cuda_device).degradations == ()
+
+
+def test_telemetry_on_off_is_bit_identical_on_the_card(tmp_path,
+                                                       cuda_device):
+    from pluss_torch import engine, obs
+    from pluss_torch.models import REGISTRY
+
+    spec = REGISTRY["mvt"](250)
+    path = str(tmp_path / "t.bin")
+    rng = np.random.default_rng(7)
+    (rng.integers(0, 1 << 14, 1 << 16, dtype=np.int64) << 6).astype(
+        "<u8").tofile(path)
+    kw = dict(window=4096, batch_windows=4, device=cuda_device)
+    counts = {}
+    out = {}
+    for on in (False, True):
+        if on:
+            obs.configure(str(tmp_path / "ev.jsonl"))
+        event_histogram.launches = masked_histogram.launches = 0
+        decode_d24v.launches = 0
+        try:
+            out[on] = (engine.run(spec, device=cuda_device,
+                                  window_accesses=1 << 14),
+                       trace.replay_file(path, wire="d24v", **kw))
+        finally:
+            obs.shutdown()
+        counts[on] = (event_histogram.launches, masked_histogram.launches,
+                      decode_d24v.launches)
+    (r0, t0), (r1, t1) = out[False], out[True]
+    np.testing.assert_array_equal(r0.noshare_dense, r1.noshare_dense)
+    assert r0.share_raw == r1.share_raw
+    np.testing.assert_array_equal(t0.hist, t1.hist)
+    assert counts[False] == counts[True] and min(counts[True]) > 0

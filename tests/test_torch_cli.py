@@ -8,6 +8,8 @@ below its banner and write the same MRC CSV, byte for byte; ``sample
 --cpu`` prints exactly what ``python -m pluss.cli sample --cpu`` prints.
 """
 
+import contextlib
+import io
 import os
 import subprocess
 import sys
@@ -164,6 +166,34 @@ def test_trace_journal_checkpoints_and_retires(tmp_path, capsys):
     assert not os.path.exists(ckpt)   # the finished run retired it
 
 
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("cpu", [True, False])
+def test_trace_on_the_card_never_takes_the_cpu_rung(tmp_path, monkeypatch,
+                                                     cpu):
+    """``cli trace`` replays through the trace ladder; on the card it stops
+    before ``cpu_fallback``, so its banner and timing are the card's."""
+    from pluss_torch import resilience
+
+    seen = {}
+
+    def fake(path, fmt, *, rungs, device, **kw):
+        seen.update(rungs=rungs, device=device)
+        raise _Stop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(resilience, "replay_file_resilient", fake)
+    with pytest.raises(_Stop):
+        cli.main(["trace", *(["--cpu"] if cpu else []), "--file",
+                  write_trace(tmp_path, "u64")])
+    assert seen["device"].type == ("cpu" if cpu else "cuda")
+    want = resilience.ladder.TRACE_LADDER if cpu else ("serial_feed",
+                                                "shrink_window")
+    assert seen["rungs"] == want
+
+
 def test_trace_without_file_stops(capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["trace", "--cpu"])
@@ -189,3 +219,31 @@ def test_trace_module_entry_runs_with_jax_and_pluss_blocked(tmp_path,
                   *TRACE_GEO])
     assert body(run.stdout) == body(capsys.readouterr().out)
     assert got_csv == open(out).read()
+
+
+def test_stats_and_telemetry_run_with_jax_and_pluss_blocked(tmp_path):
+    """``--telemetry`` writes a stream from a run with jax and pluss
+    unimportable, and ``stats`` (check and render) reads it the same way:
+    byte for byte what the JAX CLI prints on the same stream."""
+    ev = str(tmp_path / "ev.jsonl")
+    outs = []
+    for argv in (["pluss_torch.cli", "acc", "--cpu", "--model", "gemm",
+                  "--n", "16", "--telemetry", ev],
+                 ["pluss_torch.cli", "stats", ev, "--check"],
+                 ["pluss_torch.cli", "stats", ev]):
+        code = ("import runpy, sys; sys.modules['jax'] = None; "
+                "sys.modules['pluss'] = None; "
+                f"sys.argv = {argv!r}; "
+                "runpy.run_module('pluss_torch.cli', run_name='__main__')")
+        run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert run.returncode == 0, run.stderr
+        outs.append(run.stdout)
+    assert "ok (" in outs[1]
+    assert "engine.dispatch" in outs[2] and "engine.refs_processed" in outs[2]
+    for argv, got in ((["stats", ev, "--check"], outs[1]),
+                      (["stats", ev], outs[2])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert jax_cli.main(argv) == 0
+        assert buf.getvalue() == got

@@ -203,10 +203,18 @@ def test_port_imports_no_jax_and_no_pluss():
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert len(scanned) > 10
     assert {"pluss_torch/trace.py", "pluss_torch/tracegen.py",
-            "pluss_torch/errors.py", "pluss_torch/ops/wirecodec.py",
+            "pluss_torch/resilience/errors.py",
+            "pluss_torch/ops/wirecodec.py",
             "pluss_torch/ops/decode.py", "pluss_torch/rowpriv.py",
             "pluss_torch/sweepgroup.py", "pluss_torch/models/solvers.py",
             "pluss_torch/models/stencils.py", "pluss_torch/overlay.py",
             "pluss_torch/sampling.py", "pluss_torch/residency.py",
-            "pluss_torch/journal.py", "pluss_torch/native.py",
-            "pluss_torch/tracebench.py"} <= scanned
+            "pluss_torch/resilience/journal.py", "pluss_torch/native.py",
+            "pluss_torch/tracebench.py",
+            "pluss_torch/resilience/__init__.py",
+            "pluss_torch/resilience/faults.py",
+            "pluss_torch/resilience/ladder.py",
+            "pluss_torch/obs/__init__.py", "pluss_torch/obs/telemetry.py",
+            "pluss_torch/obs/stats.py", "pluss_torch/obs/xprof.py",
+            "pluss_torch/utils/__init__.py",
+            "pluss_torch/utils/envknob.py"} <= scanned

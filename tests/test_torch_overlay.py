@@ -224,7 +224,8 @@ def test_finalize_drops_net_zero_and_refuses_negative():
         key = torch.tensor([(t << SHARE_SHIFT) | v])
         walk.plus.append((key, torch.tensor([plus])))
         walk.minus.append((key, torch.tensor([minus])))
-        return walk.result()
+        return engine._finalize(pl, walk.hist.cpu().numpy(), walk.plus,
+                                walk.minus)
 
     res = finalize_with(1, 3, 3)
     assert v not in res.share_raw[1]

@@ -21,7 +21,7 @@ from pluss import trace as jt
 from pluss.resilience import faults
 from pluss.resilience.errors import DataLoss as JaxDataLoss
 from pluss_torch import trace as tt
-from pluss_torch.errors import DataLoss
+from pluss_torch.resilience.errors import DataLoss
 
 GEO = dict(window=4096, batch_windows=2)
 N = 100_000
@@ -305,8 +305,8 @@ def test_journal_lines_torn_tail_and_corrupt_middle(tmp_path, capsys):
     ``CacheCorrupt`` naming it, in both packages."""
     from pluss.resilience.errors import CacheCorrupt as JaxCacheCorrupt
     from pluss.resilience.journal import Journal as JaxJournal
-    from pluss_torch.errors import CacheCorrupt
-    from pluss_torch.journal import Journal
+    from pluss_torch.resilience.errors import CacheCorrupt
+    from pluss_torch.resilience.journal import Journal
 
     mine, theirs = str(tmp_path / "t.journal"), str(tmp_path / "j.journal")
     for cls, path in ((Journal, mine), (JaxJournal, theirs)):

@@ -24,7 +24,7 @@ from pluss import residency as jres
 from pluss import trace as jt
 from pluss_torch import cli, residency
 from pluss_torch import trace as tt
-from pluss_torch.errors import DataLoss, ResourceExhausted
+from pluss_torch.resilience.errors import DataLoss, ResourceExhausted
 
 CPU = dict(device="cpu")
 GEO = dict(window=1 << 10, batch_windows=4)

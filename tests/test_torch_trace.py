@@ -25,7 +25,7 @@ from pluss.resilience import faults
 from pluss.resilience.errors import DataLoss as JaxDataLoss
 from pluss_torch import trace as tt
 from pluss_torch import tracegen
-from pluss_torch.errors import DataLoss
+from pluss_torch.resilience.errors import DataLoss
 from pluss_torch.ops import reuse as tr
 
 #: a line of the second region: more than 2^24 lines above the first
