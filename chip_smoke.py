@@ -8,7 +8,8 @@ Drives ``pluss_torch``'s two main paths on the card — the sampler
 block; with its overlays, sliced runs and ``sampling.sampled_run``) and
 the trace replay (``trace.replay_file`` -> the ``trace`` block, streamed
 and through the residency store; ``pack_file`` -> ``stage_resident`` ->
-``replay_staged``) — and holds every kernel of those paths against its
+``replay_staged``) — and the static analysis modes, whose cross-checks
+run the sampler there, and holds every kernel of those paths against its
 plain torch version.  Each phase prints one JSON line; any failed check
 raises, so the script exits non-zero and prints no result line.  Phases:
 
@@ -107,11 +108,27 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     sort-path model walked down to ``cpu_fallback``, whose stamp names it
     while a later plain run still launches on the card; each equal to its
     clean run; (e) every result of phases 5-19 carries the empty stamp;
-22. the kernels line, the card's name and power limit, and the result line.
+22. analysis: the static analysis modes (``pluss_torch.analysis``) and
+    their engine cross-checks: (a) ``cli predict --all --n 16`` alone
+    (host work: no dispatch, no launch, no device allocation), equal to
+    the same command with ``--cpu``, then with ``--check --json`` on the
+    card, whose document (every derivable family bit-identical to its
+    engine run) equals ``--check --cpu``'s; (b) GEMM-1024's closed-form
+    prediction against the card's engine (template path, no kernel-1
+    launch) and (c) mvt-4000's dense prediction against template + sort
+    (4 launches), each with its host predict and card engine seconds;
+    (d) ``cli tune mvt --n 1000`` alone (host), then with ``--check``:
+    the same search, and the winner's one engine run on the card
+    verifies; (e) ``cli lint --all``, ``analyze --model gemm --n 128`` and
+    ``cotenancy gemm+syrk --n 16 --check`` as host work, and ``spec dump
+    gemm`` then ``spec load <file> --run``, whose block below the banner
+    is phase 16's ``acc`` block;
+23. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
 (phases 5-16, 17-18's first replay, phase 19's staging, first staged
-replay, legacy scan, stage-through and hit, and every run of phases 20-21)
+replay, legacy scan, stage-through and hit, every run of phases 20-21,
+and phase 22's ``--check``, engine and ``spec load --run`` runs)
 and read just after it: the
 event kernel must launch once per plan window that sorts something (0 for
 GEMM and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
@@ -810,7 +827,10 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     del resc, rest
 
-    # 22. kernels line, card, result -----------------------------------------
+    # 22. the static analysis modes and their engine cross-checks
+    analysis_phase(cfg, by_path, sort_windows, lines)
+
+    # 23. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
@@ -1507,6 +1527,216 @@ def resilience_phase(tmp: str, cfg, by_path: dict, resm, rest, resc,
     print(f"resilience cholesky2000_capped: failed attempts (raw cause, "
           f"kernel-1 launches so far) {failed}", flush=True)
     emit({"phase": "resilience", **out, "ok": True})
+
+
+def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
+    """Phase 22: the static analysis modes (:mod:`pluss_torch.analysis`,
+    ``cli lint|analyze|predict|cotenancy|tune|spec``) with their engine
+    cross-checks on the card.  The predictions are host work: each one is
+    run counted, and must leave ``engine.DEVICE_DISPATCHES``, every
+    kernel's launch count and the card's allocated memory where they
+    were; only ``--check``, ``tune --check`` and ``spec load --run`` run
+    the engine, on the card."""
+    import torch
+
+    from pluss_torch import cli, engine, obs
+    from pluss_torch.config import SamplerConfig
+    from pluss_torch.models import REGISTRY, mvt
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+
+    def cli_call(argv):
+        """(rc, stdout, stderr) of one in-process CLI call; a usage error
+        comes back as its exit code, which the checks refuse."""
+        o, e = io.StringIO(), io.StringIO()
+        saved = sys.stdout, sys.stderr
+        sys.stdout, sys.stderr = o, e
+        try:
+            rc = cli.main(argv)
+        except SystemExit as x:
+            rc = x.code
+        finally:
+            sys.stdout, sys.stderr = saved
+        return rc, o.getvalue(), e.getvalue()
+
+    def host_only(label, argv):
+        """One CLI call that must touch no device: no dispatch, no kernel
+        launch, no device allocation."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0, d0 = torch.cuda.memory_allocated(), engine.DEVICE_DISPATCHES
+        t0 = time.perf_counter()
+        (rc, so, se), counts = counted(lambda: cli_call(argv))
+        dt = time.perf_counter() - t0
+        check(rc == 0, f"{label}: rc {rc}: {se[-2000:]}")
+        check(engine.DEVICE_DISPATCHES == d0 and not any(counts.values()),
+              f"{label}: host mode dispatched ({counts})")
+        check(torch.cuda.memory_allocated() == mem0
+              and torch.cuda.max_memory_allocated() == mem0,
+              f"{label}: host mode allocated device memory")
+        out[label] = {"seconds": dt, "dispatches": 0, "launches": counts}
+        return so, se
+
+    # (a) every family at n=16: the prediction alone (host), the same
+    # command with --cpu, then --check on the card against --check --cpu
+    text, _ = host_only("predict_families16", ["predict", "--all", "--n",
+                                               "16"])
+    rc, cpu_text, _ = cli_call(["predict", "--all", "--n", "16", "--cpu"])
+    check(rc == 0 and cpu_text == text, "predict --all: card != --cpu")
+    argv = ["predict", "--all", "--n", "16", "--check", "--json"]
+    d0 = engine.DEVICE_DISPATCHES
+    t0 = time.perf_counter()
+    (rc, card_json, err), counts = counted(lambda: cli_call(argv))
+    check_s = time.perf_counter() - t0
+    by_path["predict_families16_check"] = counts
+    dispatches = engine.DEVICE_DISPATCHES - d0
+    rc_cpu, cpu_json, _ = cli_call(argv + ["--cpu"])
+    doc, doc_cpu = json.loads(card_json), json.loads(cpu_json)
+    models = doc["models"]
+    derivable = sorted(m for m, d in models.items() if d["derivable"])
+    check(rc == rc_cpu == 0 and doc == doc_cpu,
+          "predict --all --check: card document != --cpu document")
+    check(all(models[m]["check"]["histogram_identical"]
+              and models[m]["check"]["mrc_exact"] for m in derivable),
+          "predict --all --check: a family is not bit-identical")
+    check(text.splitlines()[-1] == f"pluss predict: {len(derivable)}/"
+          f"{len(models)} model(s) derivable, 0 error(s)",
+          f"predict --all summary: {text.splitlines()[-1]}")
+    want = sum(sort_windows(engine.plan(REGISTRY[nm](16), cfg))
+               for nm in REGISTRY if REGISTRY[nm](16).name in derivable)
+    check(counts["carried_event_hist"] == want and dispatches
+          <= len(derivable), f"predict --all --check: {counts} launches "
+          f"({want} sort windows), {dispatches} dispatches")
+    out["predict_families16_check"] = {
+        "derivable": len(derivable), "refused": len(models)
+        - len(derivable), "check_seconds": check_s, "launches": counts,
+        "dispatches": dispatches, "card_doc_equals_cpu": True}
+
+    # (b, c) GEMM-1024 (closed form) and mvt-4000 (dense): ``predict
+    # --check`` through the CLI, under a telemetry session whose spans
+    # split the call into the host prediction (``ri.derive``) and the
+    # card's engine run (the ``engine.*`` spans, first start to last end)
+    tmp = tempfile.mkdtemp(prefix="pluss_torch_predict_")
+
+    def predict_check(label, model, n, method, path):
+        ev = os.path.join(tmp, f"{label}.jsonl")
+        d0 = engine.DEVICE_DISPATCHES
+        try:
+            (rc, so, err), counts = counted(lambda: cli_call(
+                ["predict", model, "--n", str(n), "--check", "--json",
+                 "--telemetry", ev]))
+        finally:
+            obs.shutdown()
+        dispatches = engine.DEVICE_DISPATCHES - d0
+        by_path[f"predict_{label}"] = counts
+        check(rc == 0, f"{label}: predict --check rc {rc}: {err[-2000:]}")
+        (name, d), = json.loads(so)["models"].items()
+        detail = d.get("check", {})
+        check(d["method"] == method, f"{label}: method {d['method']}")
+        check(detail.get("histogram_identical") is True
+              and "bit-identical to engine.run" in err,
+              f"{label}: prediction != card engine ({detail})")
+        check(counts == by_path[path] and dispatches <= 1,
+              f"{label}: launches {counts}, phase {path}: "
+              f"{by_path[path]}; {dispatches} dispatches")
+        with open(ev) as f:
+            spans = [r for r in map(json.loads, f) if r.get("ev") == "span"]
+        derive = [r for r in spans if r["name"] == "ri.derive"]
+        eng = [r for r in spans if r["name"].startswith("engine.")]
+        check(len(derive) == 1 and eng, f"{label}: spans {len(spans)}")
+        host_s = derive[0]["dur"]
+        engine_s = max(r["t"] + r["dur"] for r in eng) \
+            - min(r["t"] for r in eng)
+        check(derive[0]["t"] + host_s <= min(r["t"] for r in eng),
+              f"{label}: the prediction overlapped the engine run")
+        mrc_v = "bit-identical" if detail["mrc_exact"] \
+            else f"l2={detail['mrc_l2_error']:.2e}"
+        print(f"analysis predict {label}: {d['method']}, "
+              f"{d['accesses']} accesses; host predict {host_s:.3f} s, "
+              f"card engine {engine_s:.3f} s; histograms bit-identical, "
+              f"MRC {mrc_v}; kernel-1 launches "
+              f"{counts['carried_event_hist']}", flush=True)
+        out[f"predict_{label}"] = {
+            "method": d["method"], "accesses": d["accesses"],
+            "host_predict_s": host_s, "card_engine_s": engine_s,
+            "mrc": mrc_v, "dispatches": dispatches, "launches": counts}
+
+    try:
+        predict_check("gemm1024", "gemm", 1024, "closed-form", "gemm1024")
+        predict_check("mvt4000", "mvt", 4000, "dense", "mvt4000")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(by_path["predict_gemm1024"]["carried_event_hist"] == 0,
+          "gemm1024: kernel 1 launched")
+    check(by_path["predict_mvt4000"]["carried_event_hist"] == 4,
+          "mvt4000: kernel 1 not launched 4 times")
+
+    # (d) tune mvt-1000: the search alone (host), then with --check: the
+    # winner's one engine run on the card verifies
+    text, _ = host_only("tune_mvt1000", ["tune", "mvt", "--n", "1000",
+                                         "--json"])
+    d0 = engine.DEVICE_DISPATCHES
+    t0 = time.perf_counter()
+    (rc, tj, err), counts = counted(lambda: cli_call(
+        ["tune", "mvt", "--n", "1000", "--check", "--json"]))
+    tune_s = time.perf_counter() - t0
+    by_path["tune_mvt1000_check"] = counts
+    tdoc = json.loads(tj)
+    name = next(iter(tdoc["models"]))
+    m = tdoc["models"][name]
+    check(rc == 0 and m["check"]["histogram_identical"]
+          and "verified against engine.run" in err,
+          f"tune mvt1000 --check: rc {rc}: {err[-2000:]}")
+    searched = json.loads(text)["models"][name]
+    check({k: v for k, v in m.items() if k != "check"} == searched,
+          "tune --check searched differently")
+    w = m["winner"]
+    wcfg = SamplerConfig(thread_num=w["threads"], chunk_size=w["chunk"],
+                         cache_kb=tdoc["target_kb"])
+    want = sort_windows(engine.plan(mvt(1000), wcfg,
+                                    window_accesses=w["window"]))
+    check(engine.DEVICE_DISPATCHES - d0 <= 1
+          and counts["carried_event_hist"] == want,
+          f"tune mvt1000 --check: {counts} launches, {want} sort windows")
+    out["tune_mvt1000_check"] = {
+        "verdict": m["verdict"], "winner": w, "seconds": tune_s,
+        "mrc_exact": m["check"]["mrc_exact"], "launches": counts}
+    print(f"analysis tune mvt1000: [{m['verdict']}] winner threads="
+          f"{w['threads']} chunk={w['chunk']}, search "
+          f"{out['tune_mvt1000']['seconds']:.3f} s (host), with --check "
+          f"{tune_s:.3f} s; kernel-1 launches "
+          f"{counts['carried_event_hist']}", flush=True)
+
+    # (e) the host-only modes in this process, and a spec through the codec
+    text, _ = host_only("lint_all", ["lint", "--all"])
+    check(text.splitlines()[-1].startswith(
+        f"pluss lint: {len(REGISTRY)} model(s), 0 error(s)"), "lint --all")
+    text, _ = host_only("analyze_gemm128", ["analyze", "--model", "gemm",
+                                            "--n", "128"])
+    check("gemm128: prediction closed-form" in text, "analyze gemm128")
+    _, err = host_only("cotenancy_gemm_syrk16", [
+        "cotenancy", "gemm+syrk", "--n", "16", "--check"])
+    check(err.count(": ok (") == 2, f"cotenancy --check: {err}")
+    tmp = tempfile.mkdtemp(prefix="pluss_torch_spec_")
+    try:
+        text, _ = host_only("spec_dump_gemm128", ["spec", "dump", "gemm"])
+        path = os.path.join(tmp, "gemm128.json")
+        with open(path, "w") as f:
+            f.write(text)
+        (rc, block, err), counts = counted(lambda: cli_call(
+            ["spec", "load", path, "--run"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    by_path["spec_load_gemm128"] = counts
+    lines = block.splitlines()
+    check(rc == 0 and lines[0].startswith("TORCH CUDA IMPORT gemm128: ")
+          and lines[1:] == acc_lines[1:],
+          "spec load --run != acc for gemm128")
+    out["spec_load_gemm128"] = {"lines": len(lines), "launches": counts,
+                                "equals_acc": True}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "analysis", **out, "ok": True})
 
 
 if __name__ == "__main__":

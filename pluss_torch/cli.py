@@ -1,4 +1,4 @@
-"""`acc` / `speed` / `mrc` / `sample` / `trace` / `stats` CLI of the port — the reference's run modes.
+"""The port's CLI: the reference's run modes plus the static analysis modes.
 
     python -m pluss_torch.cli acc --model gemm --n 1024      # on the CUDA card
     python -m pluss_torch.cli acc --cpu --model gemm --n 16  # on the host
@@ -6,6 +6,9 @@
     python -m pluss_torch.cli trace --file t.bin --out mrc.csv
     python -m pluss_torch.cli acc --cpu --telemetry ev.jsonl
     python -m pluss_torch.cli stats ev.jsonl --check
+    python -m pluss_torch.cli lint --all
+    python -m pluss_torch.cli predict --all --n 16 --check   # on the card
+    python -m pluss_torch.cli tune mvt --n 1000 --check --cpu
 
 - ``acc``: one timed run; prints the reference's block (timing banner, the
   three histogram dumps, "max iteration traversed").  Below the banner the
@@ -31,14 +34,40 @@
   ``--follow`` tails a growing stream): host code only, no card, and
   byte for byte what ``python -m pluss.cli stats`` prints.
 
+- ``lint`` / ``analyze`` (``--model``/``--n`` or ``--all``; ``--json``,
+  ``--sarif PATH``): the static analyzer (:mod:`pluss_torch.analysis`);
+  ``analyze`` adds the schedule-aware passes, the footprint and MRC
+  bracket, the static prediction, the cache-hierarchy read-offs
+  (``--cache-kb``/``--cache-levels``/``--assoc``) and the dependence
+  vectors.
+- ``predict <model>|--all``: the sampling-free static MRC
+  (:mod:`pluss_torch.analysis.ri`); ``--check`` runs the engine on every
+  derivable model and requires bit-identical histograms.
+- ``cotenancy a+b[+...]``: the co-tenancy composition
+  (:mod:`pluss_torch.analysis.interference`); ``--check`` holds it against
+  the host stack-distance oracle.
+- ``tune <model>|--all``: the static schedule search
+  (:mod:`pluss_torch.analysis.tune`) over ``--sweep-threads`` x
+  ``--sweep-chunks``; ``--check`` runs the winner on the engine.
+- ``spec dump <model>`` / ``spec load <file.json> [--run]``: the spec
+  codec; ``--run`` prints the ``acc`` block of the loaded spec.
+- ``--verify`` on ``acc``/``speed``/``mrc``/``sample``: the
+  schedule-aware analysis first; an ERROR stops the run (exit 2).
+
+Below the banner, every block, JSON document and SARIF file of these modes
+is byte for byte what ``python -m pluss.cli`` prints for the same flags.
+They are host work: only ``predict --check``, ``tune --check`` and ``spec
+load --run`` touch a device, the CUDA card unless ``--cpu`` is given.
+
 ``--telemetry PATH`` (or ``PLUSS_TELEMETRY``) writes the run's spans,
 counters, gauges and events to PATH as JSONL
 (:mod:`pluss_torch.obs`).
 
 The timed region of ``acc``/``speed`` is the reference's: sampler + CRI
 distribute (…omp.cpp:337-339), after one untimed warm-up run that builds
-the kernels and initializes the device; ``trace`` times the one replay.  Runs go to the CUDA card; ``--cpu`` is the only
-way onto the host, and with no card and no ``--cpu`` the CLI stops.
+the kernels and initializes the device; ``trace`` times the one replay.
+Runs go to the CUDA card; ``--cpu`` is the only way onto the host, and
+with no card and no ``--cpu`` the CLI stops.
 """
 
 from __future__ import annotations
@@ -50,7 +79,7 @@ import time
 
 import torch
 
-from pluss_torch import cri, engine, mrc, obs, sampling, trace
+from pluss_torch import analysis, cri, engine, mrc, obs, sampling, trace
 from pluss_torch.config import SamplerConfig
 from pluss_torch.io import RI_TITLE, acc_block, print_histogram, speed_block
 from pluss_torch.models import REGISTRY
@@ -85,14 +114,56 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="pluss_torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("mode", choices=("acc", "speed", "mrc", "sample", "trace",
-                                    "stats"))
+                                    "stats", "lint", "analyze", "predict",
+                                    "cotenancy", "tune", "spec"))
     p.add_argument("target", nargs="?", default=None,
                    help="stats mode: the telemetry event stream "
-                        "(events.jsonl) to aggregate")
+                        "(events.jsonl) to aggregate; spec mode: dump | "
+                        "load; predict/tune mode: the model; cotenancy "
+                        "mode: the co-scheduled workloads as "
+                        "modelA+modelB[+...]")
+    p.add_argument("arg2", nargs="?", default=None,
+                   help="spec mode: the model to dump / the spec JSON "
+                        "file to load")
     p.add_argument("--check", action="store_true",
                    help="stats mode: validate the event stream against "
                         "the telemetry schema instead of rendering it "
-                        "(exit 1 on any violation)")
+                        "(exit 1 on any violation); predict/tune mode: "
+                        "run the engine and require bit-identical "
+                        "histograms; cotenancy mode: hold the composition "
+                        "against the host oracle")
+    p.add_argument("--all", action="store_true",
+                   help="lint/analyze/predict/tune mode: every registered "
+                        "model (lint/analyze at each builder's default "
+                        "size) instead of --model")
+    p.add_argument("--json", action="store_true",
+                   help="lint/analyze/predict/cotenancy/tune mode: "
+                        "machine-readable output")
+    p.add_argument("--sarif", metavar="PATH", default=None,
+                   help="lint/analyze/predict/cotenancy/tune mode: also "
+                        "write the PLxxx findings as a SARIF 2.1.0 log")
+    p.add_argument("--verify", action="store_true",
+                   help="acc/speed/mrc/sample mode: run the "
+                        "schedule-aware static analyzer first; ERROR "
+                        "diagnostics stop the run")
+    p.add_argument("--run", action="store_true",
+                   help="spec load mode: run the loaded spec on the "
+                        "engine and print the acc block")
+    p.add_argument("--cache-kb", type=int, default=None, metavar="KB",
+                   help="analyze/cotenancy/tune mode: largest-cache "
+                        "capacity in KB (default: the SamplerConfig "
+                        "cache_kb)")
+    p.add_argument("--cache-levels", default=None, metavar="KB:KB:...",
+                   help="analyze/cotenancy/tune mode: declared cache "
+                        "levels in KB, ascending; the last is the LLC.  "
+                        "Excludes --cache-kb")
+    p.add_argument("--assoc", type=int, default=None, metavar="WAYS",
+                   help="analyze/cotenancy/tune mode: ways per set (0 = "
+                        "fully associative; overrides PLUSS_CACHE_ASSOC)")
+    p.add_argument("--sweep-threads", default="1,2,4,8",
+                   help="tune mode: thread counts (comma list)")
+    p.add_argument("--sweep-chunks", default="1,4,16",
+                   help="tune mode: chunk sizes (comma list)")
     p.add_argument("--trace", default=None, metavar="RID",
                    help="stats mode: render the causal span tree of ONE "
                         "request (every span/event stamped trace=RID) "
@@ -156,9 +227,16 @@ def main(argv: list[str] | None = None) -> int:
                    help="run on the host CPU instead of the CUDA card")
     args = p.parse_args(argv)
 
-    if args.target is not None and args.mode != "stats":
+    if args.target is not None and args.mode not in (
+            "stats", "spec", "predict", "cotenancy", "tune"):
+        # a stray positional stays a usage error (`lint gemm` would
+        # otherwise lint the default model and report it clean)
         p.error(f"unexpected argument {args.target!r} for mode "
-                f"{args.mode!r} (positional input is for stats mode only)")
+                f"{args.mode!r} (positional input is for stats/spec/"
+                "predict/cotenancy/tune modes only; use --model/--file)")
+    if args.arg2 is not None and args.mode != "spec":
+        p.error(f"unexpected argument {args.arg2!r} for mode "
+                f"{args.mode!r}")
     if args.mode == "stats":
         # host aggregation of a recorded stream: no device, and no
         # telemetry session of its own
@@ -173,12 +251,22 @@ def main(argv: list[str] | None = None) -> int:
                               follow_stream=args.follow)
     if args.telemetry:
         obs.configure(args.telemetry)
+
+    def device_of() -> torch.device:
+        """The device of the mode's engine runs: resolved only where one
+        runs, so the host modes need no card."""
+        try:
+            return engine.resolve_device("cpu" if args.cpu else None)
+        except RuntimeError as e:
+            p.error(str(e))
+
     try:
-        device = engine.resolve_device("cpu" if args.cpu else None)
-    except RuntimeError as e:
-        p.error(str(e))
-    cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk)
-    try:
+        if args.mode in HOST_MODES:
+            return HOST_MODES[args.mode](args, p, sys.stdout)
+        if args.mode in CHECK_MODES:
+            return CHECK_MODES[args.mode](args, p, sys.stdout, device_of)
+        device = device_of()
+        cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk)
         return run_mode(args, p, cfg, device, sys.stdout)
     finally:
         # counters land in the stream even when the process lives on
@@ -191,6 +279,12 @@ def run_mode(args, p, cfg: SamplerConfig, device, out) -> int:
     if args.mode == "trace":
         return trace_mode(args, p, cfg, device, out)
     spec = REGISTRY[args.model](args.n)
+    if args.verify:
+        n_err = _verify_spec(spec, cfg, sys.stderr)
+        if n_err:
+            print(f"pluss_torch: --verify found {n_err} error(s) in "
+                  f"{spec.name}; refusing to run", file=sys.stderr)
+            return 2
     if args.mode == "sample":
         return sample_mode(args, spec, cfg, device, out)
     step = sampler_step(spec, cfg, device, args.window, args.start_point)
@@ -285,6 +379,470 @@ def trace_mode(args, p, cfg: SamplerConfig, device, out) -> int:
     out.write(f"{rep.total_count} refs over {rep.n_lines} lines; "
               f"wrote MRC to {args.out}\n")
     return 0
+
+
+# --- the static analysis modes (host work; engine runs only under --check
+# and spec load --run) -------------------------------------------------------
+
+
+def _footprint_doc(fp, bracket) -> dict:
+    """JSON view of one model's footprint/MRC-bound report."""
+    return {
+        "total_lines": fp.total,
+        "per_array": {a: int(n) for a, n in zip(fp.arrays, fp.per_array)},
+        "per_thread_cold": [int(c) for c in fp.cold],
+        "accesses": fp.accesses,
+        "mrc_floor": bracket.floor,
+        "mrc_plateau_bounds": [bracket.c_lo, bracket.c_hi],
+        "guaranteed_reuse": bracket.guaranteed_reuse,
+        "levels": [
+            {"nest": lv.nest, "path": lv.path, "depth": lv.depth,
+             "lines_lo": lv.lines_lo, "lines_hi": lv.lines_hi}
+            for lv in fp.levels
+        ],
+    }
+
+
+def _cache_geometry_or_usage(args, p):
+    """The shared cache-geometry parse of analyze/cotenancy/tune
+    (:func:`pluss_torch.model.hierarchy.cache_geometry`); malformed flags
+    are usage errors."""
+    from pluss_torch.model import hierarchy as hier_mod
+
+    try:
+        return hier_mod.cache_geometry(args.cache_kb, args.cache_levels,
+                                       args.assoc)
+    except ValueError as e:
+        p.error(f"{args.mode} mode: {e}")
+
+
+def _write_sarif(path, diags, mode: str) -> None:
+    from pluss_torch.analysis import sarif as sarif_mod
+
+    sarif_mod.write_sarif(path, diags)
+    print(f"pluss_torch {mode}: SARIF log at {path}", file=sys.stderr)
+
+
+def _analysis_main(args, p, out) -> int:
+    """``lint`` (schedule-blind) or ``analyze`` (under the CLI's own
+    ``--threads``/``--chunk`` and the shared cache geometry)."""
+    cfg = hier = None
+    if args.mode == "analyze":
+        llc_kb, hier = _cache_geometry_or_usage(args, p)
+        cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk,
+                            **({} if llc_kb is None
+                               else {"cache_kb": llc_kb}))
+    return _lint_main(args, out, cfg, hier)
+
+
+def _lint_main(args, out, cfg: SamplerConfig | None = None,
+               hier=None) -> int:
+    """``lint|analyze <--model X|--all> [--json]``: exit 1 when any model
+    has ERROR diagnostics.  ``analyze`` (``cfg`` set) adds the placement-
+    refined race verdicts (PL304/PL305), false sharing (PL5xx), the
+    footprint/MRC bracket, the static prediction, the hierarchy read-offs
+    and the dependence vectors."""
+    import json as json_mod
+
+    from pluss_torch.analysis import depvec as depvec_mod
+    from pluss_torch.analysis import ri
+    from pluss_torch.model import hierarchy as hier_mod
+
+    if args.all:
+        # each builder's default size
+        targets = [(name, REGISTRY[name]()) for name in sorted(REGISTRY)]
+    else:
+        targets = [(args.model, REGISTRY[args.model](args.n))]
+    all_diags = []
+    footprints: dict[str, dict] = {}
+    predictions: dict[str, dict] = {}
+    hierarchies: dict[str, dict] = {}
+    depvectors: dict[str, dict] = {}
+    errors = 0
+    for name, spec in targets:
+        if cfg is None:
+            diags = analysis.lint_spec(spec)
+        else:
+            diags, fp = analysis.analyze_spec(spec, cfg)
+            footprints[spec.name] = _footprint_doc(
+                fp, analysis.footprint.mrc_bracket(spec, cfg, fp))
+            vecs = depvec_mod.spec_vectors(spec)
+            depvectors[spec.name] = depvec_mod.doc_of(vecs)
+            diags = depvec_mod.annotate_races(diags, vecs)
+            rep = ri.predict(spec, cfg)
+            predictions[spec.name] = ri.report_doc(rep)
+            diags = diags + rep.prediction.diagnostics
+            if rep.rihist is not None:
+                hierarchies[spec.name] = hier_mod.hierarchy_doc(
+                    rep.rihist, cfg, hier)
+        all_diags += analysis.with_model(diags, spec.name)
+        errors += analysis.error_count(diags)
+    mode = "lint" if cfg is None else "analyze"
+    if args.sarif:
+        _write_sarif(args.sarif, all_diags, mode)
+    if args.json:
+        doc = json_mod.loads(analysis.format_json(all_diags))
+        if cfg is not None:
+            doc["schedule"] = {"threads": cfg.thread_num,
+                               "chunk": cfg.chunk_size,
+                               "ds": cfg.ds, "cls": cfg.cls}
+            doc["footprint"] = footprints
+            doc["prediction"] = predictions
+            doc["hierarchy"] = hierarchies
+            doc["depvectors"] = depvectors
+        out.write(json_mod.dumps(doc, indent=1) + "\n")
+    else:
+        text = analysis.format_text(all_diags)
+        if text:
+            out.write(text + "\n")
+        for name, doc in footprints.items():
+            out.write(
+                f"{name}: footprint {doc['total_lines']} lines "
+                f"({', '.join(f'{a}={n}' for a, n in doc['per_array'].items())}); "
+                f"cold/thread {doc['per_thread_cold']}; MRC floor "
+                f"{doc['mrc_floor']:.6g}, plateau in "
+                f"[{doc['mrc_plateau_bounds'][0]}, "
+                f"{doc['mrc_plateau_bounds'][1]}]\n")
+            out.write(_prediction_line(name, predictions[name]))
+            if name in hierarchies:
+                for line in hier_mod.render_hierarchy(hierarchies[name],
+                                                      indent="    "):
+                    out.write(f"  {line}\n" if line == "hierarchy:"
+                              else f"{line}\n")
+            for line in depvec_mod.render(depvectors[name]):
+                out.write(f"  {line}\n")
+        n_warn = sum(1 for d in all_diags
+                     if d.severity is analysis.Severity.WARNING)
+        out.write(f"pluss {mode}: {len(targets)} model(s), {errors} "
+                  f"error(s), {n_warn} warning(s)\n")
+    return 1 if errors else 0
+
+
+def _prediction_line(name: str, doc: dict) -> str:
+    """One text-report line per model from a ``ri.report_doc`` dict."""
+    if not doc["derivable"]:
+        codes = ",".join(sorted({d["code"]
+                                 for d in doc.get("diagnostics", ())}))
+        return f"{name}: prediction not derivable ({codes})\n"
+    where = "unreachable"
+    if "mrc_plateau_exact" in doc:
+        where = (f"{doc['mrc_plateau_exact']} "
+                 + ("inside" if doc["plateau_in_bracket"] else "OUTSIDE")
+                 + " the bracket")
+    g = f", G={doc['period_horizon']}" if "period_horizon" in doc else ""
+    return (f"{name}: prediction {doc['method']}{g}, {doc['accesses']} "
+            f"accesses, exact plateau {where}\n")
+
+
+def _model_target(args, p) -> None:
+    """predict/tune: the positional model, or --all, not both."""
+    if args.target is not None and args.all:
+        p.error(f"{args.mode} mode: give a model or --all, not both")
+    if args.target is not None:
+        if args.target not in REGISTRY:
+            p.error(f"{args.mode} mode: unknown model {args.target!r}")
+        args.model = args.target
+
+
+def _mrc_kind(detail: dict) -> str:
+    return "bit-identical" if detail["mrc_exact"] \
+        else f"l2={detail['mrc_l2_error']:.2e}"
+
+
+def _predict_main(args, p, out, device_of) -> int:
+    """``predict <model|--all> [--json|--check|--sarif]``: the static
+    per-thread histograms through CRI + AET with no engine run.
+    ``--check`` then runs the engine on every derivable model (the only
+    device work here) and requires bit-identical histograms (MRC within
+    ``ri.MRC_EPS``)."""
+    import json as json_mod
+
+    from pluss_torch.analysis import ri
+
+    _model_target(args, p)
+    cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk)
+    if args.all:
+        targets = [(nm, REGISTRY[nm](args.n)) for nm in sorted(REGISTRY)]
+    else:
+        targets = [(args.model, REGISTRY[args.model](args.n))]
+    docs: dict[str, dict] = {}
+    reports = []
+    all_diags = []
+    errors = 0
+    for name, spec in targets:
+        rep = ri.predict(spec, cfg)
+        reports.append((name, spec, rep))
+        docs[spec.name] = ri.report_doc(rep)
+        all_diags += analysis.with_model(rep.prediction.diagnostics,
+                                         spec.name)
+        errors += analysis.error_count(rep.prediction.diagnostics)
+    rc = 1 if errors else 0
+    if args.check:
+        device = device_of()
+        for name, spec, rep in reports:
+            if not rep.prediction.derivable:
+                print(f"pluss_torch predict: {spec.name}: check skipped "
+                      "(not derivable)", file=sys.stderr)
+                continue
+            res = engine.run(spec, cfg, device=device)
+            ok, detail = ri.check_against_engine(rep, res, cfg)
+            docs[spec.name]["check"] = detail
+            if not ok:
+                rc = 1
+                print(f"pluss_torch predict: {spec.name}: CHECK FAILED "
+                      f"{detail}", file=sys.stderr)
+            else:
+                print(f"pluss_torch predict: {spec.name}: histograms "
+                      f"bit-identical to engine.run, MRC "
+                      f"{_mrc_kind(detail)}", file=sys.stderr)
+    if args.sarif:
+        _write_sarif(args.sarif, all_diags, "predict")
+    if args.json:
+        doc = {"schedule": {"threads": cfg.thread_num,
+                            "chunk": cfg.chunk_size,
+                            "ds": cfg.ds, "cls": cfg.cls},
+               "models": docs}
+        out.write(json_mod.dumps(doc, indent=1) + "\n")
+    else:
+        for name, spec, rep in reports:
+            out.write(_prediction_line(spec.name, docs[spec.name]))
+        n_derived = sum(1 for _, _, r in reports
+                        if r.prediction.derivable)
+        out.write(f"pluss predict: {n_derived}/{len(reports)} model(s) "
+                  f"derivable, {errors} error(s)\n")
+    return rc
+
+
+def _cotenancy_main(args, p, out) -> int:
+    """``cotenancy <a+b[+...]> [--json|--sarif|--check]``: per-workload
+    degraded MRCs off the merged stream's AET clock and PL801/PL802/PL803
+    verdicts.  Host work end to end: ``--check``'s oracle is a numpy
+    schedule simulation."""
+    import json as json_mod
+
+    from pluss_torch.analysis import interference
+
+    if not args.target:
+        p.error("cotenancy mode requires a modelA+modelB[+...] target")
+    names = [t.strip() for t in args.target.split("+")]
+    if any(not t for t in names):
+        p.error(f"cotenancy mode: malformed target {args.target!r} "
+                "(empty workload name)")
+    unknown = [t for t in names if t not in REGISTRY]
+    if unknown:
+        p.error(f"cotenancy mode: unknown model(s) "
+                f"{', '.join(map(repr, unknown))}")
+    if len(names) < 2:
+        p.error("cotenancy mode: co-tenancy needs >= 2 workloads "
+                f"(got {args.target!r}; join them with '+')")
+    llc_kb, _hier = _cache_geometry_or_usage(args, p)
+    cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk,
+                        **({} if llc_kb is None
+                           else {"cache_kb": llc_kb}))
+    inputs, refusals = interference.from_models(names, cfg, args.n)
+    if len(inputs) < 2:
+        rep = interference.CotenancyReport(
+            tuple(names), cfg.cache_kb,
+            interference.interference_threshold(), [], [], [], [], {},
+            refusals)
+    else:
+        rep = interference.compose(inputs, cfg)
+        rep.diagnostics = refusals + rep.diagnostics
+    rc = 1 if len(inputs) < 2 else 0
+    doc = rep.doc()
+    if args.check and len(inputs) >= 2:
+        ok, detail = interference.check_against_oracle(rep, inputs, cfg)
+        doc["check"] = detail
+        for wd in detail["per_workload"]:
+            status = "ok" if wd["ok"] else "CHECK FAILED"
+            print(f"pluss_torch cotenancy: {wd['workload']}: {status} "
+                  f"(max|err| {wd['max_abs_err']:.3g}, mae "
+                  f"{wd['mae']:.3g}, edge {wd['edge_err']:.3g}, solo "
+                  f"max|err| {wd['solo_max_abs_err']:.3g})",
+                  file=sys.stderr)
+        if not ok:
+            rc = 1
+    elif args.check:
+        print("pluss_torch cotenancy: check skipped (fewer than 2 "
+              "composable workloads)", file=sys.stderr)
+    if args.sarif:
+        _write_sarif(args.sarif, rep.diagnostics, "cotenancy")
+    if args.json:
+        doc["schedule"] = {"threads": cfg.thread_num,
+                           "chunk": cfg.chunk_size,
+                           "ds": cfg.ds, "cls": cfg.cls}
+        out.write(json_mod.dumps(doc, indent=1) + "\n")
+    else:
+        for d in rep.diagnostics:
+            if d.code == "PL803":
+                out.write(d.format() + "\n")
+        for v in rep.verdicts:
+            out.write(f"{v.name}: solo {v.solo_mr:.6g} -> degraded "
+                      f"{v.degraded_mr:.6g} (+{v.inflation:.6g}) "
+                      f"[{v.code}] share p={v.p:.4g}\n")
+        n_sev = sum(1 for v in rep.verdicts if v.code == "PL801")
+        n_ref = sum(1 for d in rep.diagnostics if d.code == "PL803")
+        out.write(f"pluss cotenancy: {len(names)} workload(s) at "
+                  f"{rep.cache_kb} KB, threshold {rep.threshold:g}: "
+                  f"{n_sev} severe, {len(rep.verdicts) - n_sev} benign, "
+                  f"{n_ref} refused\n")
+    return rc
+
+
+def _tune_main(args, p, out, device_of) -> int:
+    """``tune <model|--all> [--json|--check|--sarif]``: the static search
+    over (threads, chunk, window) from --sweep-threads/
+    --sweep-chunks/--window, scored on the host at the declared LLC.
+    Verdicts PL901 proven-best, PL902 tie, PL903 refusal (rc 1), PL904
+    the ``--check`` alarm."""
+    import json as json_mod
+
+    from pluss_torch.analysis import tune as tune_mod
+
+    _model_target(args, p)
+    llc_kb, hier = _cache_geometry_or_usage(args, p)
+    try:
+        ts = [int(t) for t in args.sweep_threads.split(",")]
+        cks = [int(c) for c in args.sweep_chunks.split(",")]
+    except ValueError:
+        p.error("tune mode: malformed --sweep-threads/--sweep-chunks "
+                "(want comma-separated ints)")
+    cands = tune_mod.space(ts, cks, (args.window,))
+    if args.all:
+        targets = [(nm, REGISTRY[nm](args.n)) for nm in sorted(REGISTRY)]
+    else:
+        targets = [(args.model, REGISTRY[args.model](args.n))]
+    docs: dict[str, dict] = {}
+    reports = []
+    all_diags = []
+    rc = 0
+    for name, spec in targets:
+        rep = tune_mod.tune(spec, candidates=cands, hier=hier)
+        reports.append((name, spec, rep))
+        docs[spec.name] = rep.doc()
+        all_diags += analysis.with_model(rep.diagnostics, spec.name)
+        if rep.code == "PL903":
+            rc = 1
+    if args.check:
+        device = device_of()
+        for name, spec, rep in reports:
+            if rep.winner is None:
+                print(f"pluss_torch tune: {spec.name}: check skipped "
+                      "(refused)", file=sys.stderr)
+                continue
+            ok, detail, diags = tune_mod.check_winner(spec, rep,
+                                                      device=device)
+            docs[spec.name]["check"] = detail
+            all_diags += analysis.with_model(diags, spec.name)
+            if not ok:
+                rc = 1
+                print(f"pluss_torch tune: {spec.name}: CHECK FAILED "
+                      f"(PL904) {detail}", file=sys.stderr)
+            else:
+                print(f"pluss_torch tune: {spec.name}: winner "
+                      f"{rep.winner.candidate.label()} verified against "
+                      f"engine.run (histograms bit-identical, MRC "
+                      f"{_mrc_kind(detail)})", file=sys.stderr)
+    if args.sarif:
+        _write_sarif(args.sarif, all_diags, "tune")
+    if args.json:
+        doc = {"target_kb": reports[0][2].target_kb,
+               "hierarchy": docs[reports[0][1].name]["hierarchy"],
+               "models": docs}
+        out.write(json_mod.dumps(doc, indent=1) + "\n")
+    else:
+        for name, spec, rep in reports:
+            v = rep.diagnostics[0]
+            out.write(f"{spec.name}: [{v.code}] {v.message}\n")
+        n_best = sum(1 for _, _, r in reports if r.code == "PL901")
+        n_tie = sum(1 for _, _, r in reports if r.code == "PL902")
+        n_ref = sum(1 for _, _, r in reports if r.code == "PL903")
+        out.write(f"pluss tune: {len(reports)} model(s) over "
+                  f"{len(cands)} candidate(s) at "
+                  f"{reports[0][2].target_kb} KB LLC: {n_best} "
+                  f"proven-best, {n_tie} tie(s), {n_ref} refused\n")
+    return rc
+
+
+def _verify_spec(spec, cfg: SamplerConfig, out_err) -> int:
+    """The ``--verify`` pre-pass: the schedule-aware analysis under the
+    run's own schedule, before any engine work.  Returns the number of
+    ERROR diagnostics; findings go to stderr, so the blocks on stdout stay
+    diffable."""
+    diags, _ = analysis.analyze_spec(spec, cfg)
+    diags = analysis.with_model(diags, spec.name)
+    text = analysis.format_text(diags)
+    if text:
+        out_err.write(text + "\n")
+    return analysis.error_count(diags)
+
+
+def _run_spec_block(spec, cfg: SamplerConfig, args, device, out):
+    """One acc block (warm-up, then a timed run and the three histogram
+    dumps) of a loaded spec, under the banner ``<device> IMPORT <name>``."""
+    step = sampler_step(spec, cfg, device, args.window, args.start_point)
+    step()
+    dt, res, ri = timed(step)
+    acc_block(f"{banner_of(device)} IMPORT {spec.name}", dt,
+              res.noshare_list(), res.share_list(), ri,
+              res.max_iteration_count, out)
+    return res, ri
+
+
+def _spec_main(args, p, out, device_of) -> int:
+    """``spec dump <model>`` / ``spec load <file.json> [--run]``."""
+    from pluss_torch import spec_codec
+    from pluss_torch.resilience.errors import InvalidRequest
+    from pluss_torch.spec import loop_size
+
+    verb = args.target
+    if verb not in ("dump", "load"):
+        p.error("spec mode: `pluss spec dump <model>` or "
+                "`pluss spec load <file.json> [--run]`")
+    if verb == "dump":
+        if not args.arg2:
+            p.error("spec dump requires a model name "
+                    "(`pluss spec dump <model> [--n N]`)")
+        model = args.arg2
+        if model not in REGISTRY:
+            p.error(f"spec dump: unknown model {model!r}")
+        out.write(spec_codec.dump_spec(REGISTRY[model](args.n)) + "\n")
+        return 0
+    if not args.arg2:
+        p.error("spec load requires a spec JSON file path")
+    try:
+        spec = spec_codec.load_spec_file(args.arg2)
+    except InvalidRequest as e:
+        print(f"pluss_torch spec load: {e}", file=sys.stderr)
+        return 1
+    # a loaded spec passes the same lint gate as any other
+    diags = analysis.with_model(analysis.lint_spec(spec), spec.name)
+    text = analysis.format_text(diags)
+    if text:
+        print(text, file=sys.stderr)
+    if analysis.error_count(diags):
+        print(f"pluss_torch spec load: {spec.name} rejected by the static "
+              "analyzer", file=sys.stderr)
+        return 1
+    if args.run:
+        cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk)
+        _run_spec_block(spec, cfg, args, device_of(), out)
+    else:
+        total = sum(loop_size(n) for n in spec.nests)
+        out.write(f"{spec.name}: {len(spec.nests)} nest(s), "
+                  f"{len(spec.arrays)} array(s), {total} accesses; "
+                  "lint clean\n")
+    return 0
+
+
+#: the modes that run on the host only and touch no device
+HOST_MODES = {"lint": _analysis_main, "analyze": _analysis_main,
+              "cotenancy": _cotenancy_main}
+
+#: the modes that resolve a device only where an engine run needs one
+#: (``--check``, ``spec load --run``)
+CHECK_MODES = {"predict": _predict_main, "tune": _tune_main,
+               "spec": _spec_main}
 
 
 if __name__ == "__main__":

@@ -52,4 +52,12 @@ MRC_DEDUP_EPS = 1e-5
 #: intervals up to 2**47.
 NBINS = 49
 
+#: The share-unique capacity of the JAX package's engine
+#: (``pluss/config.py``).  The port's engine keeps every share unique and
+#: has no cap; this value survives only as the label that
+#: :mod:`pluss_torch.analysis.tune` prints in every candidate's
+#: ``share_cap`` field, so the tuner's lines and documents stay the JAX
+#: package's byte for byte.
+SHARE_CAP = 1024
+
 DEFAULT = SamplerConfig()

@@ -89,6 +89,53 @@ def nbd_dilate(thread_cnt: int, n: int) -> tuple[np.ndarray, np.ndarray]:
         ks = np.arange(0, ks.size * 2, dtype=np.float64)  # pragma: no cover
 
 
+@functools.lru_cache(maxsize=4096)
+def nbd_dilate_p(p: float, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Heterogeneous-rate NBD dilation: ``nbd_dilate`` generalized from
+    T identical threads (slot-ownership probability 1/T) to an arbitrary
+    ownership probability ``p`` in (0, 1] — the share of the interleaved
+    access stream this thread owns when K co-scheduled workloads with
+    different access rates compete for one cache (the r15 co-tenancy
+    composition, :mod:`pluss_torch.analysis.interference`).
+
+    ``p = 1/T`` reproduces ``nbd_dilate(T, n)`` exactly: the cutoff
+    ``n >= NBD_CUTOFF_COEF * (1 - p)`` equals the homogeneous
+    ``NBD_CUTOFF_COEF * (T-1)/T`` and the point mass ``round(n / p)``
+    equals ``T * n``.  Same mass-cut accumulation, same pmf
+    parameterization, same frozen memoized arrays.
+    """
+    if p >= 1.0:
+        keys = np.array([n], np.int64)
+        pmf = np.array([1.0])
+        keys.setflags(write=False)
+        pmf.setflags(write=False)
+        return keys, pmf
+    if n >= NBD_CUTOFF_COEF * (1.0 - p):
+        keys = np.array([int(round(n / p))], np.int64)
+        pmf = np.array([1.0])
+        keys.setflags(write=False)
+        pmf.setflags(write=False)
+        return keys, pmf
+    r = float(n)
+    block = max(64, int(n * (1.0 - p) / p * 2) + 64)
+    ks = np.arange(0, block, dtype=np.float64)
+    while True:
+        pmf = np.exp(
+            _gammaln(ks + r) - _gammaln(ks + 1.0) - _gammaln(r)
+            + r * math.log(p) + ks * math.log1p(-p)
+        )
+        cum = np.cumsum(pmf)
+        over = np.nonzero(cum > NBD_MASS_CUT)[0]
+        if over.size:
+            stop = int(over[0]) + 1  # include the crossing term
+            keys = np.arange(stop, dtype=np.int64) + n
+            pmf = pmf[:stop]
+            keys.setflags(write=False)
+            pmf.setflags(write=False)
+            return keys, pmf
+        ks = np.arange(0, ks.size * 2, dtype=np.float64)  # pragma: no cover
+
+
 def noshare_distribute(noshare: list[Histogram], rihist: Histogram,
                        thread_cnt: int) -> None:
     """``_pluss_cri_noshare_distribute`` (utils.rs:307-344).  Keys are

@@ -1243,6 +1243,14 @@ def _build_kernels(pl: StreamPlan, dev: torch.device) -> None:
 #: (spec, cfg, window_accesses) of default runs warmed in this process
 _warm_keys: set = set()
 
+#: monotonic count of the one-dispatch runs this process has issued
+#: through :func:`run` — the witness of the zero-dispatch contract of
+#: ``cli predict``/``cli tune`` (:mod:`pluss_torch.analysis.ri`).  Counted
+#: as the JAX package counts it (``pluss/engine.py``): once per
+#: :func:`run` that is not rerouted; a rerouted run and a direct
+#: :func:`run_sliced` count nothing.
+DEVICE_DISPATCHES = 0
+
 
 def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
         assignment=None, start_point: int | None = None,
@@ -1283,6 +1291,9 @@ def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
     _build_kernels(pl, dev)
     if assignment is None and start_point is None:
         _warm_keys.add((spec, cfg, window_accesses))
+    if budget is None:
+        global DEVICE_DISPATCHES
+        DEVICE_DISPATCHES += 1
     return _execute(pl, dev, thread_batch=tb, dispatch_entries=budget)
 
 

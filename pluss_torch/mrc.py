@@ -80,6 +80,27 @@ def aet_mrc(rihist: dict, cfg: SamplerConfig = DEFAULT) -> np.ndarray:
     return survival_at(rihist, aet_times(rihist, cfg))
 
 
+def plateau_of(rihist: dict, mrc: np.ndarray) -> int | None:
+    """Exact plateau location: the first cache size whose miss ratio is
+    the curve's terminal compulsory-miss value, or None if the curve
+    never reaches it inside the modeled cache range.
+
+    The terminal value is ``cold/total`` by the same float division the
+    survival map performs (the descending accumulator's FIRST emitted P
+    is exactly ``acc/total`` with ``acc`` still the seed cold count), so
+    reaching the floor is an exact float equality, not an epsilon test;
+    the curve is non-increasing, so the matching suffix is one run and
+    its first index IS the plateau."""
+    total = float(sum(rihist.values()))
+    if total == 0.0:
+        return 0
+    floor = float(rihist.get(-1, 0.0)) / total
+    if float(mrc[-1]) != floor:
+        return None
+    hit = np.flatnonzero(np.asarray(mrc) == floor)
+    return int(hit[0])
+
+
 def dedup_lines(mrc: np.ndarray) -> list[tuple[int, float]]:
     """The reference's run-collapsing printer (pluss_utils.h:851-883): for
     each run of c whose miss ratios differ from the run head by < 1e-5,
@@ -104,3 +125,14 @@ def write_mrc(path: str, mrc: np.ndarray) -> None:
         f.write("miss ratio\n")
         for c, v in dedup_lines(mrc):
             f.write(f"{c}, {v:g}\n")
+
+
+def l2_error(a: np.ndarray, b: np.ndarray) -> float:
+    """Relative L2 distance on the common prefix — the acceptance metric
+    (BASELINE.md: MRC within 1% L2 error)."""
+    n = min(len(a), len(b))
+    if n == 0:
+        return 0.0
+    x, y = np.asarray(a[:n], float), np.asarray(b[:n], float)
+    denom = float(np.linalg.norm(y)) or 1.0
+    return float(np.linalg.norm(x - y)) / denom

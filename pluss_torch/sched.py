@@ -68,6 +68,11 @@ class ChunkSchedule:
         (pluss_utils.h:312,420)."""
         return cid % self.thread_num
 
+    def chunks_of_thread(self, tid: int) -> list[int]:
+        """Chunk ids thread ``tid`` serves under the static schedule, in
+        execution order (the static analyses walk these)."""
+        return list(range(tid, self.n_chunks, self.thread_num))
+
     # -- iteration value -> (round, tid, pos), the C++ dispatcher's API -----
 
     def static_tid(self, i: int) -> int:

@@ -4,11 +4,17 @@ A spec plus a :class:`~pluss_torch.config.SamplerConfig` is everything a run
 depends on, so this JSON document is how a workload built by the JAX package
 crosses into the port: :func:`spec_from_json` accepts exactly what the JAX
 package's ``spec_to_json`` emits, and every malformation raises
-:class:`SpecDecodeError` rather than a KeyError/TypeError.
+:class:`SpecDecodeError` rather than a KeyError/TypeError.  The text and
+file readers (:func:`load_spec_text`, :func:`load_spec_file`, the CLI's
+``spec load``) raise the typed :class:`InvalidRequest` instead, for an
+unparseable document, an unreadable file and a malformed spec alike.
 """
 
 from __future__ import annotations
 
+import json
+
+from pluss_torch.resilience.errors import InvalidRequest
 from pluss_torch.spec import Loop, LoopNestSpec, Ref
 
 
@@ -136,3 +142,33 @@ def spec_from_json(obj) -> LoopNestSpec:
         arrays=tuple((a, n) for a, n in arrays),
         nests=tuple(_dec_item(n, f"nests[{i}]") for i, n in enumerate(nests)),
     )
+
+
+def dump_spec(spec: LoopNestSpec, indent: int | None = 1) -> str:
+    """Spec as canonical JSON text (``cli spec dump``)."""
+    return json.dumps(spec_to_json(spec), indent=indent)
+
+
+def load_spec_text(text: str, where: str = "spec") -> LoopNestSpec:
+    """Decode JSON text; a parse failure is the same typed
+    :class:`InvalidRequest` as a schema failure."""
+    try:
+        obj = json.loads(text)
+    except ValueError as e:
+        raise InvalidRequest(f"{where}: unparseable spec JSON: {e}",
+                             site="spec.codec", cause=e)
+    try:
+        return spec_from_json(obj)
+    except SpecDecodeError as e:
+        raise InvalidRequest(str(e), site="spec.codec", cause=e)
+
+
+def load_spec_file(path: str) -> LoopNestSpec:
+    """Decode one ``cli spec dump``-style file (``cli spec load``)."""
+    try:
+        with open(path) as f:
+            text = f.read()
+    except OSError as e:
+        raise InvalidRequest(f"cannot read spec file {path}: {e}",
+                             site="spec.codec", cause=e)
+    return load_spec_text(text, where=path)

@@ -2,7 +2,8 @@
 
 The port's copy of ``pluss/utils/envknob.py``.  One policy for every
 layer that reads a tuning variable (the trace batching knobs and
-``PLUSS_WIRE``, ``PLUSS_PLAN_CACHE_MAX``, ``PLUSS_HBM_BUDGET``): a
+``PLUSS_WIRE``, ``PLUSS_PLAN_CACHE_MAX``, ``PLUSS_HBM_BUDGET``, the
+analysis budgets and the ``PLUSS_CACHE_*`` hierarchy knobs): a
 malformed or out-of-range value never crashes an import or an hours-long
 run — it warns once, naming the variable, and falls back to the default.
 Parsing is memoized per (knob, raw value), so a knob read from a loop
@@ -21,11 +22,46 @@ def env_int(name: str, default: int, minimum: int = 1) -> int:
     return _parse(name, os.environ.get(name, ""), default, minimum, int)
 
 
+def env_float(name: str, default: float, minimum: float) -> float:
+    return _parse(name, os.environ.get(name, ""), default, minimum, float)
+
+
 def env_choice(name: str, default: str, choices: tuple[str, ...]) -> str:
     """Enumerated env knob (e.g. PLUSS_WIRE): unknown values warn once
     and fall back to the default, same policy as the numeric knobs."""
     return _parse_choice(name, os.environ.get(name, ""), default,
                          tuple(choices))
+
+
+def env_int_list(name: str, default: tuple[int, ...],
+                 minimum: int = 1) -> tuple[int, ...]:
+    """Comma-separated ascending int list (e.g. PLUSS_CACHE_LEVELS): a
+    malformed element, an out-of-range value or a non-ascending order
+    warns once and falls back to the whole default — a partly applied
+    hierarchy would model a cache that does not exist."""
+    return _parse_int_list(name, os.environ.get(name, ""), tuple(default),
+                           minimum)
+
+
+@functools.lru_cache(maxsize=64)
+def _parse_int_list(name: str, raw: str, default: tuple[int, ...],
+                    minimum: int) -> tuple[int, ...]:
+    if not raw.strip():
+        return default
+    try:
+        vs = tuple(int(x) for x in raw.split(","))
+    except ValueError:
+        print(f"pluss_torch: ignoring malformed {name}={raw!r}; using the "
+              f"default {','.join(map(str, default))}", file=sys.stderr)
+        return default
+    if not vs or any(v < minimum for v in vs) \
+            or any(a >= b for a, b in zip(vs, vs[1:])):
+        print(f"pluss_torch: ignoring out-of-range {name}={raw!r} "
+              f"(elements must be >= {minimum} and strictly ascending); "
+              f"using the default {','.join(map(str, default))}",
+              file=sys.stderr)
+        return default
+    return vs
 
 
 @functools.lru_cache(maxsize=64)

@@ -576,3 +576,38 @@ def test_telemetry_on_off_is_bit_identical_on_the_card(tmp_path,
     assert r0.share_raw == r1.share_raw
     np.testing.assert_array_equal(t0.hist, t1.hist)
     assert counts[False] == counts[True] and min(counts[True]) > 0
+
+
+def cli_run(argv):
+    import contextlib
+    import io
+
+    from pluss_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.mark.parametrize("argv", [
+    ["predict", "mvt", "--n", "64", "--check", "--json"],
+    ["tune", "gemm", "--n", "32", "--check", "--json"],
+])
+def test_analysis_check_on_the_card_matches_the_cpu(cuda_device, argv):
+    """``predict --check`` and ``tune --check`` run the engine on the card
+    (kernel 1 in mvt's sort windows) and print the document the same
+    command prints with ``--cpu``."""
+    from pluss_torch import engine
+
+    event_histogram.launches = 0
+    d0 = engine.DEVICE_DISPATCHES
+    rc, card, err = cli_run(argv)
+    launches = event_histogram.launches
+    assert rc == 0, err
+    assert engine.DEVICE_DISPATCHES == d0 + 1
+    assert "bit-identical" in err
+    rc, cpu, _ = cli_run(argv + ["--cpu"])
+    assert rc == 0 and card == cpu
+    if argv[1] == "mvt":
+        assert launches > 0

@@ -10,6 +10,7 @@ below its banner and write the same MRC CSV, byte for byte; ``sample
 
 import contextlib
 import io
+import json
 import os
 import subprocess
 import sys
@@ -247,3 +248,204 @@ def test_stats_and_telemetry_run_with_jax_and_pluss_blocked(tmp_path):
         with contextlib.redirect_stdout(buf):
             assert jax_cli.main(argv) == 0
         assert buf.getvalue() == got
+
+
+# --- the static analysis modes ------------------------------------------------
+
+def run_cli(main, argv):
+    """(rc, stdout, stderr) of one in-process CLI call; a usage error is
+    ``("exit", code)``."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = ("exit", e.code)
+    return rc, out.getvalue(), err.getvalue()
+
+
+ANALYSIS_CASES = [
+    ["lint", "--all"],
+    ["lint", "--all", "--json"],
+    ["lint", "--model", "lu", "--n", "16"],
+    *(["analyze", "--model", m, "--n", "16", *j]
+      for m in ("gemm", "mvt", "syrk", "cholesky", "seidel2d")
+      for j in ([], ["--json"])),
+    ["analyze", "--model", "syrk", "--n", "16", "--cache-levels",
+     "32:512:2560", "--assoc", "8", "--threads", "2"],
+    ["predict", "--all", "--n", "16"],
+    ["predict", "--all", "--n", "16", "--json"],
+    ["predict", "gemm", "--n", "16", "--check", "--cpu"],
+    ["predict", "mvt", "--n", "16", "--check", "--cpu", "--json"],
+    ["cotenancy", "gemm+syrk", "--n", "16", "--check"],
+    ["cotenancy", "gemm+syrk+mvt", "--n", "16", "--json",
+     "--cache-kb", "16"],
+    ["tune", "gemm", "--n", "16", "--check", "--cpu"],
+    ["tune", "mvt", "--n", "16", "--json", "--window", "64"],
+    ["tune", "syrk", "--n", "16", "--sweep-threads", "2,4",
+     "--sweep-chunks", "2,8"],
+    ["spec", "dump", "gemm"],
+    ["spec", "dump", "cholesky", "--n", "16"],
+]
+
+
+@pytest.mark.parametrize("argv", ANALYSIS_CASES, ids=" ".join)
+def test_analysis_modes_match_jax_cli(argv):
+    want = run_cli(jax_cli.main, argv)
+    got = run_cli(cli.main, argv)
+    assert got[:2] == want[:2]
+    assert got[1]
+
+
+@pytest.mark.parametrize("mode", [["predict", "--all", "--n", "16"],
+                                  ["lint", "--all"],
+                                  ["analyze", "--model", "lu", "--n", "16"],
+                                  ["tune", "gemm", "--n", "16"],
+                                  ["cotenancy", "gemm+syrk", "--n", "16"]])
+def test_sarif_logs_match_jax_cli(mode, tmp_path):
+    from pluss_torch.analysis import sarif
+
+    mine, ref = tmp_path / "t.sarif", tmp_path / "j.sarif"
+    run_cli(jax_cli.main, mode + ["--sarif", str(ref)])
+    rc, _, err = run_cli(cli.main, mode + ["--sarif", str(mine)])
+    assert rc == 0 and "SARIF log at" in err
+    assert mine.read_text() == ref.read_text()
+    assert sarif.validate(json.loads(mine.read_text())) == []
+
+
+def test_cotenancy_refusal_matches_jax_cli(monkeypatch):
+    monkeypatch.setenv("PLUSS_PREDICT_BUDGET", "20000")
+    argv = ["cotenancy", "gemm+lu", "--n", "16", "--check"]
+    want = run_cli(jax_cli.main, argv)
+    got = run_cli(cli.main, argv)
+    assert got[:2] == want[:2]
+    assert got[0] == 1 and "PL803" in got[1]
+
+
+def test_spec_load_matches_jax_cli(tmp_path):
+    path = tmp_path / "gemm.json"
+    rc, text, _ = run_cli(cli.main, ["spec", "dump", "gemm", "--n", "16"])
+    path.write_text(text)
+    argv = ["spec", "load", str(path)]
+    assert run_cli(cli.main, argv)[:2] == run_cli(jax_cli.main, argv)[:2]
+    want = run_cli(jax_cli.main, argv + ["--run", "--cpu"])
+    got = run_cli(cli.main, argv + ["--run", "--cpu"])
+    assert got[0] == want[0] == 0
+    assert got[1].startswith("TORCH CPU IMPORT gemm16: ")
+    assert want[1].startswith("TPU IMPORT gemm16: ")
+    assert got[1].splitlines()[1:] == want[1].splitlines()[1:]
+    # and the loaded spec's block is the acc block of the same model
+    acc = run_cli(cli.main, ["acc", "--cpu", "--model", "gemm", "--n", "16"])
+    assert got[1].splitlines()[1:] == acc[1].splitlines()[1:]
+
+
+@pytest.mark.parametrize("text", ["{not json", '{"name": "x"}'])
+def test_spec_load_refusal_matches_jax_cli(text, tmp_path):
+    path = tmp_path / "bad.json"
+    path.write_text(text)
+    for argv in (["spec", "load", str(path)],
+                 ["spec", "load", str(tmp_path / "missing.json")]):
+        want = run_cli(jax_cli.main, argv)
+        got = run_cli(cli.main, argv)
+        assert got[0] == want[0] == 1 and got[1] == want[1] == ""
+        assert got[2].split(": ", 1)[1] == want[2].split(": ", 1)[1]
+
+
+@pytest.mark.parametrize("mode", ["acc", "mrc", "sample"])
+def test_verify_matches_jax_cli(mode, tmp_path):
+    extra = {"acc": [], "mrc": ["--out", str(tmp_path / "m.csv")],
+             "sample": ["--rates", "1.0"]}[mode]
+    argv = [mode, "--cpu", "--verify", "--model", "trmm", "--n", "16",
+            *extra]
+    want = run_cli(jax_cli.main, argv + ["--backends", "vmap"])
+    got = run_cli(cli.main, argv)
+    assert got[0] == want[0] == 0
+    if mode == "acc":
+        assert body(got[1]) == body(want[1])
+    else:
+        assert got[1] == want[1]
+    # the analyzer's findings go to stderr, as in the JAX CLI
+    findings = [l for l in want[2].splitlines() if "[PL" in l]
+    assert findings and [l for l in got[2].splitlines()
+                         if "[PL" in l] == findings
+
+
+def test_verify_refuses_a_spec_with_errors(monkeypatch):
+    from pluss_torch import analysis
+    from pluss_torch.analysis.diagnostics import Diagnostic, Severity
+
+    def broken(spec, cfg):
+        return [Diagnostic("PL101", Severity.ERROR, "out of bounds")], None
+
+    monkeypatch.setattr(analysis, "analyze_spec", broken)
+    monkeypatch.setattr(cli.engine, "run", lambda *a, **k: pytest.fail(
+        "--verify let a refused spec run"))
+    rc, out, err = run_cli(cli.main, ["acc", "--cpu", "--verify", "--n",
+                                      "8"])
+    assert rc == 2 and out == ""
+    assert "refusing to run" in err and "PL101" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["lint", "gemm"], ["analyze", "gemm"], ["acc", "gemm"],
+    ["trace", "t.bin"], ["lint", "--all", "x", "y"],
+    ["predict", "nosuch"], ["predict", "gemm", "--all"],
+    ["tune", "nosuch"], ["tune", "gemm", "--sweep-threads", "a"],
+    ["cotenancy"], ["cotenancy", "gemm"], ["cotenancy", "gemm+"],
+    ["cotenancy", "gemm+nosuch"],
+    ["cotenancy", "gemm+syrk", "--cache-kb", "64", "--cache-levels", "32"],
+    ["spec"], ["spec", "show"], ["spec", "dump"], ["spec", "dump", "nosuch"],
+    ["spec", "load"],
+])
+def test_usage_errors_match_jax_cli(argv):
+    want = run_cli(jax_cli.main, argv)
+    got = run_cli(cli.main, argv)
+    assert got[0] == want[0] == ("exit", 2)
+    want_err = want[2].splitlines()[-1].split(": error: ", 1)[1]
+    got_err = got[2].splitlines()[-1].split(": error: ", 1)[1]
+    if "positional input is for" in want_err:
+        # the port has no import/transform modes yet: same error, its
+        # own list of the modes that take a positional
+        assert got_err.split(" (")[0] == want_err.split(" (")[0]
+        assert "stats/spec/predict/cotenancy/tune" in got_err
+    else:
+        assert got_err == want_err
+
+
+def test_host_modes_need_no_card(monkeypatch, tmp_path):
+    """The analysis modes run with no card and no --cpu; the engine runs
+    of ``--check`` and ``spec load --run`` stop instead of moving to the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(cli.engine, "run", lambda *a, **k: pytest.fail(
+        "a host mode ran the engine"))
+    path = tmp_path / "s.json"
+    for argv in (["lint", "--all"], ["analyze", "--n", "16"],
+                 ["predict", "gemm", "--n", "16"],
+                 ["cotenancy", "gemm+syrk", "--n", "16", "--check"],
+                 ["tune", "gemm", "--n", "16"],
+                 ["spec", "dump", "gemm", "--n", "16"],
+                 ["spec", "load", str(path)]):
+        rc, out, _ = run_cli(cli.main, argv)
+        assert rc == 0, argv
+        if argv[:2] == ["spec", "dump"]:
+            path.write_text(out)
+    for argv in (["predict", "gemm", "--n", "16", "--check"],
+                 ["tune", "gemm", "--n", "16", "--check"],
+                 ["spec", "load", str(path), "--run"]):
+        rc, out, err = run_cli(cli.main, argv)
+        assert rc == ("exit", 2) and out == "", argv
+        assert "no CUDA device" in err
+
+
+def test_analysis_modes_run_with_jax_and_pluss_blocked(capsys):
+    for argv in (["predict", "--all", "--n", "16"], ["lint", "--all"]):
+        code = ("import runpy, sys; sys.modules['jax'] = None; "
+                "sys.modules['pluss'] = None; "
+                f"sys.argv = {['pluss_torch.cli', *argv]!r}; "
+                "runpy.run_module('pluss_torch.cli', run_name='__main__')")
+        run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert run.returncode == 0, run.stderr
+        assert jax_cli.main(argv) == 0
+        assert run.stdout == capsys.readouterr().out

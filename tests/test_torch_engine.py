@@ -218,3 +218,15 @@ def test_port_imports_no_jax_and_no_pluss():
             "pluss_torch/obs/stats.py", "pluss_torch/obs/xprof.py",
             "pluss_torch/utils/__init__.py",
             "pluss_torch/utils/envknob.py"} <= scanned
+    # the static analysis and the cache model: all of the JAX package's
+    # analysis but transform.py, and its model package
+    analysis = {f"pluss_torch/analysis/{m}.py" for m in (
+        "__init__", "bounds", "contract", "deps", "depvec", "diagnostics",
+        "falseshare", "footprint", "interference", "polycount", "ri",
+        "sarif", "schedule", "sharespan", "tune", "walk")}
+    model = {"pluss_torch/model/__init__.py",
+             "pluss_torch/model/hierarchy.py"}
+    assert analysis | model <= scanned
+    assert {p for p in scanned if p.startswith(("pluss_torch/analysis/",
+                                                "pluss_torch/model/"))} \
+        == analysis | model
