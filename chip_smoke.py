@@ -8,9 +8,10 @@ Drives ``pluss_torch``'s two main paths on the card — the sampler
 block; with its overlays, sliced runs and ``sampling.sampled_run``) and
 the trace replay (``trace.replay_file`` -> the ``trace`` block, streamed
 and through the residency store; ``pack_file`` -> ``stage_resident`` ->
-``replay_staged``) — and the static analysis modes, whose cross-checks
-run the sampler there, and holds every kernel of those paths against its
-plain torch version.  Each phase prints one JSON line; any failed check
+``replay_staged``) — the static analysis modes, whose cross-checks run
+the sampler there, and the authoring and transform modes, whose specs
+run there, and holds every kernel of those paths against its plain torch
+version.  Each phase prints one JSON line; any failed check
 raises, so the script exits non-zero and prints no result line.  Phases:
 
 1. build: compile the three kernels from ``pluss_torch/csrc`` with one
@@ -123,12 +124,32 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     ``cotenancy gemm+syrk --n 16 --check`` as host work, and ``spec dump
     gemm`` then ``spec load <file> --run``, whose block below the banner
     is phase 16's ``acc`` block;
-23. the kernels line, the card's name and power limit, and the result line.
+23. frontend: the authoring and transform modes (``pluss_torch.frontend``,
+    ``pluss_torch.analysis.transform``): (a) the pragma-C GEMM source at
+    ``#define N 1024`` through ``cli import --run --check-model gemm``,
+    byte-identical to the registry model and, below the banner, to phase
+    6's block (template path, no kernel-1 launch); (b) cholesky-2000
+    emitted as DSL (a file whose first line is ``from pluss import
+    frontend``), imported codec-equal to the registry spec, and run once
+    on the card: equal bit for bit to phase 8's run, int64 positions, 125
+    launches; mvt-4000 emitted likewise through ``cli import --run
+    --check-model mvt``, equal to phase 7's block (4 launches a run); (c)
+    the PolyBench corpus (``frontend.polybench``, five families),
+    analyzer-clean, each on the card and the CPU, exactly, conserving its
+    accesses; (d) ``cli transform gemm --n 256`` with ``--interchange
+    0,2`` and with ``--tile 0:32,1:32,2:32``, each ``--check --json``:
+    the card's engine run of the transformed spec bit-identical to its
+    host prediction; ``cli tune gemm --transforms --n 64 --cache-kb 1
+    --check`` (a tiled winner, its engine run verified); and ``transform
+    seidel2d --n 16 --interchange 0,1 --check``, refused with PL952 with
+    no dispatch, no launch and no device allocation;
+24. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
 (phases 5-16, 17-18's first replay, phase 19's staging, first staged
 replay, legacy scan, stage-through and hit, every run of phases 20-21,
-and phase 22's ``--check``, engine and ``spec load --run`` runs)
+phase 22's ``--check``, engine and ``spec load --run`` runs, and phase
+23's ``import``, engine, corpus, ``transform`` and ``tune`` runs)
 and read just after it: the
 event kernel must launch once per plan window that sorts something (0 for
 GEMM and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
@@ -825,12 +846,16 @@ def main() -> int:
                          mc["peak_device_gib"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del resc, rest
+    del rest
 
     # 22. the static analysis modes and their engine cross-checks
     analysis_phase(cfg, by_path, sort_windows, lines)
 
-    # 23. kernels line, card, result -----------------------------------------
+    # 23. the authoring and transform modes, their specs on the card
+    frontend_phase(cfg, by_path, sort_windows, conserved, res1k, resm, resc)
+    del resc
+
+    # 24. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
@@ -1529,6 +1554,63 @@ def resilience_phase(tmp: str, cfg, by_path: dict, resm, rest, resc,
     emit({"phase": "resilience", **out, "ok": True})
 
 
+def cli_call(argv):
+    """(rc, stdout, stderr) of one in-process ``pluss_torch.cli`` call; a
+    usage error comes back as its exit code, which the checks refuse."""
+    from pluss_torch import cli
+
+    o, e = io.StringIO(), io.StringIO()
+    saved = sys.stdout, sys.stderr
+    sys.stdout, sys.stderr = o, e
+    try:
+        rc = cli.main(argv)
+    except SystemExit as x:
+        rc = x.code
+    finally:
+        sys.stdout, sys.stderr = saved
+    return rc, o.getvalue(), e.getvalue()
+
+
+def host_only_call(out: dict, label: str, argv, rc_want: int = 0):
+    """One CLI call that must touch no device: no dispatch, no kernel
+    launch, no device allocation; its seconds and counts go to
+    ``out[label]``."""
+    import torch
+
+    from pluss_torch import engine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0, d0 = torch.cuda.memory_allocated(), engine.DEVICE_DISPATCHES
+    t0 = time.perf_counter()
+    (rc, so, se), counts = counted(lambda: cli_call(argv))
+    dt = time.perf_counter() - t0
+    check(rc == rc_want, f"{label}: rc {rc}: {se[-2000:]}")
+    check(engine.DEVICE_DISPATCHES == d0 and not any(counts.values()),
+          f"{label}: host mode dispatched ({counts})")
+    check(torch.cuda.memory_allocated() == mem0
+          and torch.cuda.max_memory_allocated() == mem0,
+          f"{label}: host mode allocated device memory")
+    out[label] = {"seconds": dt, "dispatches": 0, "launches": counts}
+    return so, se
+
+
+def predict_and_engine_s(ev: str, label: str) -> tuple[float, float]:
+    """Seconds of the host prediction (the one ``ri.derive`` span) and of
+    the engine run after it (the ``engine.*`` spans, first start to last
+    end) in one call's telemetry stream."""
+    with open(ev) as f:
+        spans = [r for r in map(json.loads, f) if r.get("ev") == "span"]
+    derive = [r for r in spans if r["name"] == "ri.derive"]
+    eng = [r for r in spans if r["name"].startswith("engine.")]
+    check(len(derive) == 1 and eng, f"{label}: spans {len(spans)}")
+    host_s = derive[0]["dur"]
+    engine_s = max(r["t"] + r["dur"] for r in eng) - min(r["t"] for r in eng)
+    check(derive[0]["t"] + host_s <= min(r["t"] for r in eng),
+          f"{label}: the prediction overlapped the engine run")
+    return host_s, engine_s
+
+
 def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
     """Phase 22: the static analysis modes (:mod:`pluss_torch.analysis`,
     ``cli lint|analyze|predict|cotenancy|tune|spec``) with their engine
@@ -1537,46 +1619,15 @@ def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
     kernel's launch count and the card's allocated memory where they
     were; only ``--check``, ``tune --check`` and ``spec load --run`` run
     the engine, on the card."""
-    import torch
-
-    from pluss_torch import cli, engine, obs
+    from pluss_torch import engine, obs
     from pluss_torch.config import SamplerConfig
     from pluss_torch.models import REGISTRY, mvt
 
     out: dict = {}
     t_phase = time.perf_counter()
 
-    def cli_call(argv):
-        """(rc, stdout, stderr) of one in-process CLI call; a usage error
-        comes back as its exit code, which the checks refuse."""
-        o, e = io.StringIO(), io.StringIO()
-        saved = sys.stdout, sys.stderr
-        sys.stdout, sys.stderr = o, e
-        try:
-            rc = cli.main(argv)
-        except SystemExit as x:
-            rc = x.code
-        finally:
-            sys.stdout, sys.stderr = saved
-        return rc, o.getvalue(), e.getvalue()
-
     def host_only(label, argv):
-        """One CLI call that must touch no device: no dispatch, no kernel
-        launch, no device allocation."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mem0, d0 = torch.cuda.memory_allocated(), engine.DEVICE_DISPATCHES
-        t0 = time.perf_counter()
-        (rc, so, se), counts = counted(lambda: cli_call(argv))
-        dt = time.perf_counter() - t0
-        check(rc == 0, f"{label}: rc {rc}: {se[-2000:]}")
-        check(engine.DEVICE_DISPATCHES == d0 and not any(counts.values()),
-              f"{label}: host mode dispatched ({counts})")
-        check(torch.cuda.memory_allocated() == mem0
-              and torch.cuda.max_memory_allocated() == mem0,
-              f"{label}: host mode allocated device memory")
-        out[label] = {"seconds": dt, "dispatches": 0, "launches": counts}
-        return so, se
+        return host_only_call(out, label, argv)
 
     # (a) every family at n=16: the prediction alone (host), the same
     # command with --cpu, then --check on the card against --check --cpu
@@ -1640,16 +1691,7 @@ def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
         check(counts == by_path[path] and dispatches <= 1,
               f"{label}: launches {counts}, phase {path}: "
               f"{by_path[path]}; {dispatches} dispatches")
-        with open(ev) as f:
-            spans = [r for r in map(json.loads, f) if r.get("ev") == "span"]
-        derive = [r for r in spans if r["name"] == "ri.derive"]
-        eng = [r for r in spans if r["name"].startswith("engine.")]
-        check(len(derive) == 1 and eng, f"{label}: spans {len(spans)}")
-        host_s = derive[0]["dur"]
-        engine_s = max(r["t"] + r["dur"] for r in eng) \
-            - min(r["t"] for r in eng)
-        check(derive[0]["t"] + host_s <= min(r["t"] for r in eng),
-              f"{label}: the prediction overlapped the engine run")
+        host_s, engine_s = predict_and_engine_s(ev, label)
         mrc_v = "bit-identical" if detail["mrc_exact"] \
             else f"l2={detail['mrc_l2_error']:.2e}"
         print(f"analysis predict {label}: {d['method']}, "
@@ -1737,6 +1779,214 @@ def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
                                 "equals_acc": True}
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "analysis", **out, "ok": True})
+
+
+def block_of(res, cfg, label: str) -> list[str]:
+    """The lines of an ``acc`` block of ``res`` (its banner line aside,
+    what ``cli acc`` and ``cli import --run`` print for that run)."""
+    from pluss_torch import cri
+    from pluss_torch.io import acc_block
+
+    ri = cri.distribute(res.noshare_list(), res.share_list(), cfg.thread_num)
+    buf = io.StringIO()
+    acc_block(label, 0.0, res.noshare_list(), res.share_list(), ri,
+              res.max_iteration_count, buf)
+    return buf.getvalue().splitlines()
+
+
+def frontend_phase(cfg, by_path: dict, sort_windows, conserved, res1k, resm,
+                   resc) -> None:
+    """Phase 23: the authoring and transform modes (``cli import``,
+    ``cli transform``, ``cli tune --transforms``, ``pluss_torch.frontend``)
+    with the specs they derive run on the card: (a) pragma-C GEMM-1024,
+    (b) cholesky-2000 and mvt-4000 from DSL, (c) the PolyBench corpus,
+    (d) the transforms, each against the earlier phases' runs of the same
+    models, the CPU or the host prediction."""
+    import numpy as np
+
+    from pluss_torch import engine, frontend, obs, spec_codec
+    from pluss_torch.analysis import transform as tf
+    from pluss_torch.config import SamplerConfig
+    from pluss_torch.frontend import polybench
+    from pluss_torch.models import cholesky, gemm, mvt
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pluss_torch_frontend_")
+
+    def imported_run(label, path, model, n, want_res, launches_per_run):
+        """``cli import <path> --run --check-model <model> --n <n>``: the
+        imported spec's block below the banner equals the registry model's
+        earlier run, the gate says byte-identical, and each of its three
+        engine runs (the model, the warm-up, the timed run) launches
+        kernel 1 ``launches_per_run`` times."""
+        t0 = time.perf_counter()
+        (rc, block, err), counts = counted(lambda: cli_call(
+            ["import", path, "--run", "--check-model", model, "--n",
+             str(n)]))
+        dt = time.perf_counter() - t0
+        by_path[f"import_{label}"] = counts
+        lines = block.splitlines()
+        name = os.path.splitext(os.path.basename(path))[0]
+        check(rc == 0 and f"byte-identical to registry {model}({n})" in err,
+              f"import {label}: rc {rc}: {err[-2000:]}")
+        check(lines[0].startswith(f"TORCH CUDA IMPORT {name}: ")
+              and lines[1:] == block_of(want_res, cfg, label)[1:],
+              f"import {label}: block != the registry run's")
+        check(counts["carried_event_hist"] == 3 * launches_per_run,
+              f"import {label}: launches {counts}")
+        out[f"import_{label}"] = {"seconds": dt, "launches": counts,
+                                  "runs": 3, "byte_identical": True}
+
+    try:
+        # (a) pragma-C GEMM at N=1024: the template path, no launch
+        with open(polybench.gemm_source_path()) as f:
+            src = f.read()
+        check("#define N 128\n" in src, "gemm.ppcg_omp.c lost its define")
+        path = os.path.join(tmp, "gemm1024.c")
+        with open(path, "w") as f:
+            f.write(src.replace("#define N 128\n", "#define N 1024\n"))
+        imported_run("gemm1024_c", path, "gemm", 1024, res1k, 0)
+
+        # (b) DSL at full width: cholesky-2000 through import_path and one
+        # engine run, mvt-4000 through the CLI
+        def dsl_file(spec, stem):
+            text = frontend.emit_dsl(spec).split("\n", 1)[1]
+            check(text.startswith("from pluss import frontend\n"),
+                  "emit_dsl no longer imports the JAX package's name")
+            p = os.path.join(tmp, f"{stem}.py")
+            with open(p, "w") as f:
+                f.write(text)
+            return p
+
+        spec = cholesky(2000)
+        path = dsl_file(spec, "cholesky2000")
+        t0 = time.perf_counter()
+        (dspec, _), = frontend.import_path(path)
+        import_s = time.perf_counter() - t0
+        check(spec_codec.specs_equal(dspec, spec),
+              "cholesky2000 from DSL != the registry spec")
+        check(engine.plan(dspec, cfg).pos_dtype == np.int64,
+              "cholesky2000 from DSL: positions not int64")
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: engine.run(dspec, cfg))
+        engine_s = time.perf_counter() - t0
+        by_path["dsl_cholesky2000"] = counts
+        check(same_result(res, resc) and conserved(res),
+              "cholesky2000 from DSL != phase 8's run")
+        check(counts["carried_event_hist"] == 125,
+              f"cholesky2000 from DSL: launches {counts}")
+        del res
+        out["dsl_cholesky2000"] = {"import_s": import_s,
+                                   "engine_s": engine_s,
+                                   "pos_dtype": "int64", "launches": counts,
+                                   "equals_phase8": True}
+        imported_run("mvt4000_dsl", dsl_file(mvt(4000), "mvt4000"), "mvt",
+                     4000, resm, 4)
+
+        # (c) the PolyBench corpus: every family on the card and the CPU
+        t0 = time.perf_counter()
+        corpus = polybench.import_polybench()
+        out["corpus_import_s"] = time.perf_counter() - t0
+        check(sorted(corpus) == sorted(polybench.FAMILIES),
+              f"corpus families {sorted(corpus)}")
+        fams = {}
+        for fam, sp in sorted(corpus.items()):
+            on_card, counts = counted(lambda: engine.run(sp, cfg))
+            on_cpu = engine.run(sp, cfg, device="cpu")
+            by_path[f"corpus_{fam}"] = counts
+            want = sort_windows(engine.plan(sp, cfg))
+            check(same_result(on_card, on_cpu) and conserved(on_card),
+                  f"corpus {fam}: card != CPU")
+            check(counts["carried_event_hist"] == want,
+                  f"corpus {fam}: launches {counts}, {want} sort windows")
+            fams[fam] = {"refs": on_card.max_iteration_count,
+                         "launches": counts["carried_event_hist"]}
+        out["corpus"] = fams
+
+        # (d) transforms of GEMM-256, checked on the card against the host
+        # prediction of the transformed spec
+        for label, flag in (("interchange02", ["--interchange", "0,2"]),
+                            ("tile32", ["--tile", "0:32,1:32,2:32"])):
+            ev = os.path.join(tmp, f"{label}.jsonl")
+            t0 = time.perf_counter()
+            try:
+                (rc, so, err), counts = counted(lambda: cli_call(
+                    ["transform", "gemm", "--n", "256", *flag, "--check",
+                     "--json", "--telemetry", ev]))
+            finally:
+                obs.shutdown()
+            dt = time.perf_counter() - t0
+            by_path[f"transform_gemm256_{label}"] = counts
+            doc = json.loads(so) if rc == 0 else {}
+            detail = doc.get("check", {})
+            check(rc == 0 and doc["verdict"] == "PL951"
+                  and detail.get("histogram_identical") is True
+                  and "verified against engine.run" in err,
+                  f"transform {label}: rc {rc}: {err[-2000:]}")
+            tspec = spec_codec.spec_from_json(doc["spec"])
+            want = sort_windows(engine.plan(tspec, cfg))
+            check(counts["carried_event_hist"] == want,
+                  f"transform {label}: launches {counts}, {want} windows")
+            host_s, engine_s = predict_and_engine_s(ev, label)
+            out[f"transform_gemm256_{label}"] = {
+                "spec": tspec.name, "seconds": dt, "host_predict_s": host_s,
+                "card_engine_s": engine_s, "histogram_identical": True,
+                "mrc_exact": detail["mrc_exact"], "launches": counts}
+            print(f"frontend transform gemm256 {label}: {tspec.name}, host "
+                  f"predict {host_s:.3f} s, card engine {engine_s:.3f} s, "
+                  f"histograms bit-identical; kernel-1 launches "
+                  f"{counts['carried_event_hist']}", flush=True)
+        ev = os.path.join(tmp, "tune.jsonl")
+        t0 = time.perf_counter()
+        try:
+            (rc, so, err), counts = counted(lambda: cli_call(
+                ["tune", "gemm", "--transforms", "--n", "64", "--cache-kb",
+                 "1", "--check", "--json", "--telemetry", ev]))
+        finally:
+            obs.shutdown()
+        dt = time.perf_counter() - t0
+        by_path["tune_transforms_gemm64"] = counts
+        doc = json.loads(so) if rc == 0 else {}
+        check(rc == 0 and doc.get("check", {}).get("histogram_identical")
+              and "transformed winner" in err
+              and "verified against engine.run" in err,
+              f"tune --transforms: rc {rc}: {err[-2000:]}")
+        best = doc["best_transform"]
+        check(best.startswith("tile(") and best.endswith(")"),
+              f"tune --transforms: the winner {best} is no tiling")
+        w = doc["best"]["tune"]["winner"]
+        wcfg = SamplerConfig(thread_num=w["threads"], chunk_size=w["chunk"])
+        wspec = tf.tile(gemm(64), tf.parse_tile(best[5:-1])).spec
+        want = sort_windows(engine.plan(wspec, wcfg,
+                                        window_accesses=w["window"]))
+        check(counts["carried_event_hist"] == want,
+              f"tune --transforms: launches {counts}, {want} windows")
+        with open(ev) as f:
+            eng = [r for r in map(json.loads, f) if r.get("ev") == "span"
+                   and r["name"].startswith("engine.")]
+        engine_s = max(r["t"] + r["dur"] for r in eng) \
+            - min(r["t"] for r in eng)
+        out["tune_transforms_gemm64"] = {
+            "best": best, "delta": doc["delta"], "seconds": dt,
+            "search_s": dt - engine_s, "card_engine_s": engine_s,
+            "launches": counts}
+        print(f"frontend tune --transforms gemm64 at 1 KB: {best} + "
+              f"threads={w['threads']} chunk={w['chunk']}, delta "
+              f"{doc['delta']:+.6g}; host search {dt - engine_s:.3f} s, "
+              f"card engine {engine_s:.3f} s; kernel-1 launches "
+              f"{counts['carried_event_hist']}", flush=True)
+        so, err = host_only_call(out, "transform_seidel2d16_refused", [
+            "transform", "seidel2d", "--n", "16", "--interchange", "0,1",
+            "--check", "--json"], rc_want=1)
+        check(json.loads(so)["verdict"] == "PL952"
+              and "check skipped (PL952" in err,
+              f"seidel2d interchange not refused: {so[:500]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"frontend phase: {out['seconds']:.3f} s", flush=True)
+    emit({"phase": "frontend", **out, "ok": True})
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The port's CLI: the reference's run modes plus the static analysis modes.
+"""The port's CLI: the reference's run modes, the static analysis modes and
+the authoring and transform modes.
 
     python -m pluss_torch.cli acc --model gemm --n 1024      # on the CUDA card
     python -m pluss_torch.cli acc --cpu --model gemm --n 16  # on the host
@@ -9,6 +10,8 @@
     python -m pluss_torch.cli lint --all
     python -m pluss_torch.cli predict --all --n 16 --check   # on the card
     python -m pluss_torch.cli tune mvt --n 1000 --check --cpu
+    python -m pluss_torch.cli import nest.c --run --cpu
+    python -m pluss_torch.cli transform gemm --interchange 0,2 --json
 
 - ``acc``: one timed run; prints the reference's block (timing banner, the
   three histogram dumps, "max iteration traversed").  Below the banner the
@@ -49,15 +52,33 @@
 - ``tune <model>|--all``: the static schedule search
   (:mod:`pluss_torch.analysis.tune`) over ``--sweep-threads`` x
   ``--sweep-chunks``; ``--check`` runs the winner on the engine.
+- ``tune <model> --transforms``: the same search over every proven-legal
+  transform of the model (:mod:`pluss_torch.analysis.transform`); the best
+  (transform, schedule) pair with its static MRC delta against the
+  untransformed winner.
 - ``spec dump <model>`` / ``spec load <file.json> [--run]``: the spec
   codec; ``--run`` prints the ``acc`` block of the loaded spec.
+- ``import <file.py|file.c>``: derive specs from DSL or pragma-C source
+  (:mod:`pluss_torch.frontend`) through the analyzer gate (``--verify``:
+  the schedule-aware one); ``--json`` prints them, ``--register`` writes
+  them to ``--registry-dir`` (``PLUSS_SPEC_DIR`` serves that directory
+  as models), ``--predict`` prints their static predictions, ``--run``
+  their ``acc`` blocks, and ``--check-model M`` requires the histograms
+  and the MRC byte-identical to the registry model ``M`` at ``--n``.
+- ``transform <model>`` with exactly one of ``--interchange A,B``,
+  ``--tile L:S,...`` or ``--fuse A+B``: the legality proof (PL951 legal,
+  PL952 illegal with the violating pair, PL953 refused) and the
+  transformed spec (``--json``, ``--sarif``, ``--register``);
+  ``--check`` runs the transformed spec on the engine against its
+  static prediction.
 - ``--verify`` on ``acc``/``speed``/``mrc``/``sample``: the
   schedule-aware analysis first; an ERROR stops the run (exit 2).
 
 Below the banner, every block, JSON document and SARIF file of these modes
 is byte for byte what ``python -m pluss.cli`` prints for the same flags.
-They are host work: only ``predict --check``, ``tune --check`` and ``spec
-load --run`` touch a device, the CUDA card unless ``--cpu`` is given.
+They are host work: only ``predict --check``, ``tune --check``, ``spec
+load --run``, ``import --run|--check-model`` and ``transform --check``
+touch a device, the CUDA card unless ``--cpu`` is given.
 
 ``--telemetry PATH`` (or ``PLUSS_TELEMETRY``) writes the run's spans,
 counters, gauges and events to PATH as JSONL
@@ -73,6 +94,7 @@ with no card and no ``--cpu`` the CLI stops.
 from __future__ import annotations
 
 import argparse
+import os
 import resource
 import sys
 import time
@@ -115,21 +137,23 @@ def main(argv: list[str] | None = None) -> int:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("mode", choices=("acc", "speed", "mrc", "sample", "trace",
                                     "stats", "lint", "analyze", "predict",
-                                    "cotenancy", "tune", "spec"))
+                                    "cotenancy", "tune", "transform",
+                                    "import", "spec"))
     p.add_argument("target", nargs="?", default=None,
                    help="stats mode: the telemetry event stream "
-                        "(events.jsonl) to aggregate; spec mode: dump | "
-                        "load; predict/tune mode: the model; cotenancy "
-                        "mode: the co-scheduled workloads as "
-                        "modelA+modelB[+...]")
+                        "(events.jsonl) to aggregate; import mode: the .py "
+                        "(DSL) or .c (pragma-C) source file; spec mode: "
+                        "dump | load; predict/tune/transform mode: the "
+                        "model; cotenancy mode: the co-scheduled workloads "
+                        "as modelA+modelB[+...]")
     p.add_argument("arg2", nargs="?", default=None,
                    help="spec mode: the model to dump / the spec JSON "
                         "file to load")
     p.add_argument("--check", action="store_true",
                    help="stats mode: validate the event stream against "
                         "the telemetry schema instead of rendering it "
-                        "(exit 1 on any violation); predict/tune mode: "
-                        "run the engine and require bit-identical "
+                        "(exit 1 on any violation); predict/tune/transform "
+                        "mode: run the engine and require bit-identical "
                         "histograms; cotenancy mode: hold the composition "
                         "against the host oracle")
     p.add_argument("--all", action="store_true",
@@ -147,8 +171,37 @@ def main(argv: list[str] | None = None) -> int:
                         "schedule-aware static analyzer first; ERROR "
                         "diagnostics stop the run")
     p.add_argument("--run", action="store_true",
-                   help="spec load mode: run the loaded spec on the "
+                   help="import / spec load mode: run the spec(s) on the "
                         "engine and print the acc block")
+    p.add_argument("--check-model", default=None, metavar="MODEL",
+                   help="import mode: also run the registry MODEL (at --n) "
+                        "and require histogram + MRC byte-identical to the "
+                        "imported spec's run (exit 1 on divergence)")
+    p.add_argument("--predict", action="store_true",
+                   help="import mode: the static MRC prediction of each "
+                        "imported spec (host work)")
+    p.add_argument("--register", action="store_true",
+                   help="import/transform mode: write each derived spec as "
+                        "codec JSON into --registry-dir; PLUSS_SPEC_DIR "
+                        "pointed there makes them registry models")
+    p.add_argument("--registry-dir", default=".pluss_registry",
+                   metavar="DIR",
+                   help="import/transform --register target directory "
+                        "(default .pluss_registry)")
+    p.add_argument("--interchange", metavar="A,B", default=None,
+                   help="transform mode: interchange band levels A and B "
+                        "of nest 0 (e.g. 0,2)")
+    p.add_argument("--tile", metavar="L:S,...", default=None,
+                   help="transform mode: tile loop level L with size S (a "
+                        "comma list tiles a contiguous band; each size "
+                        "must divide its trip; e.g. 0:8,1:8,2:8)")
+    p.add_argument("--fuse", metavar="A+B", default=None,
+                   help="transform mode: fuse adjacent top-level nests A "
+                        "and B (e.g. 0+1)")
+    p.add_argument("--transforms", action="store_true",
+                   help="tune mode: search the legal transform space too "
+                        "and report the best transformed schedule with its "
+                        "static MRC delta against the untransformed winner")
     p.add_argument("--cache-kb", type=int, default=None, metavar="KB",
                    help="analyze/cotenancy/tune mode: largest-cache "
                         "capacity in KB (default: the SamplerConfig "
@@ -228,12 +281,14 @@ def main(argv: list[str] | None = None) -> int:
     args = p.parse_args(argv)
 
     if args.target is not None and args.mode not in (
-            "stats", "spec", "predict", "cotenancy", "tune"):
+            "stats", "import", "spec", "predict", "cotenancy", "tune",
+            "transform"):
         # a stray positional stays a usage error (`lint gemm` would
         # otherwise lint the default model and report it clean)
         p.error(f"unexpected argument {args.target!r} for mode "
-                f"{args.mode!r} (positional input is for stats/spec/"
-                "predict/cotenancy/tune modes only; use --model/--file)")
+                f"{args.mode!r} (positional input is for stats/import/"
+                "spec/predict/cotenancy/tune/transform modes only; use "
+                "--model/--file)")
     if args.arg2 is not None and args.mode != "spec":
         p.error(f"unexpected argument {args.arg2!r} for mode "
                 f"{args.mode!r}")
@@ -708,6 +763,13 @@ def _tune_main(args, p, out, device_of) -> int:
         p.error("tune mode: malformed --sweep-threads/--sweep-chunks "
                 "(want comma-separated ints)")
     cands = tune_mod.space(ts, cks, (args.window,))
+    if args.transforms:
+        # (transform, schedule) pairs: one model at a time (the space is
+        # per spec)
+        if args.all:
+            p.error("tune mode: --transforms wants a single model, "
+                    "not --all")
+        return _tune_transforms(args, out, device_of, cands, hier)
     if args.all:
         targets = [(nm, REGISTRY[nm](args.n)) for nm in sorted(REGISTRY)]
     else:
@@ -761,6 +823,236 @@ def _tune_main(args, p, out, device_of) -> int:
                   f"{len(cands)} candidate(s) at "
                   f"{reports[0][2].target_kb} KB LLC: {n_best} "
                   f"proven-best, {n_tie} tie(s), {n_ref} refused\n")
+    return rc
+
+
+def _tune_transforms(args, out, device_of, cands, hier) -> int:
+    """``tune <model> --transforms``: the schedule search over every
+    proven-legal interchange, hierarchy-laddered tiling and fusion of the
+    model, and the best (transform, schedule) pair with its static MRC
+    delta against the untransformed winner.  ``--check`` runs the winning
+    TRANSFORMED spec once on the engine (the only device work here)."""
+    import json as json_mod
+
+    from pluss_torch.analysis import transform as tf
+    from pluss_torch.analysis import tune as tune_mod
+
+    spec = REGISTRY[args.model](args.n)
+    rep = tf.search_transforms(spec, candidates=cands, hier=hier)
+    doc = rep.doc()
+    all_diags = analysis.with_model(rep.diagnostics, spec.name)
+    rc = 1 if any(d.code == "PL903" for d in rep.diagnostics) else 0
+    if args.check and rep.best is not None:
+        ok, detail, diags = tune_mod.check_winner(
+            rep.best.transform.spec, rep.best.tune, device=device_of())
+        doc["check"] = detail
+        all_diags += analysis.with_model(diags, spec.name)
+        if not ok:
+            rc = 1
+            print(f"pluss_torch tune: {spec.name}: transformed winner "
+                  f"CHECK FAILED (PL904) {detail}", file=sys.stderr)
+        else:
+            print(f"pluss_torch tune: {spec.name}: transformed winner "
+                  f"{rep.best.transform.label()} + "
+                  f"{rep.best.tune.winner.candidate.label()} verified "
+                  f"against engine.run (histograms bit-identical, MRC "
+                  f"{_mrc_kind(detail)})", file=sys.stderr)
+    elif args.check:
+        print(f"pluss_torch tune: {spec.name}: transform check skipped (no "
+              "transform beats the untransformed winner)", file=sys.stderr)
+    if args.sarif:
+        _write_sarif(args.sarif, all_diags, "tune")
+    if args.json:
+        out.write(json_mod.dumps(doc, indent=1) + "\n")
+    else:
+        for d in rep.diagnostics:
+            out.write(f"{spec.name}: [{d.code}] {d.message}\n")
+        if rep.best is not None:
+            out.write(f"pluss tune: {spec.name}: best transform "
+                      f"{rep.best.transform.label()} + "
+                      f"{rep.best.tune.winner.candidate.label()} "
+                      f"(predicted miss {rep.best.score():.6g}, delta "
+                      f"{rep.delta:+.6g}) at {rep.target_kb} KB LLC\n")
+        else:
+            out.write(f"pluss tune: {spec.name}: no transform beats "
+                      f"the untransformed winner at {rep.target_kb} KB "
+                      "LLC\n")
+    return rc
+
+
+def _write_registered(spec, registry_dir: str, mode: str) -> None:
+    """``--register``: the spec as codec JSON in ``registry_dir``."""
+    from pluss_torch import spec_codec
+
+    os.makedirs(registry_dir, exist_ok=True)
+    path = os.path.join(registry_dir, f"{spec.name}.json")
+    with open(path, "w") as f:
+        f.write(spec_codec.dump_spec(spec) + "\n")
+    print(f"pluss_torch {mode}: registered {spec.name} -> {path} "
+          f"(PLUSS_SPEC_DIR={registry_dir} serves it as a registry model)",
+          file=sys.stderr)
+
+
+def _transform_main(args, p, out, device_of) -> int:
+    """``transform <model> (--interchange A,B | --tile L:S,... | --fuse
+    A+B) [--json|--sarif|--check|--register]``: the legality proof and
+    the spec-to-spec rewrite (:mod:`pluss_torch.analysis.transform`).
+    Verdicts PL951 proven legal, PL952 proven illegal with the violating
+    pair, PL953 refused; rc 0 only on PL951.  ``--check`` runs the
+    TRANSFORMED spec once on the engine against its static prediction
+    (PL954 on disagreement)."""
+    import json as json_mod
+
+    from pluss_torch.analysis import transform as tf
+
+    if not args.target:
+        p.error("transform mode requires a model (e.g. `pluss "
+                "transform gemm --interchange 0,2`)")
+    if args.target not in REGISTRY:
+        p.error(f"transform mode: unknown model {args.target!r}")
+    picked = [f for f in (args.interchange, args.tile, args.fuse)
+              if f is not None]
+    if len(picked) != 1:
+        p.error("transform mode wants exactly one of "
+                "--interchange/--tile/--fuse")
+    spec = REGISTRY[args.target](args.n)
+    cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk)
+    try:
+        if args.interchange is not None:
+            a, b = tf.parse_interchange(args.interchange)
+            rep = tf.interchange(spec, a, b)
+        elif args.tile is not None:
+            rep = tf.tile(spec, tf.parse_tile(args.tile))
+        else:
+            na, nb = tf.parse_fuse(args.fuse)
+            rep = tf.fuse(spec, na, nb)
+    except ValueError as e:
+        p.error(f"transform mode: {e}")
+    doc = rep.doc()
+    diags = analysis.with_model(rep.diagnostics, spec.name)
+    rc = 0 if rep.code == "PL951" else 1
+    if args.check:
+        if rep.spec is None:
+            print(f"pluss_torch transform: {spec.name}: check skipped "
+                  f"({rep.code}: no transformed spec)", file=sys.stderr)
+        else:
+            ok, detail, cdiags = tf.check_transform(rep, cfg,
+                                                    device=device_of())
+            doc["check"] = detail
+            diags += analysis.with_model(cdiags, spec.name)
+            if detail.get("skipped"):
+                print(f"pluss_torch transform: {rep.spec.name}: check "
+                      f"skipped (prediction refused: {detail['codes']})",
+                      file=sys.stderr)
+            elif not ok:
+                rc = 1
+                print(f"pluss_torch transform: {rep.spec.name}: CHECK "
+                      f"FAILED (PL954) {detail}", file=sys.stderr)
+            else:
+                print(f"pluss_torch transform: {rep.spec.name}: verified "
+                      f"against engine.run (histograms bit-identical, MRC "
+                      f"{_mrc_kind(detail)})", file=sys.stderr)
+    if args.register and rep.spec is not None:
+        _write_registered(rep.spec, args.registry_dir, "transform")
+    if args.sarif:
+        _write_sarif(args.sarif, diags, "transform")
+    if args.json:
+        out.write(json_mod.dumps(doc, indent=1) + "\n")
+    else:
+        for d in diags:
+            out.write(d.format() + "\n")
+        tail = f" -> {rep.spec.name}" if rep.spec is not None else ""
+        out.write(f"pluss transform: {spec.name}: {rep.label()}"
+                  f"{tail} [{rep.code}]\n")
+    return rc
+
+
+def _check_against_model(args, cfg: SamplerConfig, res, ri, spec,
+                         ref) -> int:
+    """The import bit-identity gate: the registry model at ``--n``, same
+    schedule, must give byte-identical histograms and MRC.  ``ref`` is the
+    model's ``(result, curve)``, run once by the caller."""
+    import numpy as np
+
+    ref_res, ref_curve = ref
+    same_hist = (res.noshare_list() == ref_res.noshare_list()
+                 and res.share_list() == ref_res.share_list())
+    same_mrc = np.array_equal(mrc.aet_mrc(ri, cfg), ref_curve)
+    if same_hist and same_mrc:
+        print(f"pluss_torch import: {spec.name}: histogram + MRC byte-"
+              f"identical to registry {args.check_model}({args.n})",
+              file=sys.stderr)
+        return 0
+    print(f"pluss_torch import: {spec.name}: DIVERGES from registry "
+          f"{args.check_model}({args.n}) "
+          f"(histograms {'==' if same_hist else '!='}, "
+          f"MRC {'==' if same_mrc else '!='})", file=sys.stderr)
+    return 1
+
+
+def _import_main(args, p, out, device_of) -> int:
+    """``import <file.py|file.c> [--json|--register|--predict|--run|
+    --check-model M]``: derive specs from DSL or pragma-C source through
+    the analyzer gate (:func:`pluss_torch.frontend.import_path`).  Host
+    work unless ``--run``/``--check-model`` asks for an engine run."""
+    import json as json_mod
+
+    from pluss_torch import frontend, spec_codec
+
+    if not args.target:
+        p.error("import mode requires a source file (.py DSL or "
+                ".c pragma-C)")
+    if args.check_model is not None and args.check_model not in REGISTRY:
+        p.error(f"--check-model: unknown model {args.check_model!r}")
+    cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk)
+    try:
+        # --verify upgrades the gate to the schedule-aware analysis under
+        # the CLI's own (--threads, --chunk)
+        pairs = frontend.import_path(args.target,
+                                     cfg if args.verify else None)
+    except frontend.FrontendError as e:
+        # PL6xx grammar findings, or the analyzer's own diagnostics when
+        # the gate refused a grammatical source
+        for d in e.diagnostics:
+            print(d.format(), file=sys.stderr)
+        print(f"pluss_torch import: {args.target}: rejected ({e.code})",
+              file=sys.stderr)
+        return 1
+    for spec, diags in pairs:
+        text = analysis.format_text(diags)
+        if text:      # warnings only: errors raised above
+            print(text, file=sys.stderr)
+    print(f"pluss_torch import: {args.target}: {len(pairs)} spec(s) "
+          f"derived, analyzer-clean ({', '.join(s.name for s, _ in pairs)})",
+          file=sys.stderr)
+    if args.json:
+        docs = [spec_codec.spec_to_json(s) for s, _ in pairs]
+        out.write(json_mod.dumps(docs[0] if len(docs) == 1 else docs,
+                                 indent=1) + "\n")
+    if args.register:
+        for spec, _ in pairs:
+            _write_registered(spec, args.registry_dir, "import")
+    rc = 0
+    if args.predict:
+        from pluss_torch.analysis import ri
+
+        for spec, _ in pairs:
+            rep = ri.predict(spec, cfg)
+            out.write(_prediction_line(spec.name, ri.report_doc(rep)))
+            rc |= 1 if analysis.error_count(
+                rep.prediction.diagnostics) else 0
+    if args.run or args.check_model:
+        device = device_of()
+        ref = None
+        if args.check_model:   # the model runs once, not once per spec
+            ref_res, ref_ri = sampler_step(
+                REGISTRY[args.check_model](args.n), cfg, device,
+                args.window, args.start_point)()
+            ref = (ref_res, mrc.aet_mrc(ref_ri, cfg))
+        for spec, _ in pairs:
+            res, ri_ = _run_spec_block(spec, cfg, args, device, out)
+            if ref is not None:
+                rc |= _check_against_model(args, cfg, res, ri_, spec, ref)
     return rc
 
 
@@ -840,9 +1132,10 @@ HOST_MODES = {"lint": _analysis_main, "analyze": _analysis_main,
               "cotenancy": _cotenancy_main}
 
 #: the modes that resolve a device only where an engine run needs one
-#: (``--check``, ``spec load --run``)
+#: (``--check``, ``spec load --run``, ``import --run|--check-model``)
 CHECK_MODES = {"predict": _predict_main, "tune": _tune_main,
-               "spec": _spec_main}
+               "spec": _spec_main, "transform": _transform_main,
+               "import": _import_main}
 
 
 if __name__ == "__main__":

@@ -128,6 +128,14 @@ def loop_size(item: Union[Loop, Ref]) -> int:
     return item.trip * sum(loop_size(b) for b in item.body)
 
 
+def nest_depth(item: Union[Loop, Ref]) -> int:
+    """Deepest loop-chain length under ``item`` (a bare Ref is depth 0).
+    The band size the transform prover permutes/tiles over."""
+    if isinstance(item, Ref):
+        return 0
+    return 1 + max((nest_depth(b) for b in item.body), default=0)
+
+
 def loop_size_affine(item: Union[Loop, Ref]) -> tuple[int, int]:
     """Accesses of one execution of ``item`` as ``c0 + c1*k`` (``k`` = the
     parallel index).  Rejects a bounded loop containing another bounded

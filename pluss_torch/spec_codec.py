@@ -172,3 +172,10 @@ def load_spec_file(path: str) -> LoopNestSpec:
         raise InvalidRequest(f"cannot read spec file {path}: {e}",
                              site="spec.codec", cause=e)
     return load_spec_text(text, where=path)
+
+
+def specs_equal(a: LoopNestSpec, b: LoopNestSpec) -> bool:
+    """Codec equality: two specs whose canonical JSON documents match.
+    (Frozen-dataclass ``==`` is the same relation; going through the
+    codec additionally pins that no field escapes the encoding.)"""
+    return spec_to_json(a) == spec_to_json(b)

@@ -611,3 +611,65 @@ def test_analysis_check_on_the_card_matches_the_cpu(cuda_device, argv):
     assert rc == 0 and card == cpu
     if argv[1] == "mvt":
         assert launches > 0
+
+
+def authored(what):
+    """A spec from the authoring frontend or the transform prover."""
+    from pluss_torch import frontend
+    from pluss_torch.analysis import transform as tf
+    from pluss_torch.frontend import polybench
+    from pluss_torch.models import REGISTRY
+
+    if what == "c":
+        with open(polybench.gemm_source_path()) as f:
+            src = f.read().replace("#define N 128", "#define N 48")
+        return frontend.from_c(src, "gemm48")
+    if what == "dsl":
+        (spec,) = frontend.from_py(frontend.emit_dsl(REGISTRY["cholesky"](40)))
+        return spec
+    if what == "corpus":
+        return polybench.import_polybench(families=["deriche"])["deriche"]
+    rep = {"interchange": lambda: tf.interchange(REGISTRY["gemm"](32), 0, 2),
+           "tile": lambda: tf.tile(REGISTRY["gemm"](32),
+                                   [(0, 8), (1, 8), (2, 8)]),
+           "fuse": lambda: tf.fuse(REGISTRY["2mm"](24), 0, 1)}[what]()
+    assert rep.code == "PL951"
+    return rep.spec
+
+
+@pytest.mark.parametrize("what", ["c", "dsl", "corpus", "interchange",
+                                  "tile", "fuse"])
+def test_authored_and_transformed_specs_on_the_card_match_the_cpu(
+        cuda_device, what):
+    """Frontend-derived and transformed specs run on the card exactly as
+    on the CPU, conserving every access."""
+    from pluss_torch import engine
+
+    spec = authored(what)
+    on_card = engine.run(spec, device=cuda_device)
+    on_cpu = engine.run(spec, device="cpu")
+    assert np.array_equal(on_card.noshare_dense, on_cpu.noshare_dense)
+    assert on_card.share_raw == on_cpu.share_raw
+    assert on_card.max_iteration_count == on_cpu.max_iteration_count
+    assert int(on_card.noshare_dense.sum()) + sum(
+        sum(d.values()) for d in on_card.share_raw) \
+        == on_card.max_iteration_count
+
+
+@pytest.mark.parametrize("argv", [
+    ["transform", "gemm", "--n", "32", "--interchange", "0,2", "--check",
+     "--json"],
+    ["transform", "mvt", "--n", "64", "--fuse", "0+1", "--check", "--json"],
+])
+def test_transform_check_on_the_card_matches_the_cpu(cuda_device, argv):
+    """``transform --check`` runs the transformed spec on the card and
+    prints the document the same command prints with ``--cpu``."""
+    from pluss_torch import engine
+
+    d0 = engine.DEVICE_DISPATCHES
+    rc, card, err = cli_run(argv)
+    assert rc == 0, err
+    assert engine.DEVICE_DISPATCHES == d0 + 1
+    assert "verified against engine.run" in err
+    rc, cpu, _ = cli_run(argv + ["--cpu"])
+    assert rc == 0 and card == cpu

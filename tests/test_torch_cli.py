@@ -396,6 +396,14 @@ def test_verify_refuses_a_spec_with_errors(monkeypatch):
     ["cotenancy", "gemm+syrk", "--cache-kb", "64", "--cache-levels", "32"],
     ["spec"], ["spec", "show"], ["spec", "dump"], ["spec", "dump", "nosuch"],
     ["spec", "load"],
+    ["import"], ["import", "x.c", "--check-model", "nosuch"],
+    ["transform"], ["transform", "nosuch", "--interchange", "0,1"],
+    ["transform", "gemm", "--n", "16"],
+    ["transform", "gemm", "--interchange", "0,1", "--tile", "0:4"],
+    ["transform", "gemm", "--interchange", "0"],
+    ["transform", "gemm", "--tile", "0-4"], ["transform", "gemm", "--fuse",
+                                             "0"],
+    ["tune", "--all", "--transforms", "--n", "16"],
 ])
 def test_usage_errors_match_jax_cli(argv):
     want = run_cli(jax_cli.main, argv)
@@ -403,13 +411,7 @@ def test_usage_errors_match_jax_cli(argv):
     assert got[0] == want[0] == ("exit", 2)
     want_err = want[2].splitlines()[-1].split(": error: ", 1)[1]
     got_err = got[2].splitlines()[-1].split(": error: ", 1)[1]
-    if "positional input is for" in want_err:
-        # the port has no import/transform modes yet: same error, its
-        # own list of the modes that take a positional
-        assert got_err.split(" (")[0] == want_err.split(" (")[0]
-        assert "stats/spec/predict/cotenancy/tune" in got_err
-    else:
-        assert got_err == want_err
+    assert got_err == want_err
 
 
 def test_host_modes_need_no_card(monkeypatch, tmp_path):
@@ -449,3 +451,257 @@ def test_analysis_modes_run_with_jax_and_pluss_blocked(capsys):
         assert run.returncode == 0, run.stderr
         assert jax_cli.main(argv) == 0
         assert run.stdout == capsys.readouterr().out
+
+
+# --- the authoring and transform modes ----------------------------------------
+
+def gemm_c(tmp_path, n=16, stem=None):
+    from pluss_torch.frontend import polybench
+
+    src = open(polybench.gemm_source_path()).read()
+    path = tmp_path / f"{stem or f'gemm{n}'}.c"
+    path.write_text(src.replace("#define N 128", f"#define N {n}"))
+    return str(path)
+
+
+DSL_NEST = (
+    "from pluss import frontend\n"
+    "with frontend.kernel('tiny'):\n"
+    "    A = frontend.array('A', 16)\n"
+    "    B = frontend.array('B', (4, 4), dtype='f32')\n"
+    "    with frontend.loop('i', 0, 16, parallel=True) as i:\n"
+    "        frontend.read(A, i)\n"
+    "        frontend.write(A, i)\n"
+    "    with frontend.loop('i', 0, 4, parallel=True) as i:\n"
+    "        with frontend.loop('j', 0, i + 1) as j:\n"
+    "            frontend.read(B, i, j)\n"
+    "with frontend.kernel('second'):\n"
+    "    C = frontend.array('C', 8)\n"
+    "    with frontend.loop('i', 0, 8, parallel=True) as i:\n"
+    "        frontend.write(C, i)\n")
+
+
+def source(tmp_path, kind):
+    if kind == "c":
+        return gemm_c(tmp_path)
+    path = tmp_path / "nest.py"
+    path.write_text(DSL_NEST)
+    return str(path)
+
+
+@pytest.mark.parametrize("extra", [["--json"], ["--predict"],
+                                   ["--json", "--predict", "--verify"]])
+@pytest.mark.parametrize("kind", ["c", "py"])
+def test_import_matches_jax_cli(tmp_path, kind, extra):
+    argv = ["import", source(tmp_path, kind), *extra]
+    want = run_cli(jax_cli.main, argv)
+    got = run_cli(cli.main, argv)
+    assert got[:2] == want[:2] and got[0] == 0
+    # stderr: the same lines below the mode's own prefix
+    assert [l.split(": ", 1)[1] for l in got[2].splitlines()] == \
+        [l.split(": ", 1)[1] for l in want[2].splitlines()]
+
+
+@pytest.mark.parametrize("check", [[], ["--check-model", "gemm"]])
+def test_import_run_matches_jax_cli(tmp_path, check):
+    argv = ["import", gemm_c(tmp_path), "--run", "--cpu", "--n", "16",
+            *check]
+    want = run_cli(jax_cli.main, argv)
+    got = run_cli(cli.main, argv)
+    assert got[0] == want[0] == 0
+    assert got[1].startswith("TORCH CPU IMPORT gemm16: ")
+    assert got[1].splitlines()[1:] == want[1].splitlines()[1:]
+    if check:
+        assert "byte-identical to registry gemm(16)" in got[2]
+
+
+def test_import_check_model_divergence_matches_jax_cli(tmp_path):
+    argv = ["import", gemm_c(tmp_path), "--run", "--cpu", "--n", "12",
+            "--check-model", "gemm"]
+    want = run_cli(jax_cli.main, argv)
+    got = run_cli(cli.main, argv)
+    assert got[0] == want[0] == 1
+    assert got[1].splitlines()[1:] == want[1].splitlines()[1:]
+    assert "DIVERGES from registry gemm(12) (histograms !=, MRC !=)" \
+        in got[2]
+
+
+def test_import_register_matches_jax_cli(tmp_path):
+    src = source(tmp_path, "py")
+    mine, theirs = tmp_path / "t", tmp_path / "j"
+    want = run_cli(jax_cli.main, ["import", src, "--register",
+                                  "--registry-dir", str(theirs)])
+    got = run_cli(cli.main, ["import", src, "--register",
+                             "--registry-dir", str(mine)])
+    assert got[:2] == want[:2] == (0, "")
+    assert "registered tiny ->" in got[2]
+    assert sorted(os.listdir(mine)) == sorted(os.listdir(theirs)) == \
+        ["second.json", "tiny.json"]
+    for fn in os.listdir(mine):
+        assert (mine / fn).read_text() == (theirs / fn).read_text()
+
+
+@pytest.mark.parametrize("text", [
+    "#define N 8\ndouble A[N];\n#pragma pluss parallel\n"
+    "for (i = 0; i < N; i++) A[i * i] = 1.0;\n",
+    "#define N 8\ndouble A[N];\n#pragma pluss parallel\n"
+    "for (i = 0; i < N; i++) A[i + 4] = 1.0;\n",
+])
+def test_import_rejection_matches_jax_cli(tmp_path, text):
+    path = tmp_path / "bad.c"
+    path.write_text(text)
+    argv = ["import", str(path), "--run", "--cpu"]
+    want = run_cli(jax_cli.main, argv)
+    got = run_cli(cli.main, argv)
+    assert got[:2] == want[:2] == (1, "")
+    assert got[2].splitlines()[:-1] == want[2].splitlines()[:-1]
+    assert got[2].splitlines()[-1].split(": ", 1)[1] == \
+        want[2].splitlines()[-1].split(": ", 1)[1]
+
+
+TRANSFORM_CASES = [
+    ["transform", "gemm", "--n", "16", "--interchange", "0,2"],
+    ["transform", "gemm", "--n", "16", "--interchange", "0,2", "--json"],
+    ["transform", "gemm", "--n", "16", "--tile", "0:4,1:4,2:4", "--json"],
+    ["transform", "gemm", "--n", "16", "--tile", "2:4"],
+    ["transform", "syrk", "--n", "16", "--interchange", "0,1", "--json"],
+    ["transform", "2mm", "--n", "16", "--fuse", "0+1"],
+    ["transform", "mvt", "--n", "16", "--fuse", "0+1", "--json"],
+    ["transform", "seidel2d", "--n", "8", "--interchange", "0,1"],
+    ["transform", "seidel2d", "--n", "16", "--interchange", "0,1",
+     "--json", "--check"],
+    ["transform", "trmm", "--n", "8", "--interchange", "0,1"],
+    ["transform", "3mm", "--n", "16", "--fuse", "1+2", "--json"],
+    ["transform", "gemm", "--n", "16", "--interchange", "0,2", "--check",
+     "--cpu"],
+    ["transform", "gemm", "--n", "16", "--tile", "0:4,1:4,2:4", "--check",
+     "--cpu", "--json"],
+    ["tune", "gemm", "--transforms", "--n", "16", "--sweep-threads", "1,2",
+     "--sweep-chunks", "1"],
+    ["tune", "gemm", "--transforms", "--n", "16", "--json"],
+    ["tune", "mvt", "--transforms", "--n", "16", "--check", "--cpu"],
+]
+
+
+@pytest.mark.parametrize("argv", TRANSFORM_CASES, ids=" ".join)
+def test_transform_modes_match_jax_cli(argv):
+    want = run_cli(jax_cli.main, argv)
+    got = run_cli(cli.main, argv)
+    assert got[:2] == want[:2]
+    assert got[1]
+    assert [l.split(": ", 1)[1] for l in got[2].splitlines()] == \
+        [l.split(": ", 1)[1] for l in want[2].splitlines()]
+
+
+def test_tune_transforms_check_runs_the_transformed_winner(monkeypatch):
+    """At a 1 KB LLC a tiled gemm-64 schedule wins; ``--check`` runs it
+    once on the engine, as JAX's does."""
+    argv = ["tune", "gemm", "--transforms", "--n", "64", "--cache-kb", "1",
+            "--sweep-threads", "1,2,4", "--sweep-chunks", "1,4", "--check",
+            "--cpu", "--json"]
+    want = run_cli(jax_cli.main, argv)
+    got = run_cli(cli.main, argv)
+    assert got[:2] == want[:2] and got[0] == 0
+    assert json.loads(got[1])["best_transform"].startswith("tile(")
+    assert "transformed winner tile(" in got[2] and "verified" in got[2]
+
+
+@pytest.mark.parametrize("argv", [
+    ["transform", "gemm", "--n", "16", "--interchange", "0,2"],
+    ["transform", "seidel2d", "--n", "8", "--interchange", "0,1"],
+    ["tune", "gemm", "--transforms", "--n", "16"],
+])
+def test_transform_sarif_matches_jax_cli(argv, tmp_path):
+    from pluss_torch.analysis import sarif
+
+    mine, ref = tmp_path / "t.sarif", tmp_path / "j.sarif"
+    run_cli(jax_cli.main, argv + ["--sarif", str(ref)])
+    _, _, err = run_cli(cli.main, argv + ["--sarif", str(mine)])
+    assert "SARIF log at" in err
+    assert mine.read_text() == ref.read_text()
+    assert sarif.validate(json.loads(mine.read_text())) == []
+
+
+def test_transform_register_matches_jax_cli(tmp_path):
+    argv = ["transform", "gemm", "--n", "32", "--tile", "0:8,1:8,2:8",
+            "--register", "--registry-dir"]
+    want = run_cli(jax_cli.main, argv + [str(tmp_path / "j")])
+    got = run_cli(cli.main, argv + [str(tmp_path / "t")])
+    assert got[:2] == want[:2] and got[0] == 0
+    assert "registered gemm32_tile0x8_1x8_2x8" in got[2]
+    fn = "gemm32_tile0x8_1x8_2x8.json"
+    assert (tmp_path / "t" / fn).read_text() == \
+        (tmp_path / "j" / fn).read_text()
+
+
+def test_authoring_modes_need_no_card(monkeypatch, tmp_path):
+    """``import`` and ``transform`` are host work with no card and no
+    --cpu; their engine runs stop instead of moving to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = gemm_c(tmp_path)
+    for argv in (["import", src, "--json", "--predict"],
+                 ["import", src, "--register", "--registry-dir",
+                  str(tmp_path / "r")],
+                 ["transform", "gemm", "--n", "16", "--interchange", "0,2"],
+                 ["tune", "gemm", "--transforms", "--n", "16"]):
+        rc, out, _ = run_cli(cli.main, argv)
+        assert rc == 0 and bool(out) != ("--register" in argv), argv
+    assert os.listdir(tmp_path / "r") == ["gemm16.json"]
+    monkeypatch.setattr(cli.engine, "run", lambda *a, **k: pytest.fail(
+        "an engine run without a card"))
+    for argv in (["import", src, "--run"],
+                 ["import", src, "--check-model", "gemm", "--n", "16"],
+                 ["transform", "gemm", "--n", "16", "--interchange", "0,2",
+                  "--check"],
+                 ["tune", "gemm", "--transforms", "--n", "64", "--cache-kb",
+                  "1", "--sweep-threads", "1,2,4", "--sweep-chunks", "1,4",
+                  "--check"]):
+        rc, _, err = run_cli(cli.main, argv)
+        assert rc == ("exit", 2), argv
+        assert "no CUDA device" in err
+
+
+def test_import_and_spec_dir_run_with_jax_and_pluss_blocked(tmp_path,
+                                                           capsys):
+    """With jax and pluss unimportable: ``import`` of a DSL file that says
+    ``from pluss import frontend``, ``--register`` into a directory, and
+    that directory as ``PLUSS_SPEC_DIR`` read at import, so ``--model``
+    takes the registered name."""
+    src = source(tmp_path, "py")
+    reg = str(tmp_path / "reg")
+
+    def blocked(argv, env=None):
+        code = ("import runpy, sys; sys.modules['jax'] = None; "
+                "sys.modules['pluss'] = None; "
+                f"sys.argv = {['pluss_torch.cli', *argv]!r}; "
+                "runpy.run_module('pluss_torch.cli', run_name='__main__')")
+        run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300,
+                             env={**os.environ, **(env or {})})
+        assert run.returncode == 0, run.stderr
+        return run
+
+    run = blocked(["import", src, "--json", "--register", "--registry-dir",
+                   reg])
+    assert jax_cli.main(["import", src, "--json"]) == 0
+    assert run.stdout == capsys.readouterr().out
+    run = blocked(["acc", "--cpu", "--model", "tiny", "--n", "16"],
+                  env={"PLUSS_SPEC_DIR": reg})
+    assert "ignoring n=16" in run.stderr
+    assert jax_cli.main(["import", src, "--run", "--cpu"]) == 0
+    want = capsys.readouterr().out.split("TPU IMPORT second")[0]
+    assert run.stdout.startswith("TORCH CPU: ")
+    assert run.stdout.splitlines()[1:] == want.splitlines()[1:]
+    # without the env the name is no model
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['pluss'] = None; "
+            "from pluss_torch.models import REGISTRY; "
+            "print('tiny' in REGISTRY, 'second' in REGISTRY)")
+    for env, want in ((None, "False False"), (reg, "True True")):
+        run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300,
+                             env={**{k: v for k, v in os.environ.items()
+                                     if k != "PLUSS_SPEC_DIR"},
+                                  **({"PLUSS_SPEC_DIR": env} if env
+                                     else {})})
+        assert run.stdout.strip() == want, run.stderr

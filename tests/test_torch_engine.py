@@ -219,14 +219,20 @@ def test_port_imports_no_jax_and_no_pluss():
             "pluss_torch/utils/__init__.py",
             "pluss_torch/utils/envknob.py"} <= scanned
     # the static analysis and the cache model: all of the JAX package's
-    # analysis but transform.py, and its model package
+    # analysis, and its model package
     analysis = {f"pluss_torch/analysis/{m}.py" for m in (
         "__init__", "bounds", "contract", "deps", "depvec", "diagnostics",
         "falseshare", "footprint", "interference", "polycount", "ri",
-        "sarif", "schedule", "sharespan", "tune", "walk")}
+        "sarif", "schedule", "sharespan", "transform", "tune", "walk")}
     model = {"pluss_torch/model/__init__.py",
              "pluss_torch/model/hierarchy.py"}
-    assert analysis | model <= scanned
+    # the authoring frontend, file for file the JAX package's
+    frontend = {f"pluss_torch/frontend/{m}.py" for m in (
+        "__init__", "cparse", "dsl", "emit", "ir", "lower", "polybench")}
+    assert analysis | model | frontend | {
+        "pluss_torch/iteration.py", "pluss_torch/models/__init__.py",
+        "pluss_torch/cli.py"} <= scanned
     assert {p for p in scanned if p.startswith(("pluss_torch/analysis/",
-                                                "pluss_torch/model/"))} \
-        == analysis | model
+                                                "pluss_torch/model/",
+                                                "pluss_torch/frontend/"))} \
+        == analysis | model | frontend
