@@ -9,9 +9,10 @@ block; with its overlays, sliced runs and ``sampling.sampled_run``) and
 the trace replay (``trace.replay_file`` -> the ``trace`` block, streamed
 and through the residency store; ``pack_file`` -> ``stage_resident`` ->
 ``replay_staged``) — the static analysis modes, whose cross-checks run
-the sampler there, and the authoring and transform modes, whose specs
-run there, and holds every kernel of those paths against its plain torch
-version.  Each phase prints one JSON line; any failed check
+the sampler there, the authoring and transform modes, whose specs run
+there, and the autotuner, the schedule sweep and the serving daemon,
+which run both paths there — and holds every kernel of those paths
+against its plain torch version.  Each phase prints one JSON line; any failed check
 raises, so the script exits non-zero and prints no result line.  Phases:
 
 1. build: compile the three kernels from ``pluss_torch/csrc`` with one
@@ -143,13 +144,52 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     --check`` (a tiled winner, its engine run verified); and ``transform
     seidel2d --n 16 --interchange 0,1 --check``, refused with PL952 with
     no dispatch, no launch and no device allocation;
-24. the kernels line, the card's name and power limit, and the result line.
+24. autotune: under a temporary plan-cache directory,
+    ``autotune.calibrate(force=True)`` at 2^20 refs times the port's eight
+    grid points (two replays each; kernel 2 twice per point, kernel 3
+    twice but on the pack point), every point's histogram bit-identical to
+    the first; the winner persisted under a salt naming the card and
+    ``sm_90``; a second ``calibrate()`` short-circuits on one
+    ``autotune.hit``; ``replay_file`` with no geometry kwargs replays under
+    the tuned values, the same histogram; ``cli autotune --dry-run``
+    exits 0, and 1 on a doctored salt (``autotune.stale``);
+25. sweep: ``sweep.sweep(mvt(4000), (1, 2, 4), (4,), journal=...)``, each
+    point equal to a solo ``engine.run`` + ``cri.distribute`` +
+    ``mrc.aet_mrc`` (kernel 1: 16 + 8 + 4 launches); resumed, no launch
+    and every point stamped ``journal``; ``device_groups=2``, one group
+    on one card, equal points; ``cli sweep --model gemm --n 64`` on the
+    card prints what ``--cpu`` prints;
+26. serve: an in-process daemon on a unix socket in a temp dir, warmed
+    with mvt-4000 and GEMM-1024, with a journal, a flight dir and a
+    metrics endpoint: (a) four pipelined mvt-4000 requests differing in
+    ``cache_kb``/``output`` share one dispatch (``batched`` 4, kernel 1 four
+    times), each equal to phase 7's run (a first round of the same four
+    primes admission's price memo and the plans); (b) GEMM-1024 as a model and as a
+    pragma-C ``source`` request, phase 6's histogram and MRC, no launch;
+    (c) two trace requests on phase 17's trace: a stage-through (kernels 3
+    and 2 sixteen times each), then a resident hit (kernel 2 sixteen
+    times, kernel 3 none), each equal to phase 17's replay; no degradation
+    in (a)-(c) and no brown-out; (d) ``dispatch_fail@1,dispatch_fail@2``
+    open the breaker (threshold 2): a GEMM-64 request browns out on the
+    CPU, stamped ``cpu_brownout`` and equal to the card's run, a trace
+    request is shed ``Overloaded`` with ``retry_after_ms``, and the probe
+    after the cooldown closes the breaker; (e) ``hang@1`` on a daemon with
+    a 2 s dispatch timeout is abandoned and answered typed, its flight
+    dump passing ``stats --check``; (f) ``{"op": "metrics"}`` equals ``GET
+    /metrics``, a ``{"op": "shutdown"}`` line drains the daemon, every
+    journaled request is done, and the event stream passes ``stats
+    --check`` with ``stats --trace a0`` resolving admit → queue → dispatch
+    → demux; each request's latency and the SLO p50/p99 are printed
+    beside the card line;
+27. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
 (phases 5-16, 17-18's first replay, phase 19's staging, first staged
 replay, legacy scan, stage-through and hit, every run of phases 20-21,
-phase 22's ``--check``, engine and ``spec load --run`` runs, and phase
-23's ``import``, engine, corpus, ``transform`` and ``tune`` runs)
+phase 22's ``--check``, engine and ``spec load --run`` runs, phase
+23's ``import``, engine, corpus, ``transform`` and ``tune`` runs, each
+of phase 24's calibration points and its tuned replay, phase 25's
+sweeps and CLI run, and phase 26's requests (a)-(d))
 and read just after it: the
 event kernel must launch once per plan window that sorts something (0 for
 GEMM and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
@@ -844,18 +884,26 @@ def main() -> int:
         # the CPU rung, and the empty stamps of every earlier phase
         resilience_phase(tmp, cfg, by_path, resm, rest, resc,
                          mc["peak_device_gib"])
+        del rest
+
+        # 22. the static analysis modes and their engine cross-checks
+        analysis_phase(cfg, by_path, sort_windows, lines)
+
+        # 23. the authoring and transform modes, their specs on the card
+        frontend_phase(cfg, by_path, sort_windows, conserved, res1k, resm,
+                       resc)
+        del resc
+
+        # 24. the autotuner, its winner persisted for this card
+        autotune_phase(by_path, os.path.join(tmp, "smoke.bin"), streamed)
+        # 25. the schedule sweep, journaled and resumed
+        sweep_phase(cfg, by_path, sort_windows)
+        # 26. the serving daemon, on phase 17's trace among others
+        serve_lines = serve_phase(tmp, cfg, by_path, streamed, resm, res1k)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del rest
 
-    # 22. the static analysis modes and their engine cross-checks
-    analysis_phase(cfg, by_path, sort_windows, lines)
-
-    # 23. the authoring and transform modes, their specs on the card
-    frontend_phase(cfg, by_path, sort_windows, conserved, res1k, resm, resc)
-    del resc
-
-    # 24. kernels line, card, result -----------------------------------------
+    # 27. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
@@ -882,6 +930,9 @@ def main() -> int:
         row("d24v_decode", "pluss_torch/csrc/d24v_decode.cu",
             "pluss/ops/pallas_decode.py:130", dec, dec_err)]})
     print(card_line(), flush=True)
+    for line in serve_lines:
+        print(line, flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1987,6 +2038,529 @@ def frontend_phase(cfg, by_path: dict, sort_windows, conserved, res1k, resm,
     out["seconds"] = time.perf_counter() - t_phase
     print(f"frontend phase: {out['seconds']:.3f} s", flush=True)
     emit({"phase": "frontend", **out, "ok": True})
+
+
+
+def _env_scope(**env):
+    """Set (or, for None, unset) environment variables; returns a function
+    that puts the previous values back."""
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+    def restore():
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return restore
+
+
+def autotune_phase(by_path: dict, big_path: str, big_rep) -> None:
+    """Phase 24: the autotuner (``pluss_torch.autotune``) on the card, under
+    a temporary plan-cache directory: ``calibrate(force=True)`` at the
+    default 2^20 refs, every point's histogram bit-identical to the first
+    (each point's kernel-2/3 launches and wall printed), the winner
+    persisted under a salt that names the card and ``sm_90``; a second
+    ``calibrate()`` short-circuits with one ``autotune.hit``;
+    ``replay_file`` with no geometry kwargs resolves to the tuned values
+    and returns the same histogram; phase 17's 2^28 trace replays under
+    the shipped defaults (consult off), the persisted winner, and the
+    shipped defaults again, each timed and equal to phase 17's replay;
+    ``cli autotune --dry-run`` exits 0, and with a doctored salt exits 1
+    and counts ``autotune.stale``."""
+    import numpy as np
+    import torch
+
+    from pluss_torch import autotune, obs, plancache, trace
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pluss_torch_autotune_")
+    restore = _env_scope(PLUSS_PLAN_CACHE_DIR=os.path.join(tmp, "pc"),
+                         PLUSS_NO_PLAN_CACHE=None, PLUSS_AUTOTUNE=None)
+    autotune.invalidate()
+    obs.configure(os.path.join(tmp, "events.jsonl"))
+    points: list[dict] = []
+    real = autotune._time_point
+
+    def timed_point(path, geo, device):
+        t0 = time.perf_counter()
+        (r, dt), counts = counted(lambda: real(path, geo, device))
+        points.append({"geometry": dict(geo), "launches": counts,
+                       "wall_s": time.perf_counter() - t0, "timed_s": dt,
+                       "refs_per_s": r.total_count / dt,
+                       "hist": np.asarray(r.hist, np.int64).copy()})
+        return r, dt
+
+    autotune._time_point = timed_point
+    try:
+        n_refs = 1 << 20
+        dev = torch.device("cuda")
+        cands = autotune._candidates(autotune._base_geometry(n_refs, dev))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        doc = autotune.calibrate(force=True, out=buf)
+        out["calibrate_s"] = time.perf_counter() - t0
+        log = buf.getvalue()
+        check("disqualified" not in log and "failed" not in log,
+              f"autotune points: {log}")
+        check([p["geometry"] for p in points] == cands,
+              "autotune did not time every grid point once")
+        for p in points:
+            check(np.array_equal(p["hist"], points[0]["hist"]),
+                  f"autotune point {p['geometry']} changed the histogram")
+            g = p["geometry"]
+            n_batches = -(-n_refs // (g["batch_windows"] * g["window"]))
+            want = {"carried_event_hist": 0, "masked_hist": 2 * n_batches,
+                    "d24v_decode": 2 * n_batches * (g["wire"] == "d24v")}
+            check(p["launches"] == want,
+                  f"autotune point {g}: launches {p['launches']} != {want}")
+        by_path["autotune"] = {
+            k: sum(p["launches"][k] for p in points)
+            for k in points[0]["launches"]}
+        salt = plancache.runtime_salt()
+        name = torch.cuda.get_device_name(0)
+        check(doc["salt"] == salt and name in salt and "/sm_90/" in salt,
+              f"autotune salt {doc['salt']!r}")
+        side = autotune.sidecar_path()
+        check(side is not None and os.path.exists(side)
+              and json.load(open(side)) == doc,
+              "autotune winner not persisted")
+        geo = doc["geometry"]
+        check(geo in cands and "pallas" not in geo,
+              f"autotune winner {geo}")
+        # a second calibrate: one consult, no point timed
+        autotune.invalidate()
+        hit0 = obs.counters().get("autotune.hit", 0)
+        buf = io.StringIO()
+        again = autotune.calibrate(out=buf)
+        check(again == doc and "already persisted" in buf.getvalue()
+              and len(points) == len(cands)
+              and obs.counters().get("autotune.hit", 0) - hit0 == 1,
+              "second calibrate did not short-circuit on one hit")
+        # replay_file with no geometry kwargs: the tuned values
+        path = os.path.join(tmp, "calib.u64")
+        autotune._synth_trace(path, n_refs)
+        rep, counts = counted(lambda: trace.replay_file(path))
+        by_path["autotune_replay"] = counts
+        n_batches = -(-n_refs // (geo["batch_windows"] * geo["window"]))
+        check(np.array_equal(np.asarray(rep.hist, np.int64),
+                             points[0]["hist"])
+              and rep.wire == geo["wire"]
+              and rep.feed_workers == geo["feed_workers"]
+              and counts["masked_hist"] == n_batches,
+              f"tuned replay: wire {rep.wire}, workers "
+              f"{rep.feed_workers}, launches {counts}, winner {geo}")
+        # the winner against the shipped defaults at the size users
+        # replay: phase 17's 2^28 trace, shipped / tuned / shipped
+        big: dict = {"shipped_s": [], "tuned_s": []}
+        for label in ("shipped", "tuned", "shipped"):
+            scope = _env_scope(PLUSS_AUTOTUNE="0" if label == "shipped"
+                               else None)
+            try:
+                window = trace._resolve_window(None, dev)
+                t0 = time.perf_counter()
+                r, counts = counted(lambda: trace.replay_file(big_path))
+                big[f"{label}_s"].append(time.perf_counter() - t0)
+            finally:
+                scope()
+            by_path[f"autotune_2^28_{label}"] = counts
+            big[f"{label}_launches"] = counts
+            big[f"{label}_geometry"] = {"window": window,
+                                        "wire": r.wire,
+                                        "feed_workers": r.feed_workers}
+            check(np.array_equal(r.hist, big_rep.hist)
+                  and r.total_count == big_rep.total_count,
+                  f"2^28 replay under the {label} geometry != phase 17's")
+        print(f"autotune 2^28 replay: shipped {big['shipped_s']} s, "
+              f"tuned {big['tuned_s']} s (winner {geo})", flush=True)
+        out["replay_2^28"] = big
+        rc, so, se = cli_call(["autotune", "--dry-run"])
+        check(rc == 0 and "valid sidecar" in so, f"dry-run: {rc} {so} {se}")
+        bad = dict(doc, salt=doc["salt"].replace("/sm_90/", "/sm_00/"))
+        with open(side, "w") as f:
+            json.dump(bad, f)
+        autotune.invalidate()
+        stale0 = obs.counters().get("autotune.stale", 0)
+        rc, so, se = cli_call(["autotune", "--dry-run"])
+        check(rc == 1 and "failed validation" in so
+              and obs.counters().get("autotune.stale", 0) - stale0 == 1,
+              f"doctored salt: rc {rc}, {so} {se}")
+        for i, p in enumerate(points):
+            print(f"autotune point {i}: {p['geometry']} launches "
+                  f"{p['launches']} wall {p['wall_s']:.3f} s "
+                  f"({p['refs_per_s']:.4g} refs/s timed)", flush=True)
+        out.update({"salt": salt, "winner": geo,
+                    "refs_per_s": doc["refs_per_sec"],
+                    "points": [{k: v for k, v in p.items() if k != "hist"}
+                               for p in points],
+                    "second_calibrate_hits": 1, "dry_run": 0,
+                    "doctored_dry_run": 1, "tuned_replay_launches": counts})
+    finally:
+        autotune._time_point = real
+        obs.shutdown()
+        restore()
+        autotune.invalidate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "autotune", **out, "ok": True})
+
+
+def sweep_phase(cfg, by_path: dict, sort_windows) -> None:
+    """Phase 25: the sweep (``pluss_torch.sweep``) on the card: mvt-4000
+    at threads 1, 2 and 4 with a journal, from cold plans, each point equal to a solo
+    ``engine.run`` + ``cri.distribute`` + ``mrc.aet_mrc``, kernel 1 once
+    per sort window of each point's plan; the resumed sweep recomputes
+    nothing (no launch, every point stamped ``journal``); ``device_groups
+    =2`` clamps to one group on one card and returns equal points; ``cli
+    sweep --model gemm --n 64`` on the card prints what ``--cpu``
+    prints."""
+    import dataclasses
+
+    import numpy as np
+
+    from pluss_torch import cri, engine, mrc, sweep
+    from pluss_torch.models import mvt
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pluss_torch_sweep_")
+    try:
+        spec, threads = mvt(4000), (1, 2, 4)
+        cfgs = [dataclasses.replace(cfg, thread_num=t, chunk_size=4)
+                for t in threads]
+        journal = os.path.join(tmp, "sweep.jsonl")
+        kw = dict(thread_nums=threads, chunk_sizes=(4,), base_cfg=cfg)
+        # cold: no plan of an earlier phase is in the memo, so each point
+        # plans while the precompile thread plans the next
+        engine._plan_cached.cache_clear()
+        t0 = time.perf_counter()
+        pts, counts = counted(lambda: sweep.sweep(spec, journal=journal,
+                                                  **kw))
+        out["sweep_s"] = time.perf_counter() - t0
+        want = sum(sort_windows(engine._plan_cached(spec, c, None, None,
+                                                    None)) for c in cfgs)
+        by_path["sweep"] = counts
+        check(counts["carried_event_hist"] == want
+              and counts["masked_hist"] == counts["d24v_decode"] == 0,
+              f"sweep launches {counts}, the plans have {want} sort windows")
+        for p in pts:
+            res = engine.run(spec, p.cfg)
+            ri = cri.distribute(res.noshare_list(), res.share_list(),
+                                p.cfg.thread_num)
+            check(np.array_equal(p.curve, mrc.aet_mrc(ri, p.cfg))
+                  and p.total_refs == res.max_iteration_count
+                  and p.degradations == (),
+                  f"sweep point T={p.cfg.thread_num} != its solo run")
+        t0 = time.perf_counter()
+        resumed, counts = counted(lambda: sweep.sweep(
+            spec, journal=journal, resume=True, **kw))
+        out["resume_s"] = time.perf_counter() - t0
+        by_path["sweep_resume"] = counts
+        check(not any(counts.values())
+              and all(p.degradations == ("journal",) for p in resumed)
+              and all(np.array_equal(a.curve, b.curve)
+                      for a, b in zip(resumed, pts)),
+              f"resumed sweep recomputed ({counts})")
+        t0 = time.perf_counter()
+        grouped, counts = counted(lambda: sweep.sweep(spec, device_groups=2,
+                                                      **kw))
+        out["groups_s"] = time.perf_counter() - t0
+        by_path["sweep_groups"] = counts
+        check(counts["carried_event_hist"] == want
+              and all(np.array_equal(a.curve, b.curve)
+                      and a.total_refs == b.total_refs
+                      for a, b in zip(grouped, pts)),
+              f"device_groups=2 sweep != serial ({counts})")
+        argv = ["sweep", "--model", "gemm", "--n", "64"]
+        t0 = time.perf_counter()
+        (rc, card_out, err), counts = counted(lambda: cli_call(argv))
+        out["cli_card_s"] = time.perf_counter() - t0
+        by_path["sweep_cli"] = counts
+        check(rc == 0 and "predicted miss ratios" in card_out,
+              f"cli sweep: rc {rc}: {err[-2000:]}")
+        t0 = time.perf_counter()
+        rc, cpu_out, err = cli_call(argv + ["--cpu"])
+        out["cli_cpu_s"] = time.perf_counter() - t0
+        check(rc == 0 and card_out == cpu_out,
+              "cli sweep on the card != --cpu")
+        out.update({"model": spec.name, "threads": threads,
+                    "kernel1_launches": want,
+                    "curves": [float(p.miss_ratio_at(4096)) for p in pts],
+                    "cli_lines": len(card_out.splitlines())})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "sweep", **out, "ok": True})
+
+
+def serve_phase(tmp: str, cfg, by_path: dict, trace_rep, resm,
+                res1k) -> list[str]:
+    """Phase 26: the serving daemon (``pluss_torch.serve``) in process on
+    a unix socket in a temp dir, warmed with mvt-4000 and GEMM-1024, with
+    a journal, a flight dir and a metrics endpoint: (a) four pipelined
+    mvt-4000 requests differing in ``cache_kb``/``output`` share one
+    dispatch on their first arrival (each ``batched`` 4, kernel 1 four
+    times), each equal to phase 7's run; (b) a GEMM-1024 model request
+    and a ``source`` request
+    of ``gemm.ppcg_omp.c`` at ``N 1024`` give phase 6's histogram and MRC
+    with no launch; (c) two trace requests on phase 17's 2^28 trace: the
+    first stages through (kernels 3 and 2 sixteen times each), the second
+    is a resident hit (kernel 2 sixteen times, kernel 3 none), both equal
+    to phase 17's replay; no response of (a)-(c) carries a degradation
+    and ``serve.breaker.brownout`` stays 0; (d) ``dispatch_fail@1,
+    dispatch_fail@2`` open the breaker (threshold 2): a GEMM-64 request
+    browns out, stamped ``cpu_brownout`` and equal to the card's clean
+    run, a trace request is shed ``Overloaded`` with ``retry_after_ms``,
+    and after the cooldown the probe closes the breaker; (e) on a second
+    daemon with a 2 s dispatch timeout, ``hang@1`` is abandoned and
+    answered typed, and the flight dump passes ``stats --check``; (f)
+    ``{"op": "metrics"}`` equals ``GET /metrics``, a ``{"op":
+    "shutdown"}`` line drains the daemon, every journaled request is
+    done, the event stream passes ``stats --check`` and ``stats --trace``
+    resolves (a)'s request to admit → queue → dispatch → demux.  Returns
+    the latency lines printed beside the card line."""
+    import dataclasses
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from pluss_torch import cri, engine, obs, residency
+    from pluss_torch.frontend import polybench
+    from pluss_torch.models import gemm
+    from pluss_torch.obs import stats as stats_mod
+    from pluss_torch.obs import telemetry
+    from pluss_torch.resilience import faults
+    from pluss_torch.resilience.faults import FaultPlan
+    from pluss_torch.serve import Client, RequestJournal, ServeConfig, Server
+    from pluss_torch.serve.protocol import parse_request, result_payload
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    trace_path = os.path.join(tmp, "smoke.bin")
+    sdir = tempfile.mkdtemp(prefix="pluss_serve_")
+    events = os.path.join(sdir, "events.jsonl")
+    residency.reset()   # phase 19 left this trace resident
+    obs.configure(events)
+    latencies: dict[str, float] = {}
+
+    def ok(r, label, batched=None):
+        latencies[label] = r.get("latency_ms")
+        check(r.get("ok") and "degradations" not in r
+              and (batched is None or r["batched"] == batched),
+              f"serve {label}: {str(r)[:500]}")
+        return r
+
+    def want_payload(obj, res, rcfg):
+        ri = cri.distribute(res.noshare_list(), res.share_list(),
+                            rcfg.thread_num)
+        return result_payload(parse_request(obj), ri, rcfg)
+
+    srv = Server(socket_path=os.path.join(sdir, "s.sock"),
+                 config=ServeConfig(warm="mvt:4000,gemm:1024",
+                                    journal_dir=sdir, flight_dir=sdir,
+                                    metrics_port=0, breaker_threshold=2,
+                                    breaker_cooldown_s=2.0,
+                                    max_delay_ms=50))
+    srv2 = None
+    srv.start()
+    try:
+        with Client(srv.address, timeout=900) as c:
+            t0 = time.perf_counter()
+            while not c.request({"op": "ready"})["ready"]:
+                check(time.perf_counter() - t0 < 300, "serve never ready")
+                time.sleep(0.1)
+            out["warm_s"] = time.perf_counter() - t0
+            # (a) four pipelined mvt-4000 requests, one dispatch
+            objs = [{"id": f"a{i}", "model": "mvt", "n": 4000,
+                     "cache_kb": kb, "output": o}
+                    for i, (kb, o) in enumerate(((256, "mrc"), (512, "both"),
+                                                 (2560, "histogram"),
+                                                 (8192, "both")))]
+            # first arrival: admission's price, the plan memo and the warm
+            # set key without cache_kb, so the warm entry covers all four
+            hold = c.send({"sleep_ms": 300})
+            time.sleep(0.1)
+            d0 = engine.DEVICE_DISPATCHES
+            rs, counts = counted(
+                lambda: [c.recv(i) for i in [c.send(dict(o)) for o in objs]])
+            c.recv(hold)
+            by_path["serve_a"] = counts
+            check(engine.DEVICE_DISPATCHES - d0 == 1
+                  and counts == {"carried_event_hist": 4, "masked_hist": 0,
+                                 "d24v_decode": 0},
+                  f"serve (a): {engine.DEVICE_DISPATCHES - d0} dispatches, "
+                  f"launches {counts}")
+            for o, r in zip(objs, rs):
+                ok(r, o["id"], batched=4)
+                want = want_payload(o, resm, dataclasses.replace(
+                    cfg, cache_kb=o["cache_kb"]))
+                check(all(r.get(k) == v for k, v in want.items())
+                      and r["refs"] == resm.max_iteration_count,
+                      f"serve (a) {o['id']} != phase 7's run")
+            # (b) GEMM-1024 as a model request and as pragma-C source
+            src = open(polybench.gemm_source_path()).read() \
+                .replace("#define N 128", "#define N 1024")
+            want = want_payload({"model": "gemm", "n": 1024,
+                                 "output": "both"}, res1k, cfg)
+            for label, obj in (("b_model", {"model": "gemm", "n": 1024}),
+                               ("b_source", {"source": src, "lang": "c",
+                                             "name": "gemm_src1024"})):
+                obj = dict(obj, id=label, output="both")
+                r, counts = counted(lambda: c.request(obj))
+                by_path[f"serve_{label}"] = counts
+                ok(r, label)
+                check(not any(counts.values())
+                      and r["histogram"] == want["histogram"]
+                      and r["mrc"] == want["mrc"]
+                      and r["refs"] == res1k.max_iteration_count,
+                      f"serve (b) {label} != phase 6's run ({counts})")
+            # (c) the 2^28 trace: stage-through, then a resident hit
+            want_hist = {str(int(k)): float(v)
+                         for k, v in sorted(trace_rep.histogram().items())}
+            hit0 = obs.counters().get("residency.hit", 0)
+            for label, want_counts in (
+                    ("c_stage_through", {"carried_event_hist": 0,
+                                         "masked_hist": 16,
+                                         "d24v_decode": 16}),
+                    ("c_hit", {"carried_event_hist": 0, "masked_hist": 16,
+                               "d24v_decode": 0})):
+                r, counts = counted(lambda: c.request(
+                    {"id": label, "trace": trace_path,
+                     "output": "histogram"}))
+                by_path[f"serve_{label}"] = counts
+                ok(r, label)
+                check(counts == want_counts
+                      and r["histogram"] == want_hist
+                      and r["refs"] == trace_rep.total_count
+                      and r["n_lines"] == trace_rep.n_lines,
+                      f"serve (c) {label}: launches {counts}")
+            check(obs.counters().get("residency.hit", 0) - hit0 == 1
+                  and obs.counters().get("residency.stage_through", 0) >= 1,
+                  "serve (c): no stage-through then hit")
+            check(not obs.counters().get("serve.breaker.brownout"),
+                  "serve (a)-(c): a brown-out happened")
+            # (d) two injected device failures open the breaker
+            g64 = {"model": "gemm", "n": 64, "output": "both"}
+            clean64 = engine.run(gemm(64), cfg)
+            want64 = want_payload(g64, clean64, cfg)
+            faults.install(FaultPlan.parse(
+                "dispatch_fail@1,dispatch_fail@2"))
+            try:
+                for i in range(2):
+                    r = c.request(dict(g64, id=f"d_fail{i}"))
+                    check(not r["ok"]
+                          and r["error"]["type"] == "ResourceExhausted",
+                          f"serve (d) injected failure {i}: {r}")
+            finally:
+                faults.install(None)
+            check(c.request({"op": "health"})["breaker"] == "open",
+                  "serve (d): the breaker did not open")
+            bo, counts = counted(lambda: c.request(dict(g64, id="d_brown")))
+            by_path["serve_d_brownout"] = counts
+            latencies["d_brown"] = bo.get("latency_ms")
+            check(bo["ok"] and bo.get("degradations") == ["cpu_brownout"]
+                  and bo["histogram"] == want64["histogram"]
+                  and bo["mrc"] == want64["mrc"] and not any(counts.values()),
+                  f"serve (d) brown-out: {str(bo)[:300]} {counts}")
+            sh = c.request({"id": "d_shed", "trace": trace_path})
+            check(not sh["ok"] and sh["error"]["type"] == "Overloaded"
+                  and sh["error"].get("retry_after_ms", 0) > 0,
+                  f"serve (d) trace not shed: {sh}")
+            time.sleep(2.0 * 1.2 + 0.3)
+            pr = ok(c.request(dict(g64, id="d_probe")), "d_probe")
+            check(pr["histogram"] == want64["histogram"]
+                  and c.request({"op": "health"})["breaker"] == "closed",
+                  "serve (d): the probe did not close the breaker")
+            out["breaker"] = {k: obs.counters().get(f"serve.breaker.{k}", 0)
+                              for k in ("open", "close", "brownout",
+                                        "shed")}
+            # (e) a hung dispatch on a daemon with a short watchdog
+            restore = _env_scope(PLUSS_SERVE_DISPATCH_TIMEOUT_S="2")
+            try:
+                srv2 = Server(socket_path=os.path.join(sdir, "w.sock"),
+                              config=ServeConfig(flight_dir=sdir))
+            finally:
+                restore()
+            srv2.start()
+            with Client(srv2.address, timeout=300) as c2:
+                restore = _env_scope(PLUSS_FAULT_HANG_S="6")
+                faults.install(FaultPlan.parse("hang@1"))
+                try:
+                    t0 = time.perf_counter()
+                    hung = c2.request(dict(g64, id="e-hang"))
+                    out["watchdog_answer_s"] = time.perf_counter() - t0
+                finally:
+                    faults.install(None)
+                    restore()
+                check(not hung["ok"] and hung["error"]["type"] == "Overloaded"
+                      and "watchdog" in hung["error"]["message"]
+                      and out["watchdog_answer_s"] < 5.0,
+                      f"serve (e): {hung}")
+                ok(c2.request(dict(g64, id="e_after")), "e_after")
+            dump = os.path.join(sdir, "flight-e-hang.jsonl")
+            t0 = time.perf_counter()
+            while not os.path.exists(dump):
+                check(time.perf_counter() - t0 < 30, "serve (e): no dump")
+                time.sleep(0.05)
+            check(stats_mod.main(dump, io.StringIO(), io.StringIO(),
+                                 check=True) == 0,
+                  "serve (e): the flight dump fails stats --check")
+            srv2.shutdown(drain_timeout_s=60)
+            # (f) the metrics plane, then a drain by control line
+            for attempt in range(3):
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{srv.metrics_port}/metrics",
+                        timeout=30) as resp:
+                    scraped = resp.read().decode()
+                verb = c.request({"op": "metrics"})["text"]
+                if verb == scraped:
+                    break
+            check(verb == scraped and "pluss_serve_ok" in verb,
+                  "serve (f): op metrics != GET /metrics")
+            check(c.request({"op": "shutdown"})["draining"],
+                  "serve (f): shutdown not acknowledged")
+        check(srv._drained.wait(300), "serve (f): drain did not finish")
+        t0 = time.perf_counter()
+        while os.path.exists(srv.socket_path):
+            check(time.perf_counter() - t0 < 60, "serve (f): not stopped")
+            time.sleep(0.05)
+        check(not RequestJournal(os.path.join(
+            sdir, "serve_journal.jsonl")).unanswered(),
+            "serve (f): journaled requests left open")
+        p50, p99 = srv.latency.quantile(0.5), srv.latency.quantile(0.99)
+        telemetry.shutdown()
+        check(stats_mod.main(events, io.StringIO(), io.StringIO(),
+                             check=True) == 0,
+              "serve (f): the event stream fails stats --check")
+        buf = io.StringIO()
+        check(stats_mod.main(events, buf, io.StringIO(), trace="a0") == 0,
+              "serve (f): stats --trace a0 failed")
+        tree = buf.getvalue()
+        for needle in ("trace a0:", "admission.verdict", "serve.admit",
+                       "serve.queue_wait", "serve.batch", "serve.demux"):
+            check(needle in tree, f"serve (f): {needle} not in {tree}")
+    finally:
+        faults.install(None)
+        for s_ in (srv, srv2):
+            if s_ is not None:
+                s_.shutdown(drain_timeout_s=60)
+        obs.shutdown()
+        residency.reset()
+        shutil.rmtree(sdir, ignore_errors=True)
+    out.update({"latency_ms": latencies, "slo_p50_ms": p50,
+                "slo_p99_ms": p99})
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "serve", **out, "ok": True})
+    return [f"serve latency_ms {json.dumps(latencies)}",
+            f"serve SLO p50 {p50} ms, p99 {p99} ms"]
+
 
 
 if __name__ == "__main__":

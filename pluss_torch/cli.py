@@ -12,6 +12,9 @@ the authoring and transform modes.
     python -m pluss_torch.cli tune mvt --n 1000 --check --cpu
     python -m pluss_torch.cli import nest.c --run --cpu
     python -m pluss_torch.cli transform gemm --interchange 0,2 --json
+    python -m pluss_torch.cli sweep --cpu --model gemm --n 16
+    python -m pluss_torch.cli serve --cpu --socket /tmp/p.sock
+    python -m pluss_torch.cli autotune --dry-run
 
 - ``acc``: one timed run; prints the reference's block (timing banner, the
   three histogram dumps, "max iteration traversed").  Below the banner the
@@ -71,6 +74,20 @@ the authoring and transform modes.
   transformed spec (``--json``, ``--sarif``, ``--register``);
   ``--check`` runs the transformed spec on the engine against its
   static prediction.
+- ``sweep``: the predicted miss ratios of ``--model`` under every
+  (``--sweep-threads`` x ``--sweep-chunks``) schedule at
+  ``--cache-lines`` (:mod:`pluss_torch.sweep`; ``--resume``/``--journal``
+  journal the points and skip finished ones), then the report blocks:
+  byte for byte what ``python -m pluss.cli sweep`` prints.
+- ``serve`` (``--socket PATH`` or ``--port N``): the multi-tenant
+  prediction daemon (:mod:`pluss_torch.serve`), with JAX's flags
+  (``--warm``, ``--journal-dir``/``--recover``, ``--metrics-port``,
+  ``--flight-dir``, ``--drain-timeout-s`` ...); ``--heartbeat-dir`` is
+  refused (the multi-device layer is not ported yet).
+- ``autotune``: calibrate the streamed replay's batch geometry on the
+  device and persist it beside the plan cache
+  (:mod:`pluss_torch.autotune`; ``--force``, ``--refs``); ``--dry-run``
+  only validates the persisted sidecar.
 - ``--verify`` on ``acc``/``speed``/``mrc``/``sample``: the
   schedule-aware analysis first; an ERROR stops the run (exit 2).
 
@@ -102,7 +119,7 @@ import time
 import torch
 
 from pluss_torch import analysis, cri, engine, mrc, obs, sampling, trace
-from pluss_torch.config import SamplerConfig
+from pluss_torch.config import SHARE_CAP, SamplerConfig
 from pluss_torch.io import RI_TITLE, acc_block, print_histogram, speed_block
 from pluss_torch.models import REGISTRY
 
@@ -138,7 +155,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("mode", choices=("acc", "speed", "mrc", "sample", "trace",
                                     "stats", "lint", "analyze", "predict",
                                     "cotenancy", "tune", "transform",
-                                    "import", "spec"))
+                                    "import", "spec", "sweep", "serve",
+                                    "autotune"))
     p.add_argument("target", nargs="?", default=None,
                    help="stats mode: the telemetry event stream "
                         "(events.jsonl) to aggregate; import mode: the .py "
@@ -214,9 +232,20 @@ def main(argv: list[str] | None = None) -> int:
                    help="analyze/cotenancy/tune mode: ways per set (0 = "
                         "fully associative; overrides PLUSS_CACHE_ASSOC)")
     p.add_argument("--sweep-threads", default="1,2,4,8",
-                   help="tune mode: thread counts (comma list)")
+                   help="sweep/tune mode: thread counts (comma list)")
     p.add_argument("--sweep-chunks", default="1,4,16",
-                   help="tune mode: chunk sizes (comma list)")
+                   help="sweep/tune mode: chunk sizes (comma list)")
+    p.add_argument("--cache-lines", default="512,4096,40960",
+                   help="sweep mode: cache sizes (lines) for the table")
+    p.add_argument("--device-groups", type=int, default=None,
+                   help="sweep mode: split the devices into this many "
+                        "groups and run one sweep point per group (on one "
+                        "card the groups clamp to one; a group of more "
+                        "than one device needs the multi-device backend, "
+                        "not ported yet); default serial")
+    p.add_argument("--share-cap", type=int, default=SHARE_CAP,
+                   help="sweep mode: the JAX package's share cap, kept as "
+                        "a label (the port's engine has no cap)")
     p.add_argument("--trace", default=None, metavar="RID",
                    help="stats mode: render the causal span tree of ONE "
                         "request (every span/event stamped trace=RID) "
@@ -265,7 +294,9 @@ def main(argv: list[str] | None = None) -> int:
                         "d24v on the card, pack on the CPU)")
     p.add_argument("--journal", default=None,
                    help="trace mode: checkpoint path (default "
-                        "<file>.ckpt.npz with --resume)")
+                        "<file>.ckpt.npz with --resume); sweep mode: the "
+                        "journal path (default .pluss_sweep_<model>_<n>"
+                        ".jsonl with --resume)")
     p.add_argument("--resident-cache", default=None,
                    action=argparse.BooleanOptionalAction,
                    help="trace mode: keep the staged trace resident in "
@@ -275,7 +306,66 @@ def main(argv: list[str] | None = None) -> int:
                         "path (the default for a one-shot replay)")
     p.add_argument("--resume", action="store_true",
                    help="trace mode: checkpoint while replaying and resume "
-                        "from an existing checkpoint")
+                        "from an existing checkpoint; sweep mode: journal "
+                        "every finished point and skip points already "
+                        "journaled")
+    p.add_argument("--socket", default=None, metavar="PATH",
+                   help="serve mode: unix socket path to listen on")
+    p.add_argument("--port", type=int, default=None,
+                   help="serve mode: TCP port to listen on (0 = ephemeral; "
+                        "bound address printed on stderr)")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="serve mode: TCP bind host (default 127.0.0.1)")
+    p.add_argument("--max-queue", type=int, default=128,
+                   help="serve mode: admission bound; requests past this "
+                        "queue depth are shed with a typed Overloaded error")
+    p.add_argument("--max-batch", type=int, default=16,
+                   help="serve mode: most requests one shared dispatch "
+                        "may coalesce (1 disables batching)")
+    p.add_argument("--max-delay-ms", type=float, default=10.0,
+                   help="serve mode: adaptive batch window, the longest "
+                        "a request waits for compatible stragglers")
+    p.add_argument("--default-deadline-ms", type=float, default=None,
+                   help="serve mode: default per-request deadline for "
+                        "requests that do not carry deadline_ms")
+    p.add_argument("--heartbeat-dir", default=None, metavar="DIR",
+                   help="serve mode: the multihost heartbeat exporter "
+                        "(not ported yet: refused)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="serve mode: worker count watched under "
+                        "--heartbeat-dir")
+    p.add_argument("--prom-refresh-s", type=float, default=5.0,
+                   help="serve mode: SLO gauge + prometheus textfile "
+                        "(PLUSS_PROM) refresh period")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="serve mode: live prometheus pull endpoint (GET "
+                        "/metrics) on this localhost port (0 = ephemeral)")
+    p.add_argument("--flight-dir", default=None, metavar="DIR",
+                   help="serve mode: directory for crash flight-recorder "
+                        "dumps (also PLUSS_FLIGHT_DIR; default cwd)")
+    p.add_argument("--warm", default=None, metavar="MODELS",
+                   help="serve mode: precompile these at daemon start "
+                        "(comma-separated name[:n[:threads[:chunk]]] "
+                        "entries, trace paths, or 'all')")
+    p.add_argument("--journal-dir", default=None, metavar="DIR",
+                   help="serve mode: crash-safe request journal directory "
+                        "(also PLUSS_SERVE_JOURNAL)")
+    p.add_argument("--recover", default=None, metavar="DIR",
+                   help="serve mode: recover from the request journal in "
+                        "DIR at startup (implies --journal-dir DIR)")
+    p.add_argument("--drain-timeout-s", type=float, default=60.0,
+                   help="serve mode: hard bound on shutdown drain; past "
+                        "it, pending requests are answered typed retryable")
+    p.add_argument("--force", action="store_true",
+                   help="autotune mode: recalibrate even when a valid "
+                        "geometry sidecar is persisted for this runtime")
+    p.add_argument("--dry-run", action="store_true",
+                   help="autotune mode: validate the persisted sidecar "
+                        "and print the tuned geometry without calibrating "
+                        "(exit 1 only when a sidecar fails validation)")
+    p.add_argument("--refs", type=int, default=None,
+                   help="autotune mode: calibration replay length in "
+                        "references (default 2^20)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the host CPU instead of the CUDA card")
     args = p.parse_args(argv)
@@ -320,6 +410,10 @@ def main(argv: list[str] | None = None) -> int:
             return HOST_MODES[args.mode](args, p, sys.stdout)
         if args.mode in CHECK_MODES:
             return CHECK_MODES[args.mode](args, p, sys.stdout, device_of)
+        if args.mode == "autotune":
+            return _autotune_main(args, p, sys.stdout, device_of)
+        if args.mode == "serve":
+            return _serve_main(args, p, device_of)
         device = device_of()
         cfg = SamplerConfig(thread_num=args.threads, chunk_size=args.chunk)
         return run_mode(args, p, cfg, device, sys.stdout)
@@ -334,6 +428,8 @@ def run_mode(args, p, cfg: SamplerConfig, device, out) -> int:
     if args.mode == "trace":
         return trace_mode(args, p, cfg, device, out)
     spec = REGISTRY[args.model](args.n)
+    if args.mode == "sweep":
+        return sweep_mode(args, spec, cfg, device, out)
     if args.verify:
         n_err = _verify_spec(spec, cfg, sys.stderr)
         if n_err:
@@ -376,6 +472,118 @@ def sample_mode(args, spec, cfg: SamplerConfig, device, out) -> int:
     out.write("rate,walked_fraction,l2_error\n")
     for rate, frac, err in tbl:
         out.write(f"{rate:g},{frac:.6g},{err:.6g}\n")
+    return 0
+
+
+def sweep_mode(args, spec, cfg: SamplerConfig, device, out) -> int:
+    """Predicted MRCs across parallel schedules (:mod:`pluss_torch.sweep`):
+    the table, then the report blocks, byte for byte what ``python -m
+    pluss.cli sweep`` prints."""
+    from pluss_torch import sweep as sweep_mod
+
+    ts = [int(x) for x in args.sweep_threads.split(",") if x]
+    cks = [int(x) for x in args.sweep_chunks.split(",") if x]
+    cls_ = [int(x) for x in args.cache_lines.split(",") if x]
+    journal = args.journal
+    if journal is None and args.resume:
+        journal = f".pluss_sweep_{args.model}_{args.n}.jsonl"
+    if args.resume:
+        print(f"pluss_torch: sweep journal at {journal} (resume on)",
+              file=sys.stderr)
+    if args.device_groups is not None and args.device_groups > 1:
+        print(f"pluss_torch: sweep across {args.device_groups} device "
+              "group(s), one point per group (elastic requeue on worker "
+              "death)", file=sys.stderr)
+    pts = sweep_mod.sweep(spec, ts, cks, cfg, args.share_cap,
+                          journal=journal, resume=args.resume,
+                          device_groups=args.device_groups, device=device)
+    out.write(f"{spec.name}: predicted miss ratios\n")
+    out.write(sweep_mod.table(pts, cls_) + "\n")
+    for block in (sweep_mod.carried_levels(spec),
+                  sweep_mod.schedule_analysis(spec, pts),
+                  sweep_mod.prediction_block(spec, pts),
+                  sweep_mod.hierarchy_block(spec, pts),
+                  sweep_mod.tuned_block(spec, pts),
+                  sweep_mod.transform_block(spec, pts)):
+        if block:
+            out.write(block + "\n")
+    return 0
+
+
+def _autotune_main(args, p, out, device_of) -> int:
+    """``autotune [--force] [--dry-run] [--refs N]``: calibrate and persist
+    the streamed replay's batch geometry for the device's runtime
+    (:mod:`pluss_torch.autotune`), or with ``--dry-run`` only validate the
+    persisted sidecar.  The winner feeds ``replay_file``'s defaults on
+    every later run on that device (``autotune.hit`` witnesses it)."""
+    from pluss_torch import autotune
+
+    if args.force and args.dry_run:
+        p.error("autotune mode: --force and --dry-run are exclusive "
+                "(--dry-run never calibrates)")
+    device = device_of()
+    if args.dry_run:
+        return autotune.dry_run(out, device=device)
+    kw = {} if args.refs is None else {"n_refs": args.refs}
+    doc = autotune.calibrate(force=args.force, out=sys.stderr,
+                             device=device, **kw)
+    geo = doc["geometry"]
+    out.write("pluss autotune: winner "
+              + "  ".join(f"{k}={geo[k]}" for k in sorted(geo))
+              + f"  ({doc.get('refs_per_sec', 0):.0f} refs/s)\n")
+    return 0
+
+
+def _serve_main(args, p, device_of) -> int:
+    """``serve --socket PATH | --port N``: the long-lived multi-tenant
+    prediction daemon (:mod:`pluss_torch.serve`) on the card, or on the
+    host with ``--cpu``; SIGTERM or a ``{"op": "shutdown"}`` line drains
+    and stops it."""
+    from pluss_torch.resilience.errors import PlussError
+    from pluss_torch.serve import ServeConfig, Server
+
+    if (args.socket is None) == (args.port is None):
+        p.error("serve mode requires exactly one of --socket/--port")
+    device = device_of()
+    scfg = ServeConfig(
+        max_queue=args.max_queue,
+        max_batch=args.max_batch,
+        max_delay_ms=args.max_delay_ms,
+        default_deadline_ms=args.default_deadline_ms,
+        prom_refresh_s=args.prom_refresh_s,
+        heartbeat_dir=args.heartbeat_dir,
+        num_processes=args.num_processes,
+        warm=args.warm,
+        journal_dir=args.recover or args.journal_dir,
+        drain_timeout_s=args.drain_timeout_s,
+        metrics_port=args.metrics_port,
+        flight_dir=args.flight_dir,
+        device=device,
+    )
+    try:
+        server = Server(socket_path=args.socket, port=args.port,
+                        host=args.host, config=scfg)
+    except PlussError as e:
+        print(f"pluss_torch serve: {e}", file=sys.stderr)
+        return 2
+    try:
+        server.start()
+    except OSError as e:
+        print(f"pluss_torch serve: cannot bind {args.socket or args.port}: "
+              f"{e}", file=sys.stderr)
+        return 2
+    print(f"pluss_torch serve: listening on {server.address} "
+          f"(device={device}, max_queue={scfg.max_queue}, "
+          f"max_batch={scfg.max_batch}, "
+          f"max_delay_ms={scfg.max_delay_ms:g}); SIGTERM or a "
+          '{"op": "shutdown"} line drains and stops', file=sys.stderr,
+          flush=True)
+    if server.metrics_port is not None:
+        print(f"pluss_torch serve: metrics on "
+              f"http://127.0.0.1:{server.metrics_port}/metrics",
+              file=sys.stderr, flush=True)
+    server.serve_forever()
+    print("pluss_torch serve: drained and stopped", file=sys.stderr)
     return 0
 
 

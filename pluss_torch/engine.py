@@ -60,8 +60,8 @@ import uuid
 import numpy as np
 import torch
 
-from pluss_torch import obs, rowpriv, sweepgroup
-from pluss_torch.config import DEFAULT, NBINS, SamplerConfig
+from pluss_torch import obs, plancache, rowpriv, sweepgroup
+from pluss_torch.config import DEFAULT, NBINS, SHARE_CAP, SamplerConfig
 from pluss_torch.obs import xprof
 from pluss_torch.ops import build
 from pluss_torch.ops.event_hist import event_histogram
@@ -1029,6 +1029,45 @@ class SamplerResult:
     def share_list(self) -> list[dict]:
         return [self.share_dict(t) for t in range(self.thread_num)]
 
+    def tenant_view(self) -> "SamplerResult":
+        """An independently-owned copy for ONE tenant of a coalesced
+        dispatch (:mod:`pluss_torch.serve`): the serving demux hands each
+        member of a shared batch its own view, so no tenant's
+        post-processing can alias another's arrays or dicts.  The copy is
+        cheap — [T, NBINS] counts plus the raw share dicts — next to the
+        dispatch it amortizes."""
+        return dataclasses.replace(
+            self,
+            noshare_dense=self.noshare_dense.copy(),
+            share_raw=[dict(d) for d in self.share_raw],
+        )
+
+
+def dispatch_key(spec: LoopNestSpec, cfg: SamplerConfig,
+                 share_cap: int = SHARE_CAP,
+                 window_accesses: int | None = None) -> tuple:
+    """Batch-compatibility key of one prediction request
+    (:mod:`pluss_torch.serve`).
+
+    Two requests with equal keys resolve to the SAME plan, so one engine
+    run can serve all of them, with per-request result views
+    demultiplexed on return (:meth:`SamplerResult.tenant_view`).
+    ``cache_kb`` is left out: it only steers the AET/MRC conversion after
+    the run, so requests differing in cache size alone share the dispatch
+    and diverge at demux.  ``share_cap`` stays in the key as a label, as
+    the JAX package has it (the port's engine has no share cap), so keys
+    and batching match across the packages.  Specs and configs are frozen
+    dataclasses, so the tuple is hashable and order-stable."""
+    return (spec, plan_cfg(cfg), int(share_cap), window_accesses)
+
+
+def plan_cfg(cfg: SamplerConfig) -> SamplerConfig:
+    """``cfg`` as a plan sees it: ``cache_kb`` only steers the AET/MRC
+    conversion after the run, so the plan memo, the warm set and the
+    precompile registry key on this config (a request whose cache size
+    alone differs from a warmed one's finds the warm plan)."""
+    return dataclasses.replace(cfg, cache_kb=0)
+
 
 def add_static_share(share_raw: list[dict],
                      nest_windows: list[tuple[NestPlan, int]]) -> None:
@@ -1221,14 +1260,39 @@ def _freeze(assignment):
     return tuple(tuple(a) if a is not None else None for a in assignment)
 
 
+#: in-process single-flight registry of plan builds: concurrent callers
+#: for one cold key (the serving daemon's device loop racing its warm
+#: thread or its background compile, the sweep's precompile thread) plan
+#: ONCE; waiters share the plan or the same typed failure.  The serve SLO
+#: publisher exports its depth as the ``serve.compile_inflight`` gauge.
+_compile_registry = plancache.CompileRegistry(
+    gauge="engine.compile_inflight")
+
+
+def compile_inflight() -> int:
+    """Plan builds currently in flight in the single-flight registry."""
+    return _compile_registry.inflight()
+
+
 @functools.lru_cache(maxsize=32)
-def _plan_cached(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
-                 start_point, window_accesses) -> StreamPlan:
-    """The process's plan memo, shared by :func:`run`, :func:`run_sliced`,
-    :func:`precompile` and :func:`describe_path`."""
+def _plan_memo(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
+               start_point, window_accesses) -> StreamPlan:
     with obs.span("engine.plan", model=spec.name, threads=cfg.thread_num,
                   chunk=cfg.chunk_size):
         return plan(spec, cfg, assignment, start_point, window_accesses)
+
+
+def _plan_cached(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
+                 start_point, window_accesses) -> StreamPlan:
+    """The process's plan memo, shared by :func:`run`, :func:`run_sliced`,
+    :func:`precompile` and :func:`describe_path`, behind the single-flight
+    registry (an ``lru_cache`` alone lets two threads racing a cold key
+    both plan)."""
+    key = (spec, plan_cfg(cfg), assignment, start_point, window_accesses)
+    return _compile_registry.do(key, lambda: _plan_memo(*key))
+
+
+_plan_cached.cache_clear = _plan_memo.cache_clear
 
 
 def _build_kernels(pl: StreamPlan, dev: torch.device) -> None:
@@ -1290,7 +1354,7 @@ def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
     check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, limit, tb)
     _build_kernels(pl, dev)
     if assignment is None and start_point is None:
-        _warm_keys.add((spec, cfg, window_accesses))
+        _warm_keys.add((spec, plan_cfg(cfg), window_accesses))
     if budget is None:
         global DEVICE_DISPATCHES
         DEVICE_DISPATCHES += 1
@@ -1336,17 +1400,25 @@ def precompile(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
     dev = resolve_device(device)
     assignment = _freeze(assignment)
     tb = _normalize_thread_batch(thread_batch, cfg)
-    with obs.span("engine.precompile", model=spec.name,
-                  threads=cfg.thread_num, chunk=cfg.chunk_size):
-        pl = _plan_cached(spec, cfg, assignment, start_point,
-                          window_accesses)
-        _build_kernels(pl, dev)
-        if assignment is None and start_point is None:
-            _warm_keys.add((spec, cfg, window_accesses))
-        if os.environ.get("PLUSS_NO_AUTO_DISPATCH") or \
-                _auto_dispatch(pl, cfg, tb, sort_budget(dev)) is None:
-            return "full"
-        return "sliced"
+
+    def warm() -> str:
+        with obs.span("engine.precompile", model=spec.name,
+                      threads=cfg.thread_num, chunk=cfg.chunk_size):
+            pl = _plan_cached(spec, cfg, assignment, start_point,
+                              window_accesses)
+            _build_kernels(pl, dev)
+            if assignment is None and start_point is None:
+                _warm_keys.add((spec, plan_cfg(cfg), window_accesses))
+            if os.environ.get("PLUSS_NO_AUTO_DISPATCH") or \
+                    _auto_dispatch(pl, cfg, tb, sort_budget(dev)) is None:
+                return "full"
+            return "sliced"
+
+    # single-flight: a serve --warm entry racing the daemon's background
+    # compile of the same key warms once; both get its answer (or error)
+    return _compile_registry.do(
+        ("precompile", spec, plan_cfg(cfg), str(dev), assignment,
+         start_point, window_accesses, tb), warm)
 
 
 def is_warm(spec: LoopNestSpec, cfg: SamplerConfig,
@@ -1355,7 +1427,7 @@ def is_warm(spec: LoopNestSpec, cfg: SamplerConfig,
     was planned by :func:`run` or :func:`precompile` in this process: a
     hint (the memo may have evicted the plan since), never needed for a
     correct result."""
-    return (spec, cfg, window_accesses) in _warm_keys
+    return (spec, plan_cfg(cfg), window_accesses) in _warm_keys
 
 
 class _NestTensors:

@@ -1,11 +1,13 @@
 """pluss_torch.obs — structured telemetry for the port's pipeline.
 
-The port's copy of ``pluss.obs`` without the serving layer's modules
-(``tracectx``, ``slo``, ``flight``): one substrate (counters / gauges /
+The port's copy of ``pluss.obs``: one substrate (counters / gauges /
 spans / events → an append-only JSONL sink,
-:mod:`pluss_torch.obs.telemetry`), optional ``torch.profiler`` sessions and annotations
-(:mod:`pluss_torch.obs.xprof`, ``PLUSS_XPROF=dir``), and the ``stats``
-aggregator (:mod:`pluss_torch.obs.stats`).  Disabled (the default) every
+:mod:`pluss_torch.obs.telemetry`), optional ``torch.profiler`` sessions
+and annotations (:mod:`pluss_torch.obs.xprof`, ``PLUSS_XPROF=dir``), the
+``stats`` aggregator (:mod:`pluss_torch.obs.stats`), and the serving
+layer's request trace context (:mod:`pluss_torch.obs.tracectx`), SLO
+burn monitor (:mod:`pluss_torch.obs.slo`) and crash flight recorder
+(:mod:`pluss_torch.obs.flight`).  Disabled (the default) every
 hook is a near-free no-op and the instrumented pipelines are
 bit-identical — telemetry is observably passive, enforced by
 tests/test_torch_obs.py.

@@ -29,9 +29,10 @@ and counters are host wall clocks: none of them synchronizes the CUDA
 device, so a span that does not end at a copy back to the host measures
 the launches, not the device's work.
 
-The port has no request context yet (the JAX package's ``tracectx``
-belongs to the serving layer, not ported): records carry no ``trace``
-stamp, and :func:`trace_event` emits nothing.
+Inside a serve request's context (:mod:`pluss_torch.obs.tracectx`) spans
+and events carry a ``trace`` stamp naming the request, and
+:func:`trace_event` emits; outside one it emits nothing and records carry
+no stamp.
 
 Enable via ``PLUSS_TELEMETRY=<path>`` (read once, lazily) or explicitly
 with :func:`configure` (the CLI's ``--telemetry`` flag).
@@ -45,6 +46,8 @@ import os
 import sys
 import threading
 import time
+
+from pluss_torch.obs import tracectx
 
 #: event-stream schema version, stamped on the meta line; ``pluss stats
 #: --check`` refuses streams from a NEWER schema than it understands
@@ -75,7 +78,8 @@ NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("_tel", "name", "attrs", "_start", "_id", "_parent")
+    __slots__ = ("_tel", "name", "attrs", "_start", "_id", "_parent",
+                 "_trace")
 
     def __init__(self, tel: "Telemetry", name: str, attrs: dict):
         self._tel = tel
@@ -88,6 +92,10 @@ class _Span:
         self._parent = stack[-1] if stack else None
         self._id = tel._new_id()
         stack.append(self._id)
+        # the trace stamp names the request context the work STARTED
+        # under (a batch dispatch re-binding per member still attributes
+        # the enclosing span to the lead request it entered with)
+        self._trace = tracectx.current()
         self._start = time.monotonic()
         return self
 
@@ -111,6 +119,8 @@ class _Span:
         }
         if self._parent is not None:
             rec["parent"] = self._parent
+        if self._trace is not None:
+            rec["trace"] = self._trace
         if self.attrs:
             rec["attrs"] = self.attrs
         if etype is not None:
@@ -238,6 +248,9 @@ class Telemetry:
                "t": round(time.monotonic() - self._t0, 6)}
         if stack:
             rec["parent"] = stack[-1]
+        tr = tracectx.current()
+        if tr is not None:
+            rec["trace"] = tr
         if attrs:
             rec["attrs"] = attrs
         self._emit(rec)
@@ -535,12 +548,17 @@ def flush_metrics() -> None:
 
 
 def trace_event(name: str, **attrs) -> None:
-    """An event emitted only inside a bound request context: the
-    attribution hook of the cache layers (plan cache, residency).  The
-    port binds none (no serving layer yet), so nothing is emitted and
-    streams stay what they are without it; the hook stands where the JAX
-    package calls it, for the serving layer to bind."""
-    return None
+    """An event emitted ONLY when a request trace context is bound.
+
+    The attribution hook of the cache layers (plan cache, residency,
+    autotune): inside a serve request the hit/miss lands in the stream
+    stamped ``trace=<rid>``; outside one (engine tests, CLI runs) nothing
+    is emitted, so those streams are what they were without it.  The
+    telemetry None-check comes first, keeping the disabled path free of
+    any context lookup."""
+    t = _active if _bootstrapped else active()
+    if t is not None and tracectx.current() is not None:
+        t.event(name, **attrs)
 
 
 def ensure_session() -> Telemetry:

@@ -17,11 +17,11 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -79,6 +79,17 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
+_loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_load_locks: dict[str, threading.Lock] = {}
+_build_locks: dict[str, threading.Lock] = {}
+
+
+def _lock_of(table: dict, name: str) -> threading.Lock:
+    with _load_lock:
+        return table.setdefault(name, threading.Lock())
+
+
 def build(*names: str) -> dict[str, dict]:
     """Compile each ``csrc/<name>.cu`` or ``.cpp`` that is not built
     already, one compiler process per source, all started together.
@@ -93,16 +104,24 @@ def build(*names: str) -> dict[str, dict]:
 
     def compile_one(name: str):
         lib = library_path(name)
-        tmp = f"{lib}.tmp{os.getpid()}"
-        try:
-            proc = subprocess.run(_command(name, tmp), stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-        except OSError as e:
-            return subprocess.CompletedProcess([], 127, f"{e}"), 0.0
-        seconds = time.perf_counter() - t0
-        if not proc.returncode:
-            os.replace(tmp, lib)
-        return proc, seconds
+        # one compiler per source in this process: a thread that finds a
+        # build of its source running waits for it and compiles nothing
+        with _lock_of(_build_locks, name):
+            if os.path.exists(lib):
+                return subprocess.CompletedProcess([], 0, ""), 0.0
+            # unique per process and thread: another process building the
+            # same source never writes this file
+            tmp = f"{lib}.tmp{os.getpid()}-{threading.get_ident()}"
+            try:
+                proc = subprocess.run(_command(name, tmp),
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+            except OSError as e:
+                return subprocess.CompletedProcess([], 127, f"{e}"), 0.0
+            seconds = time.perf_counter() - t0
+            if not proc.returncode:
+                os.replace(tmp, lib)
+            return proc, seconds
 
     failed = []
     with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
@@ -119,12 +138,33 @@ def build(*names: str) -> dict[str, dict]:
     return out
 
 
-@functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>``, building it first if
-    needed."""
-    build(name)
-    return ctypes.CDLL(library_path(name))
+    needed.  Single-flight per name: threads that ask for one library at
+    once (the serving daemon's device loop, warm thread and background
+    compile; the sweep's precompile thread) run one build and share one
+    handle.  A failed build raises and is not memoized: the next caller
+    builds again."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    with _lock_of(_load_locks, name):
+        lib = _loaded.get(name)
+        if lib is None:
+            build(name)
+            lib = _loaded[name] = ctypes.CDLL(library_path(name))
+    return lib
+
+
+def _forget() -> None:
+    """Drop the loaded handles, so the next :func:`load` builds or
+    reloads (tests that repoint ``BUILD_DIR``/``CSRC``)."""
+    with _load_lock:
+        _loaded.clear()
+
+
+#: the ``functools.cache`` spelling the callers already use
+load.cache_clear = _forget
 
 
 def launch_context(dev):

@@ -1,8 +1,7 @@
 """Resilience layer of the port: classified failures, degradation ladders,
 checkpoints.
 
-The port's copy of ``pluss.resilience`` without the serving layer's
-circuit breaker:
+The port's copy of ``pluss.resilience``:
 
 - :mod:`pluss_torch.resilience.errors` — the ``PlussError`` taxonomy
   (``retryable`` / ``degradable`` / ``fatal``) and :func:`classify`, which
@@ -15,10 +14,13 @@ circuit breaker:
   :func:`run_resilient` and :func:`replay_file_resilient`, which stamp
   every result with the rungs taken;
 - :mod:`pluss_torch.resilience.journal` — the atomic JSONL journal behind
-  ``pack_file``'s resume.
+  ``pack_file``'s resume and ``sweep --resume``;
+- :mod:`pluss_torch.resilience.breaker` — the device circuit breaker the
+  serving layer wraps around device dispatch (closed → open after N
+  classified failures in a window → half-open probe).
 
 The JAX package's ``ShareCapOverflow`` has no counterpart (the port has no
-share cap), and ``CircuitBreaker`` waits for the serving layer.
+share cap).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from pluss_torch.resilience.errors import (
     WorkerDied,
     classify,
 )
+from pluss_torch.resilience.breaker import CircuitBreaker
 from pluss_torch.resilience.faults import FaultPlan
 from pluss_torch.resilience.journal import Journal
 from pluss_torch.resilience.ladder import (
@@ -49,7 +52,8 @@ from pluss_torch.resilience.ladder import (
 __all__ = [
     "PlussError", "ResourceExhausted", "CompileError", "CollectiveError",
     "WorkerDied", "DataLoss", "CacheCorrupt", "Overloaded",
-    "DeadlineExceeded", "InvalidRequest", "classify", "FaultPlan",
+    "DeadlineExceeded", "InvalidRequest", "classify", "CircuitBreaker",
+    "FaultPlan",
     "Journal", "LADDER", "SERVE_LADDER", "Retry", "run_resilient",
     "replay_file_resilient",
 ]

@@ -108,9 +108,19 @@ class CacheCorrupt(PlussError):
 
 class Overloaded(PlussError):
     """A serving admission bound is full: the request was shed before any
-    work happened.  Retryable from the client's side, after backing off."""
+    work happened.  Retryable from the client's side, after backing off.
+
+    ``retry_after_ms``, when set, names the back-off the shedding layer
+    suggests (the next token of a rate-limited tenant, the breaker's next
+    probe slot); ``serve.protocol.error_response`` puts it on the wire."""
 
     retryable = True
+
+    def __init__(self, message: str, site: str = "",
+                 cause: BaseException | None = None,
+                 retry_after_ms: int | None = None):
+        super().__init__(message, site, cause)
+        self.retry_after_ms = retry_after_ms
 
 
 class DeadlineExceeded(PlussError):
@@ -120,7 +130,15 @@ class DeadlineExceeded(PlussError):
 
 class InvalidRequest(PlussError):
     """A request failed admission (unparseable, an unknown model, a spec
-    the analyzers reject).  Fatal."""
+    the analyzers reject, a stream past the size bound).  Fatal;
+    ``diagnostics`` carries the analyzer findings as plain dicts when the
+    analyzers rejected it."""
+
+    def __init__(self, message: str, site: str = "",
+                 cause: BaseException | None = None,
+                 diagnostics: tuple = ()):
+        super().__init__(message, site, cause)
+        self.diagnostics = diagnostics
 
 
 #: substring markers of out-of-memory errors (the JAX package's, which

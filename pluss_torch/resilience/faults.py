@@ -20,14 +20,18 @@ fault kind          site                    effect at the armed hit
 ``trace_loss``      ``trace.read_batch``    raises ``DataLoss`` mid-stream
 ``collective``      ``multihost.init``      (no such site in the port yet)
 ``kill_worker``     ``multihost.heartbeat`` (no such site in the port yet)
-``hang``            ``serve.dispatch``      (no such site in the port yet)
-``dispatch_fail``   ``serve.dispatch``      (no such site in the port yet)
+``hang``            ``serve.dispatch``      sleeps ``PLUSS_FAULT_HANG_S``
+                                            (default 30 s): a wedged dispatch
+                                            for the serve watchdog
+``dispatch_fail``   ``serve.dispatch``      raises a synthetic device failure
+                                            (``RESOURCE_EXHAUSTED``) before the
+                                            ladder: trips the serve breaker
 ==================  ======================  =================================
 
 The JAX package's ``share_cap`` kind (at ``engine.finalize``) is refused
 by :meth:`FaultPlan.parse`: the port has no share cap, so the entry could
 never fire, and an armed fault that never fires would pass silently.
-``shard.run``, ``multihost.*`` and ``serve.dispatch`` are sites of layers
+``shard.run`` and ``multihost.*`` are sites of a layer
 the port does not have yet: their kinds parse, so a plan reads the same
 in both packages, and never fire.
 
@@ -167,8 +171,24 @@ class FaultPlan:
                              f"failed {tag}")
         if e.kind == "trace_loss":
             raise DataLoss(f"trace bytes lost mid-stream {tag}", site=site)
-        # collective, hang and dispatch_fail arm sites of layers the port
-        # does not have yet: nothing checks those sites
+        if e.kind == "hang":
+            # the wedged-dispatch stand-in: block the dispatching thread
+            # long enough for the serve watchdog to abandon it, then return
+            # normally (the stale device loop must exit on its own)
+            import time
+
+            from pluss_torch.utils.envknob import env_float
+
+            time.sleep(env_float("PLUSS_FAULT_HANG_S", 30.0, minimum=0.0))
+            return
+        if e.kind == "dispatch_fail":
+            # the JAX package's message: classify maps it by its marker to
+            # ResourceExhausted, the device evidence that trips the breaker
+            raise RuntimeError(
+                f"RESOURCE_EXHAUSTED: injected device dispatch failure "
+                f"{tag}")
+        # collective arms a site of the multi-device layer, which the port
+        # does not have yet: nothing checks that site
         raise AssertionError(f"no site of the port fires {e.kind}")
 
     def corrupt(self, site: str, path: str) -> bool:

@@ -68,7 +68,7 @@ import torch
 from pluss_torch import obs, residency
 from pluss_torch.config import NBINS
 from pluss_torch.engine import resolve_device
-from pluss_torch.obs import xprof
+from pluss_torch.obs import tracectx, xprof
 from pluss_torch.ops import wirecodec
 from pluss_torch.ops.decode import decode_d24v
 from pluss_torch.ops.event_hist import masked_histogram, masked_histogram_plain
@@ -173,11 +173,74 @@ def _positive(name: str, value, default: int) -> int:
     return v
 
 
+def _tuned(field: str, device=None):
+    """The autotuned geometry's value for one replay knob on ``device``,
+    or None.  Consulted LAST in every default resolution: explicit kwargs
+    and ``PLUSS_*`` env overrides always win; the tuned value only
+    replaces the shipped default (:mod:`pluss_torch.autotune`).  Host work
+    with no device of its own (``pack_file``) consults the card's
+    geometry when there is a card, the host's otherwise."""
+    from pluss_torch import autotune
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return autotune.consult(field, device)
+
+
+def _resolve_window(window: int | None, device=None) -> int:
+    """The effective replay window: explicit kwarg > autotuned geometry >
+    :data:`TRACE_WINDOW`.  Histograms are window-invariant, so the tuned
+    value is a throughput knob only; but it is part of the checkpoint and
+    residency identity, so it resolves once, up front."""
+    if window is not None:
+        return _positive("window", window, TRACE_WINDOW)
+    t = _tuned("window", device)
+    return int(t) if t else TRACE_WINDOW
+
+
+def _resolve_bw(batch_windows: int | None, device=None) -> int:
+    """The effective windows per batch, validated (``batch_windows=-4``
+    would replay nothing while claiming coverage).  Default chain: kwarg >
+    ``PLUSS_BATCH_WINDOWS`` > autotuned geometry > 16."""
+    if batch_windows is None:
+        bw = None
+        if "PLUSS_BATCH_WINDOWS" not in os.environ:
+            bw = _tuned("batch_windows", device)
+        bw = int(bw) if bw else WINDOWS_PER_BATCH
+        return _positive("batch_windows", bw, WINDOWS_PER_BATCH)
+    return _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
+
+
+def _resolve_stage_depth(stage_depth: int | None, device=None) -> int:
+    """Staged-ahead device batches: kwarg > ``PLUSS_TRACE_STAGE_DEPTH`` >
+    autotuned geometry > 2 (the double buffer)."""
+    if stage_depth is None:
+        if "PLUSS_TRACE_STAGE_DEPTH" not in os.environ:
+            t = _tuned("stage_depth", device)
+            if t:
+                return int(t)
+        return _env_int("PLUSS_TRACE_STAGE_DEPTH", 2)
+    return _positive("stage_depth", stage_depth, 2)
+
+
+def _resolve_queue_depth(queue_depth: int | None, device=None) -> int:
+    """Feed queue bound: kwarg > ``PLUSS_TRACE_QUEUE_DEPTH`` > autotuned
+    geometry > 2 (a depth of 0 would leave the queue unbounded)."""
+    if queue_depth is None:
+        if "PLUSS_TRACE_QUEUE_DEPTH" not in os.environ:
+            t = _tuned("queue_depth", device)
+            if t:
+                return int(t)
+        return _env_int("PLUSS_TRACE_QUEUE_DEPTH", 2)
+    return _positive("queue_depth", queue_depth, 2)
+
+
 def _resolve_wire(wire: str | None, device: torch.device) -> str:
-    """``auto``: d24v on the card (the compressed bytes cross PCIe and the
-    kernel expands them), pack on the CPU (no transport to compress for).
-    None reads ``PLUSS_WIRE`` (default ``auto``; an unknown value warns and
-    falls back), where an explicit bad value raises."""
+    """``auto``: the autotuned wire when there is one, else d24v on the
+    card (the compressed bytes cross PCIe and the kernel expands them) and
+    pack on the CPU (no transport to compress for).  None reads
+    ``PLUSS_WIRE`` (default ``auto``; an unknown value warns and falls
+    back), where an explicit bad value raises."""
     if wire is None:
         from pluss_torch.utils.envknob import env_choice
 
@@ -186,6 +249,9 @@ def _resolve_wire(wire: str | None, device: torch.device) -> str:
         raise ValueError(f"unknown wire format {wire!r} (choices: "
                          f"{', '.join(WIRE_CHOICES)})")
     if wire == "auto":
+        t = _tuned("wire", device)
+        if t in ("pack", "d24v"):
+            return t
         return "d24v" if device.type == "cuda" else "pack"
     return wire
 
@@ -200,6 +266,22 @@ def _default_feed_workers(device: torch.device) -> int:
     thread; with a card the host cores idle while it computes: use most
     of them."""
     return 1 if device.type == "cpu" else _host_workers()
+
+
+def _resolve_feed_workers(feed_workers: int | None, device: torch.device,
+                          default: int | None = None) -> int:
+    """Reader/packer pool width: kwarg > ``PLUSS_FEED_WORKERS`` >
+    autotuned geometry > ``default`` (the device's
+    :func:`_default_feed_workers` when None).  An explicit 0 raises: a
+    pool of no workers would deliver nothing and hang the feed."""
+    if feed_workers is None:
+        if "PLUSS_FEED_WORKERS" not in os.environ:
+            t = _tuned("feed_workers", device)
+            if t:
+                return int(t)
+        return _env_int("PLUSS_FEED_WORKERS", default if default is not None
+                        else _default_feed_workers(device))
+    return _positive("feed_workers", feed_workers, 1)
 
 
 class _threaded:
@@ -281,6 +363,10 @@ class _FeedPool:
 
     def __init__(self, b0: int, end: int, claim_fn, read_fn, compact_fn,
                  encode_fn, workers: int, depth: int):
+        # serve attribution: the pool is built on the replay thread, which
+        # runs under the request's trace context; every worker re-enters
+        # it, so their spans and events resolve to the same request
+        self._trace_token = tracectx.capture()
         self._end = end
         self._claim_fn, self._read_fn = claim_fn, read_fn
         self._compact_fn, self._encode_fn = compact_fn, encode_fn
@@ -339,6 +425,10 @@ class _FeedPool:
         return item
 
     def _run(self):
+        with tracectx.attach(self._trace_token):
+            self._run_inner()
+
+    def _run_inner(self):
         while True:
             with self._cv:
                 while (not self._stop and self._next_claim < self._end
@@ -660,7 +750,7 @@ def _replay_ids(ids: np.ndarray, n_lines: int, n: int, window: int,
                 batch_windows: int | None, dev: torch.device,
                 hist_fn, batch_fn) -> ReplayResult:
     """Stream dense line ids through the device in fixed-shape batches."""
-    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
+    bw = _resolve_bw(batch_windows, dev)
     batch = bw * window
     n_batches = -(-n // batch)
     pdt = _pos_dtype(n_batches, batch)
@@ -825,7 +915,7 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
     the store.  None or False keeps the store out of the path.
     """
     dev = resolve_device(device)
-    window = _positive("window", window, TRACE_WINDOW)
+    window = _resolve_window(window, dev)
     if fmt == "text":  # line-oriented; no random access worth streaming
         return replay(load_trace(path, fmt), cls, window,
                       precompacted=precompacted, batch_windows=batch_windows,
@@ -843,18 +933,15 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
     if cls & (cls - 1):
         raise ValueError(f"cache line size {cls} is not a power of two")
     shift = int(cls).bit_length() - 1
-    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
+    bw = _resolve_bw(batch_windows, dev)
     batch = bw * window
     n_batches = -(-n // batch)
     pdt = _pos_dtype(n_batches, batch)
     np_pdt = np.int32 if pdt == torch.int32 else np.int64
     wirefmt = _resolve_wire(wire, dev)
-    workers = _positive("feed_workers", feed_workers, _env_int(
-        "PLUSS_FEED_WORKERS", _default_feed_workers(dev)))
-    sd = _positive("stage_depth", stage_depth,
-                   _env_int("PLUSS_TRACE_STAGE_DEPTH", 2))
-    qd = _positive("queue_depth", queue_depth,
-                   _env_int("PLUSS_TRACE_QUEUE_DEPTH", 2))
+    workers = _resolve_feed_workers(feed_workers, dev)
+    sd = _resolve_stage_depth(stage_depth, dev)
+    qd = _resolve_queue_depth(queue_depth, dev)
     batch_fn = _batch_fn(segmented, window)
 
     # a checkpointed or resumed run enters mid-stream, so its staging
@@ -1230,11 +1317,10 @@ def pack_file(path: str, out_path: str, cls: int = 64,
     if wire is not None and wire not in WIRE_CHOICES:
         raise ValueError(f"unknown wire format {wire!r} (choices: "
                          f"{', '.join(WIRE_CHOICES)})")
-    workers = _positive("feed_workers", feed_workers,
-                        _env_int("PLUSS_FEED_WORKERS", _host_workers()))
+    workers = _resolve_feed_workers(feed_workers, None, _host_workers())
     shift = int(cls).bit_length() - 1
-    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
-    window = _positive("window", window, TRACE_WINDOW)
+    bw = _resolve_bw(batch_windows)
+    window = _resolve_window(window)
     batch = bw * window
     if wire == "d24v" and batch > _D24V_MAX_BATCH:
         # the decode's bit offsets are 32-bit: a record past the cap
@@ -1408,7 +1494,7 @@ def pack_cached(path: str, packed_path: str | None = None, *,
     n = _u64_count(path)
     if limit_refs is not None:
         n = min(n, limit_refs)
-    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
+    bw = _resolve_bw(batch_windows)
     if os.path.exists(packed) and os.path.exists(sidecar):
         try:
             with open(sidecar) as f:
@@ -1477,7 +1563,7 @@ def ensure_resident(path: str, *, cls: int = 64, window: int = TRACE_WINDOW,
     st = residency.store()
     n_file = _u64_count(path)
     n_req = n_file if limit_refs is None else min(n_file, limit_refs)
-    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
+    bw = _resolve_bw(batch_windows, dev)
     key = _residency_key(path, cls=cls, window=window, bw=bw,
                          precompacted=precompacted, device=dev)
     ent = st.lookup_pin(key, n_run=n_req)
@@ -1541,12 +1627,11 @@ def stage_resident(packed_path: str, meta: dict,
     n = meta["n"] if limit_refs is None else min(meta["n"], limit_refs)
     if n == 0:
         return None, 0, {"upload_s": 0.0, "upload_bytes": 0}
-    bw = _positive("batch_windows", batch_windows, WINDOWS_PER_BATCH)
-    window = _positive("window", window, TRACE_WINDOW)
+    bw = _resolve_bw(batch_windows, dev)
+    window = _resolve_window(window, dev)
     batch = bw * window
     n_batches = -(-n // batch)
-    workers = _positive("feed_workers", feed_workers, _env_int(
-        "PLUSS_FEED_WORKERS", _default_feed_workers(dev)))
+    workers = _resolve_feed_workers(feed_workers, dev)
     if d24v and meta.get("batch") != batch:
         raise ValueError(
             f"d24v pack {packed_path} was cut at {meta.get('batch')} "

@@ -33,6 +33,33 @@ def env_choice(name: str, default: str, choices: tuple[str, ...]) -> str:
                          tuple(choices))
 
 
+def env_bool(name: str, default: bool | None = None) -> bool | None:
+    """Boolean env knob (``PLUSS_AUTOTUNE``).  An unset knob returns
+    ``default`` unchanged (None keeps it tri-state); ``0``/``false``/
+    ``no``/``off`` really mean off; anything else warns once and falls
+    back to the default."""
+    return _parse_bool(name, os.environ.get(name, ""), default)
+
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+
+@functools.lru_cache(maxsize=64)
+def _parse_bool(name: str, raw: str, default: bool | None) -> bool | None:
+    v = raw.strip().lower()
+    if not v:
+        return default
+    if v in _TRUE:
+        return True
+    if v in _FALSE:
+        return False
+    print(f"pluss_torch: ignoring malformed {name}={raw!r} (want one of "
+          f"{', '.join(_TRUE + _FALSE)}); using the default {default}",
+          file=sys.stderr)
+    return default
+
+
 def env_int_list(name: str, default: tuple[int, ...],
                  minimum: int = 1) -> tuple[int, ...]:
     """Comma-separated ascending int list (e.g. PLUSS_CACHE_LEVELS): a

@@ -6,6 +6,7 @@ prints for the same model (the reference's differential ``acc`` test);
 ``trace --cpu`` must print what ``python -m pluss.cli trace --cpu`` prints
 below its banner and write the same MRC CSV, byte for byte; ``sample
 --cpu`` prints exactly what ``python -m pluss.cli sample --cpu`` prints.
+``serve``, ``sweep`` and ``autotune`` run with jax and ``pluss`` blocked.
 """
 
 import contextlib
@@ -14,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -705,3 +707,86 @@ def test_import_and_spec_dir_run_with_jax_and_pluss_blocked(tmp_path,
                                   **({"PLUSS_SPEC_DIR": env} if env
                                      else {})})
         assert run.stdout.strip() == want, run.stderr
+
+
+# --- the serving daemon, the sweep and the autotuner -------------------------
+
+BLOCKED = ("import runpy, sys; sys.modules['jax'] = None; "
+           "sys.modules['pluss'] = None; sys.argv = {argv!r}; "
+           "runpy.run_module('pluss_torch.cli', run_name='__main__')")
+
+
+def test_serve_runs_with_jax_and_pluss_blocked(tmp_path):
+    """``serve --cpu --socket`` in a fresh interpreter where importing jax
+    or the pluss package fails: it answers a request equal to the port's
+    solo run, and a shutdown line drains it to exit 0."""
+    from pluss_torch import cri, engine
+    from pluss_torch.config import SamplerConfig
+    from pluss_torch.models import gemm
+    from pluss_torch.serve import Client
+
+    sock = str(tmp_path / "p.sock")
+    code = BLOCKED.format(argv=["pluss_torch.cli", "serve", "--cpu",
+                                "--socket", sock])
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while not os.path.exists(sock):
+            assert proc.poll() is None, proc.communicate()[1]
+            assert time.monotonic() < deadline, "daemon never listened"
+            time.sleep(0.1)
+        with Client(sock) as c:
+            r = c.request({"model": "gemm", "n": 12, "threads": 2,
+                           "chunk": 2, "output": "histogram"})
+            assert c.request({"op": "shutdown"})["draining"]
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "listening on" in err and "drained and stopped" in err
+    cfg = SamplerConfig(thread_num=2, chunk_size=2)
+    res = engine.run(gemm(12), cfg, device="cpu")
+    ri = cri.distribute(res.noshare_list(), res.share_list(), 2)
+    assert r["ok"] and r["histogram"] == {str(int(k)): float(v)
+                                          for k, v in sorted(ri.items())}
+
+
+@pytest.mark.parametrize("argv", [
+    ["sweep", "--cpu", "--model", "gemm", "--n", "12",
+     "--sweep-threads", "1,2", "--sweep-chunks", "4"],
+    ["autotune", "--dry-run", "--cpu"],
+])
+def test_sweep_and_autotune_run_with_jax_and_pluss_blocked(argv, capsys):
+    run = subprocess.run(
+        [sys.executable, "-c",
+         BLOCKED.format(argv=["pluss_torch.cli", *argv])],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert cli.main(argv) == 0
+    assert run.stdout == capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["serve", "--socket", "/tmp/x.sock"],
+                                  ["sweep", "--n", "8"],
+                                  ["autotune", "--dry-run"]])
+def test_serve_sweep_autotune_need_a_card_or_cpu(argv, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(SystemExit):
+        cli.main(argv)
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_serve_usage_errors(capsys, tmp_path):
+    with pytest.raises(SystemExit):
+        cli.main(["serve", "--cpu"])
+    assert "exactly one of --socket/--port" in capsys.readouterr().err
+    assert cli.main(["serve", "--cpu", "--socket", str(tmp_path / "h.sock"),
+                     "--heartbeat-dir", str(tmp_path)]) == 2
+    assert "item 7" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main(["autotune", "--cpu", "--force", "--dry-run"])

@@ -229,9 +229,17 @@ def test_port_imports_no_jax_and_no_pluss():
     # the authoring frontend, file for file the JAX package's
     frontend = {f"pluss_torch/frontend/{m}.py" for m in (
         "__init__", "cparse", "dsl", "emit", "ir", "lower", "polybench")}
-    assert analysis | model | frontend | {
+    # the serving daemon, the autotuner and the sweep
+    serve = {f"pluss_torch/serve/{m}.py" for m in (
+        "__init__", "admission", "batcher", "journal", "placement",
+        "protocol", "server")}
+    assert analysis | model | frontend | serve | {
         "pluss_torch/iteration.py", "pluss_torch/models/__init__.py",
-        "pluss_torch/cli.py"} <= scanned
+        "pluss_torch/cli.py", "pluss_torch/autotune.py",
+        "pluss_torch/plancache.py", "pluss_torch/sweep.py",
+        "pluss_torch/obs/tracectx.py", "pluss_torch/obs/slo.py",
+        "pluss_torch/obs/flight.py",
+        "pluss_torch/resilience/breaker.py"} <= scanned
     assert {p for p in scanned if p.startswith(("pluss_torch/analysis/",
                                                 "pluss_torch/model/",
                                                 "pluss_torch/frontend/"))} \
