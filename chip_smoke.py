@@ -10,9 +10,11 @@ the trace replay (``trace.replay_file`` -> the ``trace`` block, streamed
 and through the residency store; ``pack_file`` -> ``stage_resident`` ->
 ``replay_staged``) — the static analysis modes, whose cross-checks run
 the sampler there, the authoring and transform modes, whose specs run
-there, and the autotuner, the schedule sweep and the serving daemon,
-which run both paths there — and holds every kernel of those paths
-against its plain torch version.  Each phase prints one JSON line; any failed check
+there, the autotuner, the schedule sweep and the serving daemon,
+which run both paths there, and the multi-device layer, which runs both
+paths sharded there (``parallel.shard_run``, ``trace.shard_replay_file``,
+process groups on ``torch.distributed``) — and holds every kernel of
+those paths against its plain torch version.  Each phase prints one JSON line; any failed check
 raises, so the script exits non-zero and prints no result line.  Phases:
 
 1. build: compile the three kernels from ``pluss_torch/csrc`` with one
@@ -181,7 +183,23 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     --check`` with ``stats --trace a0`` resolving admit → queue → dispatch
     → demux; each request's latency and the SLO p50/p99 are printed
     beside the card line;
-27. the kernels line, the card's name and power limit, and the result line.
+27. shard: the multi-device layer (``pluss_torch.parallel``): (a)
+    cholesky-2000 through ``shard_run``, steal with one worker and with
+    four workers on ``cuda:0`` (kernel 2 once per thread and window) and
+    static with one device on the legacy windows (kernel 1 once per
+    window), each equal to phase 8's run; (b) cholesky-1000 at four
+    workers under steal seeds 0 and 1: equal results, different chunk ->
+    worker maps; (c) phase 17's trace through ``shard_replay_file``, steal
+    at four workers and static at one device (kernel 2 sixteen times
+    each), equal to phase 17's replay; (d) two gloo ranks sharing the
+    card (``torch.distributed`` through a file rendezvous), static
+    ``shard_run`` of trmm-1000 equal to ``engine.run``, and a world of one
+    under NCCL; (e) ``run_resilient(backend="shard")`` of mvt-4000 under
+    ``shard_oom@1``, recovered on ``shrink_window``, equal to phase 7's
+    run; (f) ``cli acc --model gemm --n 128`` with the default backends
+    (vmap, shard, seq): three blocks, each phase 16's below its banner,
+    and ``stats`` of its telemetry shows the ``shard scale-out:`` block;
+28. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
 (phases 5-16, 17-18's first replay, phase 19's staging, first staged
@@ -189,7 +207,8 @@ replay, legacy scan, stage-through and hit, every run of phases 20-21,
 phase 22's ``--check``, engine and ``spec load --run`` runs, phase
 23's ``import``, engine, corpus, ``transform`` and ``tune`` runs, each
 of phase 24's calibration points and its tuned replay, phase 25's
-sweeps and CLI run, and phase 26's requests (a)-(d))
+sweeps and CLI run, phase 26's requests (a)-(d), and each of phase 27's
+runs but the ranks of (d), which count their own)
 and read just after it: the
 event kernel must launch once per plan window that sorts something (0 for
 GEMM and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
@@ -197,7 +216,10 @@ window of syrk and syr2k), per thread batch in a sliced run, and once
 per counted sampled window; the masked
 histogram and the decode once per trace batch (a resident replay: the
 histogram once per batch, or per window on the legacy scan, and no
-decode; staging a d24v pack: the decode once per record).  Every sampler
+decode; staging a d24v pack: the decode once per record; a sharded
+run: the masked histogram once per thread and segmented window, the event
+kernel once per legacy window, the masked histogram once per sharded
+replay chunk or step).  Every sampler
 run must conserve its accesses (cold + no-share events + share events = refs).
 The comparison launches of phases 2-4 and the cross-checks of phases 7,
 8, 11-12, 14, 17 and 19 are not counted.  Exits non-zero, printing no
@@ -862,7 +884,8 @@ def main() -> int:
     buf = io.StringIO()
     stdout, sys.stdout = sys.stdout, buf
     try:
-        rc = cli.main(["acc", "--model", "gemm", "--n", "128"])
+        rc = cli.main(["acc", "--backends", "vmap", "--model", "gemm",
+                       "--n", "128"])
     finally:
         sys.stdout = stdout
     lines = buf.getvalue().splitlines()
@@ -892,7 +915,6 @@ def main() -> int:
         # 23. the authoring and transform modes, their specs on the card
         frontend_phase(cfg, by_path, sort_windows, conserved, res1k, resm,
                        resc)
-        del resc
 
         # 24. the autotuner, its winner persisted for this card
         autotune_phase(by_path, os.path.join(tmp, "smoke.bin"), streamed)
@@ -900,10 +922,13 @@ def main() -> int:
         sweep_phase(cfg, by_path, sort_windows)
         # 26. the serving daemon, on phase 17's trace among others
         serve_lines = serve_phase(tmp, cfg, by_path, streamed, resm, res1k)
+        # 27. the multi-device layer: shard_run, the sharded replay,
+        # process groups, the shard ladder and the CLI's three backends
+        shard_phase(tmp, cfg, by_path, resc, streamed, resm, lines)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 27. kernels line, card, result -----------------------------------------
+    # 28. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
@@ -937,6 +962,267 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+#: one rank of phase 27 (d): a process group of ``world`` ranks through a
+#: file rendezvous, static ``shard_run`` of trmm-1000 on this rank's card,
+#: the result (rank 0) and the exchange's route to a JSON file
+_SHARD_RANK = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from pluss_torch.config import SamplerConfig
+from pluss_torch.models import trmm
+from pluss_torch.ops.event_hist import masked_histogram
+from pluss_torch.parallel import multihost
+from pluss_torch.parallel.shard import shard_run
+rendezvous, world, rank, backend, out = sys.argv[2:7]
+world, rank = int(world), int(rank)
+t0 = time.perf_counter()
+multihost.initialize(rendezvous, world, rank, device="cuda", backend=backend)
+init_s = time.perf_counter() - t0
+probe = None
+if backend == "gloo":
+    # whether this build's gloo moves CUDA tensors itself (the exchange
+    # stages gloo's tensors through host memory either way)
+    try:
+        x = torch.full((1,), rank, device="cuda", dtype=torch.int64)
+        y = torch.empty(world, device="cuda", dtype=torch.int64)
+        dist.all_gather_into_tensor(y, x)
+        probe = y.cpu().tolist() == list(range(world))
+    except Exception as e:
+        probe = f"{type(e).__name__}: {str(e)[:200]}"
+masked_histogram.launches = 0
+t0 = time.perf_counter()
+res = shard_run(trmm(1000), SamplerConfig(),
+                devices=multihost.global_devices("cuda"), dispatch="static")
+run_s = time.perf_counter() - t0
+doc = {"rank": rank, "init_s": init_s, "run_s": run_s,
+       "launches": masked_histogram.launches, "gloo_cuda_allgather": probe,
+       "stats": res.dispatch_stats}
+if rank == 0:
+    doc.update(hist=res.noshare_dense.tolist(), count=res.max_iteration_count,
+               share=[{str(k): v for k, v in d.items()}
+                      for d in res.share_raw])
+json.dump(doc, open(f"{out}.{rank}", "w"))
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def shard_ranks(tmp: str, world: int, backend: str) -> list[dict]:
+    """Run :data:`_SHARD_RANK` as ``world`` processes on the card through
+    a file rendezvous in ``tmp``; every rank must exit 0 within its time
+    limit (the rest are killed); returns their JSON documents."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rdv = os.path.join(tmp, f"rdv_{backend}_{world}")
+    out = os.path.join(tmp, f"ranks_{backend}_{world}.json")
+    logs = [open(os.path.join(tmp, f"rank_{backend}_{i}.log"), "w+")
+            for i in range(world)]
+    procs = []
+    try:
+        for i in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _SHARD_RANK, repo, f"file://{rdv}",
+                 str(world), str(i), backend, out],
+                stdout=logs[i], stderr=subprocess.STDOUT))
+        for p_, lg in zip(procs, logs):
+            try:
+                rc = p_.wait(timeout=240)
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            lg.seek(0)
+            check(rc == 0, f"{backend} rank exited {rc}: {lg.read()[-3000:]}")
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+        for lg in logs:
+            lg.close()
+    return [json.load(open(f"{out}.{i}")) for i in range(world)]
+
+
+def shard_phase(tmp: str, cfg, by_path: dict, resc, streamed, resm,
+                acc_lines) -> None:
+    """Phase 27: the multi-device layer (``pluss_torch.parallel``) on the
+    card: (a) cholesky-2000 through ``shard_run``, steal with one worker
+    and with four workers on ``cuda:0`` (each under its own stream;
+    kernel 2 once per thread and window) and static with one device on
+    the legacy windows (kernel 1 once per window), each equal to phase 8's
+    run; (b) cholesky-1000 at four workers under steal seeds 0 and 1:
+    equal results, different chunk -> worker maps; (c) phase 17's trace
+    through ``shard_replay_file``, steal at four workers and static at
+    one device (kernel 2 once per 2^24-ref chunk or step, 16), each equal
+    to the streamed replay; (d) two gloo ranks sharing the card, static
+    ``shard_run`` of trmm-1000 equal to ``engine.run`` (with the route
+    their exchange took), and a world of one under NCCL; (e)
+    ``run_resilient(backend="shard")`` of mvt-4000 under ``shard_oom@1``,
+    recovered on ``shrink_window`` and equal to phase 7's run; (f) ``cli
+    acc --model gemm --n 128`` with the default backends: three blocks
+    with the goldens, and ``stats`` of its telemetry shows the steal
+    run's ``shard scale-out:`` block."""
+    import numpy as np
+    import torch
+
+    from pluss_torch import engine, trace
+    from pluss_torch.models import cholesky, mvt, trmm
+    from pluss_torch.parallel import shard
+    from pluss_torch.resilience import run_resilient
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    T = cfg.thread_num
+
+    def sort_launches(pl, per_thread: bool) -> int:
+        # every shard window sorts: the plan has no overlays and no
+        # row-private tables, and a template window sorts its other arrays
+        n = sum(int((~np_.ultra_windows()).sum())
+                + int(np_.ultra_windows().sum()) * bool(np_.var_refs)
+                for np_ in pl.nests)
+        return n * (T if per_thread else 1)
+
+    # (a) cholesky-2000 three ways
+    runs = (("steal1", [card], "steal", True),
+            ("steal4", [card] * 4, "steal", True),
+            ("static1_legacy", [card], "static", False))
+    for label, devs, mode, seg in runs:
+        torch.cuda.reset_peak_memory_stats()
+        ms0 = torch.cuda.memory_stats()
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: shard.shard_run(
+            cholesky(2000), cfg, devices=devs, dispatch=mode,
+            segmented=seg))
+        dt = time.perf_counter() - t0
+        ms1 = torch.cuda.memory_stats()
+        clean(f"shard_cholesky_{label}", res)
+        by_path[f"shard_cholesky_{label}"] = counts
+        pl, _ = shard._shard_geometry(cholesky(2000), cfg, len(devs), None,
+                                      None, None)
+        want = sort_launches(pl, seg)
+        got = counts["masked_hist" if seg else "carried_event_hist"]
+        check(same_result(res, resc), f"cholesky2000 shard {label} != "
+              "engine.run")
+        check(got == want and counts["d24v_decode"] == 0
+              and counts["carried_event_hist" if seg else "masked_hist"]
+              == 0, f"cholesky2000 shard {label}: launches {counts}, the "
+              f"plan wants {want}")
+        out[f"cholesky2000_{label}"] = {
+            "seconds": dt, "launches": counts, "windows": pl.nests[0]
+            .n_windows, "stats": {k: v for k, v in res.dispatch_stats.items()
+                                  if k != "ran_by"},
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+            # the caching allocator's calls to the driver during the run
+            # (a cudaFree waits for the whole card)
+            "allocator": {k: ms1.get(k, 0) - ms0.get(k, 0) for k in (
+                "num_device_alloc", "num_device_free",
+                "num_alloc_retries")}}
+
+    # (b) steal seeds permute the schedule, never the result
+    small = cholesky(1000)
+    ref = engine.run(small, cfg)
+    maps = []
+    t0 = time.perf_counter()
+    for seed in (0, 1):
+        res, counts = counted(lambda: shard.shard_run(
+            small, cfg, devices=[card] * 4, dispatch="steal",
+            steal_seed=seed))
+        by_path[f"shard_cholesky1000_seed{seed}"] = counts
+        check(same_result(res, ref), f"cholesky1000 seed {seed} != engine")
+        maps.append(res.dispatch_stats["ran_by"])
+    check(maps[0] != maps[1], "steal seeds 0 and 1 ran the same schedule")
+    out["cholesky1000_seeds"] = {"seconds": time.perf_counter() - t0,
+                                 "chunks": len(maps[0]),
+                                 "moved": sum(maps[0][c] != maps[1][c]
+                                              for c in maps[0])}
+
+    # (c) the 2^28-ref trace, sharded
+    path = os.path.join(tmp, "smoke.bin")
+    geo = dict(window=trace.TRACE_WINDOW, batch_windows=16)
+    for label, devs, mode in (("steal4", [card] * 4, "steal"),
+                              ("static1", [card], "static")):
+        t0 = time.perf_counter()
+        rep, counts = counted(lambda: trace.shard_replay_file(
+            path, devices=devs, dispatch=mode, **geo))
+        dt = time.perf_counter() - t0
+        by_path[f"shard_trace_{label}"] = counts
+        check(np.array_equal(rep.hist, streamed.hist)
+              and rep.total_count == streamed.total_count,
+              f"shard_replay_file {label} != replay_file")
+        check(counts["masked_hist"] == 16 and counts["d24v_decode"] == 0
+              and counts["carried_event_hist"] == 0,
+              f"shard_replay_file {label}: launches {counts}")
+        out[f"trace_{label}"] = {"seconds": dt, "launches": counts,
+                                 "refs_per_s": rep.total_count / dt}
+
+    # (d) processes: two gloo ranks on the one card, NCCL at world 1
+    want = engine.run(trmm(1000), cfg)
+    t0 = time.perf_counter()
+    for backend, world in (("gloo", 2), ("nccl", 1)):
+        docs = shard_ranks(tmp, world, backend)
+        got = docs[0]
+        check(got["count"] == want.max_iteration_count
+              and got["hist"] == want.noshare_dense.tolist()
+              and got["share"] == [{str(k): v for k, v in d.items()}
+                                   for d in want.share_raw],
+              f"{backend} x{world} static shard_run != engine.run")
+        check(all(d["launches"] > 0 for d in docs),
+              f"{backend}: a rank launched no kernel")
+        out[f"trmm1000_{backend}{world}"] = {
+            "ranks": [{k: d[k] for k in ("rank", "init_s", "run_s",
+                                         "launches", "gloo_cuda_allgather")}
+                      for d in docs],
+            "exchange": "nccl, device tensors" if backend == "nccl"
+            else "gloo, staged through host memory"}
+    out["processes_s"] = time.perf_counter() - t0
+
+    # (e) the shard ladder under an injected OOM
+    saved = os.environ.get("PLUSS_FAULT_PLAN")
+    os.environ["PLUSS_FAULT_PLAN"] = "shard_oom@1"
+    try:
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: run_resilient(mvt(4000), cfg,
+                                                    backend="shard"))
+    finally:
+        os.environ.pop("PLUSS_FAULT_PLAN")
+        if saved is not None:
+            os.environ["PLUSS_FAULT_PLAN"] = saved
+    by_path["shard_ladder"] = counts
+    check(res.degradations == ("shrink_window",) and same_result(res, resm),
+          f"shard ladder: stamped {res.degradations}")
+    out["ladder_mvt4000"] = {"seconds": time.perf_counter() - t0,
+                             "degradations": list(res.degradations),
+                             "launches": counts}
+
+    # (f) the CLI's three blocks and the steal telemetry
+    ev = os.path.join(tmp, "shard_events.jsonl")
+    t0 = time.perf_counter()
+    (rc, so, se), counts = counted(lambda: cli_call(
+        ["acc", "--model", "gemm", "--n", "128", "--telemetry", ev]))
+    by_path["shard_cli"] = counts
+    check(rc == 0, f"cli acc: rc {rc}: {se[-2000:]}")
+    banners = [ln.split(":")[0] for ln in so.splitlines()
+               if ln.startswith("TORCH CUDA")]
+    check(banners == ["TORCH CUDA", "TORCH CUDA SHARD", "TORCH CUDA SEQ"],
+          f"cli acc banners {banners}")
+    # each block below its banner is phase 16's (the GEMM-128 goldens)
+    blocks = [b.split("\n", 1)[1] for b in so.split("TORCH CUDA")[1:]]
+    check(all(b.splitlines() == acc_lines[1:] for b in blocks)
+          and acc_lines[-3:] == ["max iteration traversed", "8421376", ""],
+          "cli acc: a backend's block differs from phase 16's")
+    from pluss_torch import obs
+
+    obs.configure(None)
+    rc, st, se = cli_call(["stats", ev])
+    check(rc == 0 and "shard scale-out:" in st, f"stats: {se[-2000:]}")
+    out["cli"] = {"seconds": time.perf_counter() - t0, "launches": counts,
+                  "stats_lines": [ln for ln in st.splitlines()
+                                  if "chunks" in ln or "busy" in ln]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "shard", **out, "ok": True})
 
 
 def curve_of(res, cfg):

@@ -16,12 +16,17 @@ the authoring and transform modes.
     python -m pluss_torch.cli serve --cpu --socket /tmp/p.sock
     python -m pluss_torch.cli autotune --dry-run
 
-- ``acc``: one timed run; prints the reference's block (timing banner, the
-  three histogram dumps, "max iteration traversed").  Below the banner the
-  block is line for line the one ``python -m pluss.cli acc --backends vmap``
-  prints for the same model.
-- ``speed``: ``--reps`` timed runs, a banner+seconds line each.
-- ``mrc``: the AET miss-ratio curve, written to ``--out``.
+- ``acc``: one timed run per backend of ``--backends`` (default
+  ``vmap,shard,seq``: the engine's threads as rows of one batch, the
+  sharded backend of :mod:`pluss_torch.parallel` over every card
+  (``--shard-dispatch auto|steal|static``), and the engine one thread at
+  a time); each prints the reference's block (timing banner, the three
+  histogram dumps, "max iteration traversed").  Below each banner the
+  blocks are line for line the ones ``python -m pluss.cli acc`` prints
+  for the same model and backends.
+- ``speed``: ``--reps`` timed runs per backend, a banner+seconds line each.
+- ``mrc``: the AET miss-ratio curve of the first backend, written to
+  ``--out``.
 - ``sample``: subset sampling (:mod:`pluss_torch.sampling`) at each of
   ``--rates`` (``--sample-mode uniform|prefix``, ``--context`` warm-up
   windows, ``--window`` the sample span), against the full run: prints
@@ -33,8 +38,12 @@ the authoring and transform modes.
   (``--resident-cache`` rides the residency store; the rungs taken, if
   any, go to stderr); prints the banner, the reuse histogram and ``N
   refs over L lines; wrote MRC to <out>``, and writes the MRC to
-  ``--out``.  Below the banner the block and the CSV are byte
-  for byte those of ``python -m pluss.cli trace``.
+  ``--out``.  ``--backends shard`` (explicit and alone) replays it
+  sharded (:func:`pluss_torch.trace.shard_replay_file`, with
+  ``--shard-dispatch`` and the ``--journal``/``--resume`` checkpoint; a
+  text trace through :func:`pluss_torch.trace.shard_replay`).  Below the
+  banner the block and the CSV are byte for byte those of ``python -m
+  pluss.cli trace``.
 - ``stats <events.jsonl>``: aggregate a telemetry stream (``--check``
   validates it instead, ``--trace RID`` renders one request's spans,
   ``--follow`` tails a growing stream): host code only, no card, and
@@ -82,8 +91,7 @@ the authoring and transform modes.
 - ``serve`` (``--socket PATH`` or ``--port N``): the multi-tenant
   prediction daemon (:mod:`pluss_torch.serve`), with JAX's flags
   (``--warm``, ``--journal-dir``/``--recover``, ``--metrics-port``,
-  ``--flight-dir``, ``--drain-timeout-s`` ...); ``--heartbeat-dir`` is
-  refused (the multi-device layer is not ported yet).
+  ``--flight-dir``, ``--drain-timeout-s``, ``--heartbeat-dir`` ...).
 - ``autotune``: calibrate the streamed replay's batch geometry on the
   device and persist it beside the plan cache
   (:mod:`pluss_torch.autotune`; ``--force``, ``--refs``); ``--dry-run``
@@ -124,12 +132,30 @@ from pluss_torch.io import RI_TITLE, acc_block, print_histogram, speed_block
 from pluss_torch.models import REGISTRY
 
 
+#: the sampler backends of ``acc``/``speed``/``mrc`` (the JAX CLI's)
+BACKENDS = ("vmap", "shard", "seq")
+
+
 def sampler_step(spec, cfg: SamplerConfig, device, window=None,
-                 start_point=None):
-    """() -> (result, rihist): one sampler run plus the CRI post-pass."""
+                 start_point=None, backend: str = "vmap", dispatch=None):
+    """() -> (result, rihist): one sampler run of ``backend`` plus the CRI
+    post-pass; ``shard`` runs over every card (on the CPU, one worker)."""
+    if backend == "shard":
+        from pluss_torch.parallel.shard import default_devices, shard_run
+
+        devices = default_devices(device=device)
+        run_once = lambda: shard_run(spec, cfg, devices=devices,
+                                     window_accesses=window,
+                                     start_point=start_point,
+                                     dispatch=dispatch)
+    else:
+        run_once = lambda: engine.run(spec, cfg, device=device,
+                                      window_accesses=window,
+                                      start_point=start_point,
+                                      backend=backend)
+
     def step():
-        res = engine.run(spec, cfg, device=device, window_accesses=window,
-                         start_point=start_point)
+        res = run_once()
         ri = cri.distribute(res.noshare_list(), res.share_list(),
                             cfg.thread_num)
         return res, ri
@@ -145,8 +171,9 @@ def timed(step):
     return time.perf_counter() - t0, res, ri
 
 
-def banner_of(device) -> str:
-    return "TORCH CUDA" if device.type == "cuda" else "TORCH CPU"
+def banner_of(device, backend: str = "vmap") -> str:
+    base = "TORCH CUDA" if device.type == "cuda" else "TORCH CPU"
+    return base if backend == "vmap" else f"{base} {backend.upper()}"
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -237,12 +264,24 @@ def main(argv: list[str] | None = None) -> int:
                    help="sweep/tune mode: chunk sizes (comma list)")
     p.add_argument("--cache-lines", default="512,4096,40960",
                    help="sweep mode: cache sizes (lines) for the table")
+    p.add_argument("--backends", default=None,
+                   help="acc/speed/mrc mode: comma list of "
+                        + ",".join(BACKENDS) + " (default: all three); "
+                        "trace mode: exactly 'shard' replays sharded")
+    p.add_argument("--shard-dispatch", default=None,
+                   choices=("auto", "steal", "static"),
+                   help="shard backend and sharded trace replay: chunk "
+                        "dispatch mode, steal (work-stealing worker "
+                        "threads; the single-process default for long "
+                        "runs), static (one segment per device and one "
+                        "exchange; the multi-process mode) or auto "
+                        "(PLUSS_SHARD_DISPATCH).  Bit-identical either way")
     p.add_argument("--device-groups", type=int, default=None,
                    help="sweep mode: split the devices into this many "
-                        "groups and run one sweep point per group (on one "
-                        "card the groups clamp to one; a group of more "
-                        "than one device needs the multi-device backend, "
-                        "not ported yet); default serial")
+                        "groups and run one sweep point per group (a "
+                        "group of several devices runs its point "
+                        "sharded; on one card the groups clamp to one); "
+                        "default serial")
     p.add_argument("--share-cap", type=int, default=SHARE_CAP,
                    help="sweep mode: the JAX package's share cap, kept as "
                         "a label (the port's engine has no cap)")
@@ -329,8 +368,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="serve mode: default per-request deadline for "
                         "requests that do not carry deadline_ms")
     p.add_argument("--heartbeat-dir", default=None, metavar="DIR",
-                   help="serve mode: the multihost heartbeat exporter "
-                        "(not ported yet: refused)")
+                   help="serve mode: export the multihost heartbeat-age "
+                        "gauges of the workers beating into DIR")
     p.add_argument("--num-processes", type=int, default=None,
                    help="serve mode: worker count watched under "
                         "--heartbeat-dir")
@@ -438,23 +477,42 @@ def run_mode(args, p, cfg: SamplerConfig, device, out) -> int:
             return 2
     if args.mode == "sample":
         return sample_mode(args, spec, cfg, device, out)
-    step = sampler_step(spec, cfg, device, args.window, args.start_point)
+    backends = _backends(args, p)
+
+    def step_of(b):
+        return sampler_step(spec, cfg, device, args.window, args.start_point,
+                            b, args.shard_dispatch)
+
     if args.mode == "acc":
-        step()  # warm-up: kernel build and device start-up stay untimed
-        dt, res, ri = timed(step)
-        acc_block(banner_of(device), dt, res.noshare_list(), res.share_list(),
-                  ri, res.max_iteration_count, out)
+        for b in backends:
+            step = step_of(b)
+            step()  # warm-up: kernel build and device start-up stay untimed
+            dt, res, ri = timed(step)
+            acc_block(banner_of(device, b), dt, res.noshare_list(),
+                      res.share_list(), ri, res.max_iteration_count, out)
     elif args.mode == "speed":
-        step()
-        speed_block(banner_of(device),
-                    [timed(step)[0] for _ in range(args.reps)], out)
+        for b in backends:
+            step = step_of(b)
+            step()
+            speed_block(banner_of(device, b),
+                        [timed(step)[0] for _ in range(args.reps)], out)
     else:
-        _, _, ri = timed(step)
+        _, _, ri = timed(step_of(backends[0]))
         curve = mrc.aet_mrc(ri, cfg)
         mrc.write_mrc(args.out, curve)
         out.write(f"wrote {len(mrc.dedup_lines(curve))} MRC lines to "
                   f"{args.out} (curve over {len(curve)} cache sizes)\n")
     return 0
+
+
+def _backends(args, p) -> list[str]:
+    """``--backends`` as a list (default all three), each one known."""
+    backends = [b.strip() for b in (args.backends or ",".join(BACKENDS))
+                .split(",") if b.strip()]
+    for b in backends:
+        if b not in BACKENDS:
+            p.error(f"unknown backend {b!r}")
+    return backends
 
 
 def sample_mode(args, spec, cfg: SamplerConfig, device, out) -> int:
@@ -592,6 +650,14 @@ def trace_mode(args, p, cfg: SamplerConfig, device, out) -> int:
     dilation, the reuse histogram feeds the AET curve directly)."""
     if not args.file:
         p.error("trace mode requires --file")
+    if args.backends is not None:
+        backends = _backends(args, p)
+        if backends == ["shard"]:
+            return shard_trace_mode(args, cfg, device, out)
+        print(f"pluss_torch: trace mode ignores --backends "
+              f"{','.join(backends)}; it streams on one device unless "
+              "--backends is exactly 'shard' (sharded replay)",
+              file=sys.stderr)
     # --journal alone arms checkpoint writing; --resume also loads one
     ckpt = None
     if args.resume or args.journal:
@@ -636,12 +702,56 @@ def trace_mode(args, p, cfg: SamplerConfig, device, out) -> int:
           f"peak host RSS "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.3f}"
           f" GiB", file=sys.stderr)
+    return _trace_block(rep, dt, cfg, device, args.out, out)
+
+
+def _trace_block(rep, dt: float, cfg: SamplerConfig, device, path: str,
+                 out) -> int:
+    """The trace block (banner, reuse histogram, refs line) of a replay,
+    and its MRC written to ``path``."""
     out.write(f"{banner_of(device)} TRACE: {dt:0.6f}\n")
     print_histogram(RI_TITLE, rep.histogram(), out)
-    mrc.write_mrc(args.out, mrc.aet_mrc(rep.histogram(), cfg))
+    mrc.write_mrc(path, mrc.aet_mrc(rep.histogram(), cfg))
     out.write(f"{rep.total_count} refs over {rep.n_lines} lines; "
-              f"wrote MRC to {args.out}\n")
+              f"wrote MRC to {path}\n")
     return 0
+
+
+def shard_trace_mode(args, cfg: SamplerConfig, device, out) -> int:
+    """``trace --backends shard``: the sharded replay over every card (one
+    worker on the CPU), with the JAX CLI's notices and block."""
+    from pluss_torch.parallel.shard import default_devices
+
+    devices = default_devices(device=device)
+    win = args.window or trace.TRACE_WINDOW
+    if args.feed_workers is not None or args.wire is not None:
+        print("pluss_torch: --feed-workers/--wire have no effect on the "
+              "sharded replay", file=sys.stderr)
+    t0 = time.perf_counter()
+    if args.fmt == "u64":
+        ckpt = None
+        if args.resume or args.journal:
+            ckpt = args.journal or (args.file + ".shard.ckpt")
+            print(f"pluss_torch: shard-trace checkpoint at {ckpt} "
+                  f"(resume {'on' if args.resume else 'off'})",
+                  file=sys.stderr)
+        rep = trace.shard_replay_file(
+            args.file, cls=cfg.cls, devices=devices, window=win,
+            batch_windows=args.batch_windows, checkpoint_path=ckpt,
+            resume=args.resume, dispatch=args.shard_dispatch,
+            resident_cache=args.resident_cache)
+    else:
+        if args.resume or args.journal:
+            print("pluss_torch: --resume/--journal have no effect on "
+                  f"sharded {args.fmt} traces (checkpointing is u64-only)",
+                  file=sys.stderr)
+        if args.batch_windows is not None:
+            print("pluss_torch: --batch-windows has no effect on the "
+                  "in-memory sharded replay", file=sys.stderr)
+        rep = trace.shard_replay(trace.load_trace(args.file, args.fmt),
+                                 cls=cfg.cls, devices=devices, window=win)
+    return _trace_block(rep, time.perf_counter() - t0, cfg, device,
+                        args.out, out)
 
 
 # --- the static analysis modes (host work; engine runs only under --check

@@ -549,6 +549,18 @@ def sort_window_bytes(np_: NestPlan, cfg: SamplerConfig, pos_dtype,
     return entries * (9 + np.dtype(pos_dtype).itemsize) * 4
 
 
+def natural_n_windows(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
+                      assignment=None, start_point: int | None = None,
+                      window_accesses: int | None = None) -> int:
+    """The window count :func:`plan` picks on its own (the most of any
+    nest).  The sharded backend sizes its grid from it: its windows stay
+    near ``window_accesses`` (default WINDOW_TARGET) accesses whatever the
+    device count, so a device's sort memory has the single-device bound."""
+    geom = _nest_geometry(spec, cfg, _freeze(assignment), start_point,
+                          window_accesses or WINDOW_TARGET)
+    return max(nw for *_, nw in geom)
+
+
 def sort_budget(device: torch.device) -> int:
     """Device bytes the sort windows may take: on CUDA the card's free
     memory plus what PyTorch's caching allocator holds unused (earlier
@@ -628,16 +640,19 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
          window_accesses: int | None = None,
          build_templates: bool = True,
          build_overlays: bool = True,
-         build_rowpriv: bool = True) -> StreamPlan:
+         build_rowpriv: bool = True,
+         n_windows: int | None = None) -> StreamPlan:
     """Build the static stream plan (host, numpy).
 
     ``assignment``: optional per-nest chunk->thread maps (dynamic
     scheduling); ``start_point``: resume iteration value applied to the
     first nest; ``window_accesses``: accesses per window per thread
-    (default WINDOW_TARGET).  ``build_templates=False`` skips the static
-    window templates (and with them the overlays, which need the clean
-    windows): for callers that only ever sort, as the subset sampler's
-    fresh-carry walks.  ``build_overlays=False`` skips the interleave
+    (default WINDOW_TARGET); ``n_windows``: exactly this many equal round
+    windows per nest instead (the sharded backend's grid of S windows per
+    device, :func:`shard_plan_cached`).  ``build_templates=False`` skips
+    the static window templates (and with them the overlays, which need
+    the clean windows): for callers that only ever sort, as the subset
+    sampler's fresh-carry walks.  ``build_overlays=False`` skips the interleave
     overlays and their brute-force verification; ``build_rowpriv=False``
     keeps the row-private and sweep-group arrays on the sort path.
 
@@ -649,6 +664,9 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
     for sched, refs, body, asg, owned, W, NW in _nest_geometry(
             spec, cfg, assignment, start_point,
             window_accesses or WINDOW_TARGET):
+        if n_windows is not None:
+            NW = n_windows
+            W = -(-owned.shape[1] // NW)
         pad = np.full((T, NW * W - owned.shape[1]), -1, np.int32)
         geom.append((sched, refs, body, asg,
                      np.concatenate([owned, pad], axis=1), W, NW))
@@ -898,7 +916,8 @@ def _ref_window(fr: FlatRef, np_: NestPlan, cfg: SamplerConfig,
 def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
                  nb: torch.Tensor, pdt, last_pos: torch.Tensor,
                  win_shift: int, event_hist,
-                 clock: torch.Tensor | None = None):
+                 clock: torch.Tensor | None = None,
+                 with_sorted: bool = False):
     """One sort-path window over ``refs`` for the rows of ``owned``,
     ghost-merged with the carry.
 
@@ -909,6 +928,8 @@ def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
     histogram from ``event_hist`` and its event dict (for the share
     extraction).  ``event_hist=None`` is a warm walk: only the tails
     update, nothing is binned or launched, and both are None.
+    ``with_sorted`` adds a third item, the sorted ``(key_s, pos_s,
+    span_s)`` (the sharded window captures its heads from them).
     """
     r0 = w * np_.window_rounds
     bases = spec.line_bases(cfg)
@@ -942,8 +963,9 @@ def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
         # bounded nest: the window's smallest position is the clock at its
         # first stream slot
         win_start = (nb + clock[:, r0 * cfg.chunk_size]).to(pdt)
-    return (event_hist(key_s, pos_s, span_s, valid_s, win_start),
-            carried_events(key_s, pos_s, span_s, valid_s, win_start))
+    out = (event_hist(key_s, pos_s, span_s, valid_s, win_start),
+           carried_events(key_s, pos_s, span_s, valid_s, win_start))
+    return out + ((key_s, pos_s, span_s),) if with_sorted else out
 
 
 class _DeviceTemplate:
@@ -1004,6 +1026,9 @@ class SamplerResult:
     #: (:func:`pluss_torch.resilience.run_resilient`); empty for a clean
     #: first attempt and for every plain :func:`run`
     degradations: tuple = ()
+    #: the sharded backend's dispatch record (:mod:`pluss_torch.parallel`):
+    #: mode, devices, and for steal its chunks, steals and schedule
+    dispatch_stats: dict | None = None
 
     @property
     def thread_num(self) -> int:
@@ -1295,6 +1320,22 @@ def _plan_cached(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
 _plan_cached.cache_clear = _plan_memo.cache_clear
 
 
+@functools.lru_cache(maxsize=32)
+def shard_plan_cached(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
+                      start_point, window_accesses,
+                      n_windows: int) -> StreamPlan:
+    """The plan memo of the sharded backend (:mod:`pluss_torch.parallel`):
+    its static and steal dispatch plan the same ``n_windows`` grid, so
+    they share one plan, and the chunk functions cached on it survive a
+    dispatch-mode flip.  Overlays and row-private tables are off, as in
+    the JAX package: a shard window sorts the full ``var_refs``."""
+    with obs.span("engine.plan", model=spec.name, threads=cfg.thread_num,
+                  chunk=cfg.chunk_size, backend="shard"):
+        return plan(spec, cfg, assignment, start_point, window_accesses,
+                    build_overlays=False, build_rowpriv=False,
+                    n_windows=n_windows)
+
+
 def _build_kernels(pl: StreamPlan, dev: torch.device) -> None:
     """Build the kernels a run of ``pl`` on ``dev`` launches (the
     event-histogram kernel, when a window sorts and the device is CUDA):
@@ -1319,13 +1360,18 @@ DEVICE_DISPATCHES = 0
 def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
         assignment=None, start_point: int | None = None,
         window_accesses: int | None = None,
-        thread_batch: int | None = None) -> SamplerResult:
+        thread_batch: int | None = None,
+        backend: str = "vmap") -> SamplerResult:
     """Run the sampler on ``device`` (default: the CUDA card).
 
     ``assignment``: optional per-nest chunk->thread maps; ``start_point``:
     resume iteration value of the first nest; ``window_accesses``:
     accesses per window per thread (default WINDOW_TARGET);
     ``thread_batch``: threads whose windows run at once (default all).
+    ``backend``: ``vmap`` (the threads as rows of one batch) or ``seq``
+    (one simulated thread at a time, never rerouted; the JAX package's
+    ``seq``), the same result either way; the device-sharded backend is
+    :mod:`pluss_torch.parallel`.
 
     A plan whose concurrent sort windows exceed the device's budget
     (:func:`sort_budget`), or whose stream is past the one-dispatch time
@@ -1335,13 +1381,17 @@ def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
     not fit even one at a time raise before any window runs.
     """
     faults.check("engine.run")   # chaos injection site (per entry attempt)
+    if backend not in ("vmap", "seq"):
+        raise ValueError(f"unknown backend {backend!r} (expected 'vmap' or "
+                         "'seq')")
     dev = resolve_device(device)
     assignment = _freeze(assignment)
-    tb = _normalize_thread_batch(thread_batch, cfg)
+    tb = 1 if backend == "seq" else _normalize_thread_batch(thread_batch,
+                                                            cfg)
     pl = _plan_cached(spec, cfg, assignment, start_point, window_accesses)
     limit = sort_budget(dev)
     budget = None
-    if not os.environ.get("PLUSS_NO_AUTO_DISPATCH"):
+    if backend == "vmap" and not os.environ.get("PLUSS_NO_AUTO_DISPATCH"):
         decision = _auto_dispatch(pl, cfg, tb, limit)
         if decision is not None:
             tb, reason = decision
@@ -1358,7 +1408,8 @@ def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
     if budget is None:
         global DEVICE_DISPATCHES
         DEVICE_DISPATCHES += 1
-    return _execute(pl, dev, thread_batch=tb, dispatch_entries=budget)
+    return _execute(pl, dev, thread_batch=tb, dispatch_entries=budget,
+                    backend=backend)
 
 
 def run_sliced(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
@@ -1526,7 +1577,8 @@ class _Walk:
 
 def _execute(pl: StreamPlan, device: torch.device,
              event_hist=event_histogram, thread_batch: int | None = None,
-             dispatch_entries: int | None = None) -> SamplerResult:
+             dispatch_entries: int | None = None,
+             backend: str = "vmap") -> SamplerResult:
     """Run a plan's windows on ``device`` and finalize on the host.
 
     ``thread_batch`` rows walk together (default all); with
@@ -1537,7 +1589,8 @@ def _execute(pl: StreamPlan, device: torch.device,
     cross-checks the kernel end to end on the card.
 
     Telemetry: the ``engine.dispatch`` span (``backend`` ``vmap`` for one
-    pass over all rows, ``sliced`` with its ``thread_batch`` and
+    pass over all rows, ``seq`` for :func:`run`'s one thread at a time,
+    ``sliced`` with its ``thread_batch`` and
     ``dispatches``) ends at the copy of the histogram to the host, which
     waits for every launch, so it covers the device's work; then
     ``engine.refs_processed`` (and ``engine.sliced_dispatches``) count,
@@ -1552,7 +1605,7 @@ def _execute(pl: StreamPlan, device: torch.device,
     else:
         slices = [(ni, si, w_list) for ni, np_ in enumerate(pl.nests)
                   for si, (_, w_list, _) in enumerate(_segments_of(np_))]
-        attrs = {"backend": "vmap"}
+        attrs = {"backend": backend}
     name = pl.spec.name
     walk = _Walk(pl, device, event_hist)
     with obs.span("engine.dispatch", model=name, **attrs) as sp, \

@@ -167,6 +167,18 @@ def _forget() -> None:
 load.cache_clear = _forget
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, a kernel wrapper's launch count,
+    under a lock: the shard dispatch launches kernels from several worker
+    threads at once, and an unlocked ``+= 1`` (a read, an add, a write)
+    can lose one of two racing updates."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def launch_context(dev):
     """The context a kernel launch on CUDA device ``dev`` runs in: ``dev``
     made the current device, or nothing to do when it already is (the

@@ -108,5 +108,5 @@ def _launch(payload, wm):
                  out.data_ptr(), scratch.data_ptr(), scratch.numel(), stream)
     if err:
         raise RuntimeError(f"d24v_decode launch failed: CUDA error {err}")
-    decode_d24v.launches += 1
+    build.count_launch(decode_d24v)
     return out

@@ -109,7 +109,7 @@ def _launch(key_s, pos_s, span_s, valid_s, win_start):
     if err:
         raise RuntimeError(f"carried_event_hist launch failed: CUDA error "
                            f"{err}")
-    event_histogram.launches += 1
+    build.count_launch(event_histogram)
     return out
 
 
@@ -234,5 +234,5 @@ def _launch_masked(reuse, is_evt, share, cold, include_cold):
                  out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"masked_hist launch failed: CUDA error {err}")
-    masked_histogram.launches += 1
+    build.count_launch(masked_histogram)
     return out

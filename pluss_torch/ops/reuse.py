@@ -195,7 +195,7 @@ def share_unique(keys: torch.Tensor, counts: torch.Tensor | None = None):
     return uniq.clone(), tot.scatter_add_(0, inv, counts.to(torch.int64))
 
 
-def window_events(key_s, pos_s, valid_s, last_pos):
+def window_events(key_s, pos_s, valid_s, last_pos, span_s=None):
     """Reuse events of one sorted 1-D stream slice, resolved against the
     carried table, which this call advances IN PLACE.
 
@@ -209,9 +209,11 @@ def window_events(key_s, pos_s, valid_s, last_pos):
     slot, so the scatter needs no compaction and no host sync; only the
     dump slot ever sees more than one write.
 
-    Returns the event dict ``{reuse (pos dtype), is_evt, share, cold}``;
-    a trace stream has no share classification, so ``share`` is all
-    False.
+    Returns the event dict ``{reuse (pos dtype), is_evt, share, cold}``
+    plus the sorted ``key``, ``pos`` and ``span`` it was computed from
+    (the sharded window's head capture reads them).  ``span_s`` is each
+    entry's share span: an event is ``share`` when ``reuse > span // 2``.
+    A trace stream has none (``span_s`` None), so ``share`` is all False.
     """
     dump = last_pos.shape[0] - 1
     same = key_s[1:] == key_s[:-1]
@@ -227,19 +229,41 @@ def window_events(key_s, pos_s, valid_s, last_pos):
                         torch.where(head_evt, pos_s - carried, 0))
     last_pos.scatter_(0, torch.where(tail, key_s, dump).long(), pos_s)
     is_evt = local_evt | head_evt
-    return {"reuse": reuse.to(pos_s.dtype), "is_evt": is_evt,
-            "share": torch.zeros_like(is_evt), "cold": head & (carried < 0)}
+    reuse = reuse.to(pos_s.dtype)
+    share = torch.zeros_like(is_evt) if span_s is None \
+        else is_evt & share_mask(reuse, span_s)
+    return {"reuse": reuse, "is_evt": is_evt, "share": share,
+            "cold": head & (carried < 0), "key": key_s, "pos": pos_s,
+            "span": span_s}
 
 
-def batch_events(line, pos, valid, last_pos):
-    """Whole-slice segmented reuse extraction of a stream in position
-    order: one stable sort on the line key (invalid entries last) keeps the
-    position order within each line, then one carried gather and one tail
-    scatter (``last_pos`` advances in place, see :func:`window_events`)."""
-    key_s, order = torch.sort(torch.where(valid, line, LINE_SENTINEL),
-                              stable=True)
-    return window_events(key_s, pos.gather(0, order),
-                         key_s != LINE_SENTINEL, last_pos)
+def batch_events(line, pos, valid, last_pos, span=None,
+                 pos_sorted: bool = True):
+    """Whole-slice segmented reuse extraction: one sort, one carried
+    gather and one tail scatter (``last_pos`` advances in place, see
+    :func:`window_events`).
+
+    ``pos_sorted`` (a replayed trace, whose positions are the stream order
+    itself): one stable sort on the line key (invalid entries last) keeps
+    the position order within each line.  ``pos_sorted=False`` admits a
+    stream that is not in position order (a sharded window concatenates
+    its refs' enumerations in program order): it takes the full (line,
+    pos) order of :func:`sort_columns`, one packed sort for int32
+    positions and two stable passes for int64.  ``span`` carries each
+    access's share span (None for a trace)."""
+    if pos_sorted:
+        key_s, order = torch.sort(torch.where(valid, line, LINE_SENTINEL),
+                                  stable=True)
+        pos_s = pos.gather(0, order)
+        span_s = None if span is None else span.gather(0, order)
+        valid_s = key_s != LINE_SENTINEL
+    else:
+        key_s, pos_s, span_s, valid_s = sort_columns(
+            [line, pos, torch.zeros_like(line) if span is None else span,
+             valid])
+        if span is None:
+            span_s = None
+    return window_events(key_s, pos_s, valid_s, last_pos, span_s)
 
 
 def event_histogram(ev: dict, include_cold: bool = True,

@@ -9,7 +9,8 @@ The port's copy of ``pluss.resilience``:
   budget guard, connection failures and trace ``DataLoss`` into it;
 - :mod:`pluss_torch.resilience.faults` — the deterministic fault injector
   (``PLUSS_FAULT_PLAN="oom@2,corrupt_cache"``) behind named sites in the
-  engine, the plan cache and the trace feed;
+  engine, the sharded backend, the plan cache, the trace feed and the
+  multihost bring-up and heartbeat;
 - :mod:`pluss_torch.resilience.ladder` — the degradation-ladder executors
   :func:`run_resilient` and :func:`replay_file_resilient`, which stamp
   every result with the rungs taken;
@@ -44,6 +45,7 @@ from pluss_torch.resilience.journal import Journal
 from pluss_torch.resilience.ladder import (
     LADDER,
     SERVE_LADDER,
+    SHARD_LADDER,
     Retry,
     replay_file_resilient,
     run_resilient,
@@ -54,6 +56,7 @@ __all__ = [
     "WorkerDied", "DataLoss", "CacheCorrupt", "Overloaded",
     "DeadlineExceeded", "InvalidRequest", "classify", "CircuitBreaker",
     "FaultPlan",
-    "Journal", "LADDER", "SERVE_LADDER", "Retry", "run_resilient",
+    "Journal", "LADDER", "SERVE_LADDER", "SHARD_LADDER", "Retry",
+    "run_resilient",
     "replay_file_resilient",
 ]

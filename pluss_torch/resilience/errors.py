@@ -87,9 +87,16 @@ class CollectiveError(PlussError):
 
 class WorkerDied(PlussError):
     """A participating process stopped heartbeating.  Degradable — the
-    coordinator re-runs on its local devices."""
+    coordinator re-runs on its local devices.  ``process_ids`` lists the
+    dead processes when known."""
 
     degradable = True
+
+    def __init__(self, message: str, site: str = "",
+                 cause: BaseException | None = None,
+                 process_ids: tuple[int, ...] = ()):
+        super().__init__(message, site, cause)
+        self.process_ids = process_ids
 
 
 class DataLoss(PlussError):

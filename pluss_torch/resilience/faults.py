@@ -18,8 +18,9 @@ fault kind          site                    effect at the armed hit
 ``corrupt_cache``   ``plan_cache.get``      garbles the cache file before the
                                             load (quarantine path)
 ``trace_loss``      ``trace.read_batch``    raises ``DataLoss`` mid-stream
-``collective``      ``multihost.init``      (no such site in the port yet)
-``kill_worker``     ``multihost.heartbeat`` (no such site in the port yet)
+``collective``      ``multihost.init``      raises a connect failure
+                                            (``ConnectionError``)
+``kill_worker``     ``multihost.heartbeat`` ``os._exit(43)`` on process ``n``
 ``hang``            ``serve.dispatch``      sleeps ``PLUSS_FAULT_HANG_S``
                                             (default 30 s): a wedged dispatch
                                             for the serve watchdog
@@ -31,9 +32,6 @@ fault kind          site                    effect at the armed hit
 The JAX package's ``share_cap`` kind (at ``engine.finalize``) is refused
 by :meth:`FaultPlan.parse`: the port has no share cap, so the entry could
 never fire, and an armed fault that never fires would pass silently.
-``shard.run`` and ``multihost.*`` are sites of a layer
-the port does not have yet: their kinds parse, so a plan reads the same
-in both packages, and never fire.
 
 Plan grammar (``PLUSS_FAULT_PLAN``): comma-separated ``kind`` or
 ``kind@n``.  ``@n`` means "fire at the n-th hit of the fault's site"
@@ -187,9 +185,20 @@ class FaultPlan:
             raise RuntimeError(
                 f"RESOURCE_EXHAUSTED: injected device dispatch failure "
                 f"{tag}")
-        # collective arms a site of the multi-device layer, which the port
-        # does not have yet: nothing checks that site
+        if e.kind == "collective":
+            raise ConnectionError(f"failed to connect to coordinator {tag}")
         raise AssertionError(f"no site of the port fires {e.kind}")
+
+    def should_kill(self, site: str, process_index: int) -> bool:
+        """True when a ``kill_worker`` entry targets this process (the
+        caller performs the ``os._exit``)."""
+        for e in self.entries:
+            if not e.fired and e.kind == "kill_worker" and e.site == site \
+                    and e.n == process_index:
+                e.fired = True
+                _record_fired(e, site)
+                return True
+        return False
 
     def corrupt(self, site: str, path: str) -> bool:
         """Garble ``path`` in place when a ``corrupt_cache`` entry is armed
@@ -257,3 +266,9 @@ def check(site: str) -> None:
 def corrupt(site: str, path: str) -> bool:
     plan = active()
     return plan.corrupt(site, path) if plan is not None else False
+
+
+def should_kill(site: str, process_index: int) -> bool:
+    plan = active()
+    return plan.should_kill(site, process_index) if plan is not None \
+        else False

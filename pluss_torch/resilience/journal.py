@@ -63,6 +63,9 @@ class Journal:
                     site="journal.load", cause=e) from e
             self._by_key[_canon(rec["key"])] = rec
 
+    def __len__(self) -> int:
+        return len(self._by_key)
+
     def get(self, key: dict) -> dict | None:
         """The last record for ``key``, or None (later records win)."""
         return self._by_key.get(_canon(key))

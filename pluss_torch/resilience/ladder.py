@@ -19,8 +19,9 @@ trace replay) owns all recovery policy:
                              window
    ========================  =============================================
 
-   (trace replay's ladder is ``serial_feed`` → ``shrink_window`` →
-   ``cpu_fallback``);
+   (the ``shard`` backend's ladder is ``shrink_window`` →
+   ``single_device`` → ``cpu_fallback``; trace replay's is
+   ``serial_feed`` → ``shrink_window`` → ``cpu_fallback``);
 4. **fatal** errors — and a ladder that runs dry — propagate *classified*:
    a resilient entry point never leaks a raw exception.  A
    :class:`~pluss_torch.resilience.errors.CompileError` of an attempt on
@@ -56,13 +57,17 @@ import traceback
 from pluss_torch.resilience.errors import (
     CompileError,
     DeadlineExceeded,
-    PlussError,
     classify,
 )
 
 #: rung order of the sampler's ladder
 LADDER: tuple[str, ...] = ("shrink_window", "raise_n_windows",
                            "sliced_pipeline", "cpu_fallback")
+
+#: ladder of the device-sharded backend: degrade toward fewer devices
+#: (``single_device`` is ``engine.run`` on the first listed device)
+SHARD_LADDER: tuple[str, ...] = ("shrink_window", "single_device",
+                                 "cpu_fallback")
 
 #: ladder of trace replay (no thread dimension to slice): first drop the
 #: parallel feed pool back to the single reader (fewer in-flight host and
@@ -192,45 +197,56 @@ def _resilient_loop(make_attempt, apply_rung, rungs: tuple[str, ...],
 
 
 def run_resilient(spec, cfg=None, *, backend: str = "vmap", device=None,
-                  assignment=None, start_point=None,
+                  devices=None, assignment=None, start_point=None,
                   window_accesses: int | None = None,
                   retry: Retry | None = None,
                   rungs: tuple[str, ...] | None = None,
                   deadline_s: float | None = None):
-    """Degradation-ladder wrapper of ``engine.run``, on ``device`` (default:
-    the CUDA card).
+    """Degradation-ladder wrapper of ``engine.run`` and
+    ``parallel.shard_run``, on ``device`` (default: the CUDA card).
 
     Returns the :class:`~pluss_torch.engine.SamplerResult` with
     ``degradations`` stamped (``()`` for a clean first attempt).  Raises
     only :class:`~pluss_torch.resilience.errors.PlussError` subclasses.
-    ``backend``: ``vmap`` (the default, the port's one sampler backend) or
-    ``shard``, which raises a classified error: the sharded backend waits
-    for the port's multi-device work (ROADMAP Queue 1, item 7).
-    ``rungs`` overrides the ladder; ``deadline_s`` bounds the retry and
-    degrade churn from now (a running attempt is never interrupted).
+    ``backend``: ``vmap`` (the default), ``seq`` (``engine.run``'s one
+    thread at a time) or ``shard``: ``shard_run`` over ``devices``
+    (default :func:`~pluss_torch.parallel.shard.default_devices` of
+    ``device``) under :data:`SHARD_LADDER`, whose ``single_device`` rung
+    runs ``engine.run`` on the first listed device.  ``rungs`` overrides
+    the ladder; ``deadline_s`` bounds the retry and degrade churn from now
+    (a running attempt is never interrupted).
     """
     from pluss_torch.config import DEFAULT
 
-    if backend == "shard":
-        raise PlussError(
-            "the shard backend is not ported yet (ROADMAP Queue 1, item 7: "
-            "multi-device); run with backend='vmap'", site="shard.run")
-    if backend != "vmap":
+    if backend not in ("vmap", "seq", "shard"):
         raise ValueError(f"unknown backend {backend!r} (choices: vmap, "
-                         "shard)")
+                         "seq, shard)")
     cfg = cfg if cfg is not None else DEFAULT
     retry = retry or Retry()
-    rungs = LADDER if rungs is None else rungs
+    if rungs is None:
+        rungs = SHARD_LADDER if backend == "shard" else LADDER
+    if backend == "shard":
+        from pluss_torch.parallel.shard import _as_devices, default_devices
+
+        devices = _as_devices(devices) if devices is not None \
+            else default_devices(device=device)
+        device = devices[0]
 
     def make_attempt(state: dict):
         from pluss_torch import engine
 
-        kw = dict(device=state.get("device", device), assignment=assignment,
-                  start_point=start_point,
+        kw = dict(assignment=assignment, start_point=start_point,
                   window_accesses=state.get("window", window_accesses))
-        if state.get("mode") == "sliced":
+        mode = state.get("mode", backend)
+        if mode == "shard":
+            from pluss_torch.parallel.shard import shard_run
+
+            return shard_run(spec, cfg, devices=devices, **kw)
+        kw["device"] = state.get("device", device)
+        if mode == "sliced":
             return engine.run_sliced(spec, cfg, thread_batch=1, **kw)
-        return engine.run(spec, cfg, **kw)
+        return engine.run(spec, cfg, backend="seq" if mode == "seq"
+                          else "vmap", **kw)
 
     def apply_rung(state: dict, rung: str) -> None:
         from pluss_torch.engine import WINDOW_TARGET
@@ -240,10 +256,12 @@ def run_resilient(spec, cfg=None, *, backend: str = "vmap", device=None,
             state["window"] = max(cur // 8, 1 << 10)
         elif rung == "sliced_pipeline":
             state["mode"] = "sliced"
+        elif rung == "single_device":
+            state["mode"] = "vmap"
         elif rung == "cpu_fallback":
             # this attempt only: the device is an argument of each call
             state["device"] = "cpu"
-            state.pop("mode", None)
+            state["mode"] = "vmap"
             state.pop("window", None)  # host memory: the default window
         else:
             raise AssertionError(f"unknown rung {rung}")

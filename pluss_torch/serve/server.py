@@ -10,10 +10,11 @@ stamps ``cpu_brownout``.  A daemon built without a card and without
 ``device="cpu"`` raises: it never moves to the CPU by itself.  Every
 device dispatch runs on the device loop's thread (the warm thread hands
 its trace staging to the loop); the warm thread and the background
-compile do host planning and kernel builds only.  The JAX package's
-multihost heartbeat exporter (``heartbeat_dir``) needs the multi-device
-layer, which the port does not have yet: asking for it raises a
-classified error.
+compile do host planning and kernel builds only.  ``heartbeat_dir``
+starts the multihost heartbeat exporter
+(:func:`pluss_torch.parallel.multihost.start_heartbeat_exporter`): the
+``multihost.heartbeat_age_s.<i>`` gauges of ``num_processes`` workers,
+refreshed with the Prometheus textfile every ``prom_refresh_s``.
 
 Process shape (everything host-side except the shared dispatches):
 
@@ -97,7 +98,6 @@ from pluss_torch.resilience.breaker import CircuitBreaker
 from pluss_torch.resilience.errors import (
     DeadlineExceeded,
     Overloaded,
-    PlussError,
     ResourceExhausted,
     classify,
 )
@@ -254,11 +254,6 @@ class Server:
         self.socket_path = socket_path
         self.host, self.port = host, port
         self.config = c = config or ServeConfig()
-        if c.heartbeat_dir:
-            raise PlussError(
-                "serve --heartbeat-dir needs the multihost heartbeat "
-                "exporter, which is not ported yet (ROADMAP Queue 1, item "
-                "7: multi-device)", site="serve.heartbeat")
         from pluss_torch import engine
 
         #: the dispatch device: the card unless the config asks for the
@@ -316,6 +311,7 @@ class Server:
         self.flight = FlightRecorder(out_dir=c.flight_dir)
         self.metrics_port: int | None = None
         self._metrics_httpd = None
+        self._hb_stop = None
         self._owns_obs_session = False
         self._breaker_was_open = False
         self._listener: socket.socket | None = None
@@ -412,6 +408,13 @@ class Server:
                                      daemon=True)
                 t.start()
                 self._threads.append(t)
+        if self.config.heartbeat_dir:
+            from pluss_torch.parallel.multihost import \
+                start_heartbeat_exporter
+
+            self._hb_stop = start_heartbeat_exporter(
+                self.config.heartbeat_dir, self.config.num_processes or 1,
+                interval_s=self.config.prom_refresh_s)
         if self.config.warm:
             t = threading.Thread(target=self._warm_loop,
                                  name="pluss-serve-warm", daemon=True)
@@ -670,6 +673,8 @@ class Server:
             self._drained.set()
         if not self._drained.wait(drain_timeout_s):
             self._force_drain()
+        if self._hb_stop is not None:
+            self._hb_stop()
         if self._metrics_httpd is not None:
             try:
                 self._metrics_httpd.shutdown()

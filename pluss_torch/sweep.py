@@ -25,11 +25,12 @@ resumes the other's journal.  Points that degraded carry the rungs taken
 in ``SweepPoint.degradations``, sharing one report surface with the static
 analyzer's PL303 carried-level classifications (:func:`carried_levels`).
 
-``device_groups`` splits the torch devices of ``device``'s type into
+``device_groups`` splits the torch devices of ``device``'s type (or the
+``devices`` list given, which may name one device more than once) into
 groups and runs one point per group; a group of more than one device
-needs the multi-device backend, which the port does not have yet (ROADMAP
-Queue 1, item 7), and raises a classified error.  On one card the groups
-clamp to one.
+runs its point through the sharded backend
+(:func:`pluss_torch.parallel.shard_run`, under the shard ladder).  On one
+card the groups clamp to one.
 """
 
 from __future__ import annotations
@@ -76,25 +77,31 @@ def _intkeys(d: dict) -> dict:
 
 
 def _sweep_point(spec: LoopNestSpec, cfg: SamplerConfig, share_cap: int,
-                 journal, resume: bool, jlock=None, device=None):
+                 journal, resume: bool, jlock=None, device=None,
+                 devices=None):
     """One sweep point: restore-from-journal or compute on ``device``,
     journal durably, and return ``(curve, refs, degradations)``.
     ``jlock`` serializes journal access when point workers run
     concurrently (each record is a single buffered write — unlocked
     concurrent appends could interleave partial lines).  ``share_cap`` is
     a label here: it is part of the CLI surface the JAX package has, and
-    the port's engine has no cap."""
+    the port's engine has no cap.  ``devices`` (a group of more than one)
+    runs the point sharded over them, under the shard ladder."""
     import contextlib
 
     from pluss_torch import obs
     from pluss_torch.resilience import run_resilient
-    from pluss_torch.resilience.ladder import LADDER, _on_card
+    from pluss_torch.resilience.ladder import LADDER, SHARD_LADDER, _on_card
 
     t, cs = cfg.thread_num, cfg.chunk_size
+    shard = devices is not None and len(devices) > 1
+    if shard:
+        device = devices[0]
+    ladder = SHARD_LADDER if shard else LADDER
     # on the card the ladder stops before its CPU rung: a point the card
     # cannot run raises classified, never comes back as a host result
-    rungs = tuple(r for r in LADDER if r != "cpu_fallback") \
-        if _on_card(device) else LADDER
+    rungs = tuple(r for r in ladder if r != "cpu_fallback") \
+        if _on_card(device) else ladder
     key = _point_key(spec, cfg)
     lock = jlock if jlock is not None else contextlib.nullcontext()
     # one span per point, restored-from-journal or computed — the
@@ -114,7 +121,9 @@ def _sweep_point(spec: LoopNestSpec, cfg: SamplerConfig, share_cap: int,
                 "degradations", ()))
             obs.counter_add("sweep.points_restored")
         else:
-            res = run_resilient(spec, cfg, device=device, rungs=rungs)
+            res = run_resilient(spec, cfg, device=device, rungs=rungs,
+                                **({"backend": "shard", "devices": devices}
+                                   if shard else {}))
             noshare, share = res.noshare_list(), res.share_list()
             refs = res.max_iteration_count
             degradations = tuple(res.degradations)
@@ -174,7 +183,7 @@ def sweep(spec: LoopNestSpec,
           journal=None,
           resume: bool = False,
           device_groups: int | None = None,
-          device=None) -> list[SweepPoint]:
+          device=None, devices=None) -> list[SweepPoint]:
     """Predict the MRC of ``spec`` under each (thread_num, chunk_size), on
     ``device`` (default: the CUDA card).
 
@@ -193,8 +202,9 @@ def sweep(spec: LoopNestSpec,
     :class:`~pluss_torch.resilience.errors.PlussError` is requeued once
     onto another group (``sweep.elastic_requeues``).  Results are
     returned in canonical point order and equal the serial sweep's.  A
-    group of more than one device raises a classified error (the
-    multi-device backend is ROADMAP Queue 1, item 7).
+    group of more than one device runs its point through ``shard_run``
+    over the group.  ``devices``: the list the groups split (default every
+    device of ``device``'s type); it may name one device more than once.
     """
     from pluss_torch import engine
     from pluss_torch.resilience.journal import Journal
@@ -206,7 +216,7 @@ def sweep(spec: LoopNestSpec,
             for t in thread_nums for cs in chunk_sizes]
     if device_groups is not None and device_groups > 1 and len(cfgs) > 1:
         return _sweep_parallel(spec, cfgs, share_cap, journal, resume,
-                               device_groups, dev)
+                               device_groups, dev, devices)
     out = []
     for k, cfg in enumerate(cfgs):
         # precompile phase: point k+1's plan overlaps point k's execute
@@ -231,8 +241,8 @@ def _devices_like(dev) -> list:
 
 
 def _sweep_parallel(spec: LoopNestSpec, cfgs, share_cap: int, journal,
-                    resume: bool, device_groups: int,
-                    dev) -> list[SweepPoint]:
+                    resume: bool, device_groups: int, dev,
+                    devices=None) -> list[SweepPoint]:
     """One-point-per-device-group sweep with elastic requeue (see
     :func:`sweep`)."""
     import queue
@@ -241,16 +251,13 @@ def _sweep_parallel(spec: LoopNestSpec, cfgs, share_cap: int, journal,
     from pluss_torch import obs
     from pluss_torch.resilience.errors import PlussError
 
-    devices = _devices_like(dev)
+    import torch
+
+    devices = [torch.device(d) for d in devices] if devices is not None \
+        else _devices_like(dev)
     G = max(1, min(device_groups, len(devices), len(cfgs)))
     per = len(devices) // G
     groups = [devices[g * per:(g + 1) * per] for g in range(G)]
-    if per > 1:
-        raise PlussError(
-            f"sweep device groups of {per} devices need the multi-device "
-            "backend, which is not ported yet (ROADMAP Queue 1, item 7: "
-            "multi-device); use as many groups as devices",
-            site="sweep.groups")
     jlock = threading.Lock()
     results: list = [None] * len(cfgs)
     errors: list = []
@@ -270,7 +277,7 @@ def _sweep_parallel(spec: LoopNestSpec, cfgs, share_cap: int, journal,
             try:
                 results[i] = _sweep_point(spec, cfgs[i], share_cap,
                                           journal, resume, jlock,
-                                          device=group[0])
+                                          device=group[0], devices=group)
             except PlussError as e:
                 if attempts[i] <= 1:
                     # elastic recovery: the point goes back on the queue

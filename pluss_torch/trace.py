@@ -1528,19 +1528,25 @@ def _device_fingerprint(dev: torch.device) -> tuple:
 
 
 def _residency_key(path: str, *, cls: int, window: int, bw: int,
-                   precompacted: bool, device=None) -> tuple:
+                   precompacted: bool, device=None, devices=None) -> tuple:
     """Identity of one trace's resident staging: the file's content
     fingerprint and size, :data:`WIRE_VERSION`, the line size, window,
-    batch grid, ``precompacted`` and the device.  Any change misses the
+    batch grid, ``precompacted`` and the device (a sharded replay's
+    grouped entry: its whole device list).  Any change misses the
     store.  The replayed prefix (``n_run``) is checked at lookup, not in
     the key, so one trace never holds two near-identical copies."""
     try:
         size = os.path.getsize(path)
     except OSError:
         size = -1
+    if devices is not None:
+        from pluss_torch.parallel.shard import device_fingerprint
+
+        where = ("shard",) + device_fingerprint(devices)
+    else:
+        where = _device_fingerprint(resolve_device(device))
     return ("trace", _trace_fingerprint(path), size, WIRE_VERSION, int(cls),
-            int(window), int(bw), bool(precompacted),
-            _device_fingerprint(resolve_device(device)))
+            int(window), int(bw), bool(precompacted), where)
 
 
 def ensure_resident(path: str, *, cls: int = 64, window: int = TRACE_WINDOW,
@@ -1795,3 +1801,423 @@ def replay_resident(packed_path: str, meta: dict,
     return replay_staged(resident, meta["n_lines"], n_run, window,
                          clock0=clock0, stats=stats, segmented=segmented,
                          _kernels=_kernels)
+
+
+# --- sharded replay ---------------------------------------------------------
+
+
+def _steal_chunk_fn(ids: torch.Tensor, base: int, n_valid: int, L: int, pdt,
+                    hist_fn=masked_histogram):
+    """One chunk of a sharded replay from a fresh carry: ONE
+    :func:`~pluss_torch.ops.reuse.batch_events` over the chunk (kernel 2
+    bins it, colds left out), and its first touches captured as heads for
+    the boundary merge.  ``L`` is the line table's capacity when the chunk
+    was compacted.  Returns ``(hist, heads, tails)`` on the ids' device."""
+    dev = ids.device
+    pos = torch.arange(base, base + ids.shape[0], dtype=pdt, device=dev)
+    last_pos = torch.full((L + 1,), -1, dtype=pdt, device=dev)
+    ev = batch_events(ids, pos, pos < n_valid, last_pos)
+    hist = event_histogram(ev, include_cold=False, hist_fn=hist_fn)
+    head = torch.full((L + 1,), -1, dtype=pdt, device=dev)
+    head.scatter_(0, torch.where(ev["cold"], ev["key"], L).long(), ev["pos"])
+    return hist, head[:L], last_pos[:L]
+
+
+def _steal_boundary_merge(results: dict, n_chunks: int, L: int) -> np.ndarray:
+    """Canonical-order boundary merge of per-scope ``(hist, heads, tails)``
+    host arrays (the host twin of a static exchange): the heads of scope
+    ``k`` resolve against the running max of earlier scopes' tails.  The
+    order is the stream's whichever worker ran which scope, so any pull
+    or steal schedule gives the same histogram."""
+    from pluss_torch.parallel.shard import np_head_hist
+
+    prev = np.full(L, -1, np.int64)
+    hist = np.zeros(NBINS, np.int64)
+    for k in range(n_chunks):
+        h, hp, tp = results.pop(k)
+        hist += np.asarray(h, np.int64)
+        if hp.shape[0] < L:   # a scope compacted at a smaller capacity
+            pad = np.full(L - hp.shape[0], -1, hp.dtype)
+            hp = np.concatenate([hp, pad])
+            tp = np.concatenate([tp, pad])
+        hp = hp.astype(np.int64)
+        evt = (hp >= 0) & (prev >= 0)
+        hist[0] += int(((hp >= 0) & (prev < 0)).sum())
+        r = (hp - prev)[evt]
+        if r.size:
+            hist += np_head_hist(r)
+        prev = np.where(tp >= 0, tp.astype(np.int64), prev)
+    return hist
+
+
+def _host(out) -> tuple:
+    return tuple(t.cpu().numpy() for t in out)
+
+
+def shard_replay(addrs: np.ndarray, cls: int = 64, devices=None,
+                 window: int = TRACE_WINDOW, precompacted: bool = False, *,
+                 device=None) -> ReplayResult:
+    """Replay one in-memory address stream sharded over ``devices``
+    (default :func:`pluss_torch.parallel.shard.default_devices` of
+    ``device``): each device takes a contiguous segment of ``S`` windows,
+    captures the accesses with no predecessor in its segment as heads, and
+    the segments' boundaries merge in stream order; a segment runs in
+    batches of the replay's batch geometry.  Exact: equal to
+    :func:`replay`."""
+    from pluss_torch.parallel.shard import (_as_devices, _run_segments,
+                                            default_devices)
+
+    devs = _as_devices(devices) if devices is not None \
+        else default_devices(device=device)
+    D = len(devs)
+    addrs = np.asarray(addrs)
+    if addrs.ndim != 1:
+        raise ValueError("trace must be a 1-D address stream")
+    n = addrs.shape[0]
+    if n == 0:
+        return ReplayResult(np.zeros(NBINS, np.int64), 0, 0)
+    lines = addrs.astype(np.int64) if precompacted else lines_of(addrs, cls)
+    ids, n_lines = _compact(lines, window)
+    seg = max(1, -(-n // (D * window))) * window
+    pdt = _pos_dtype(1, D * seg)
+    batch = _resolve_bw(None, devs[0]) * window
+
+    def segment(d: int) -> tuple:
+        dev = devs[d]
+        lo, hi = d * seg, min(n, (d + 1) * seg)
+        last_pos = torch.full((n_lines + 1,), -1, dtype=pdt, device=dev)
+        head = torch.full((n_lines + 1,), -1, dtype=pdt, device=dev)
+        hist = torch.zeros(NBINS, dtype=torch.int64, device=dev)
+        for b in range(lo, hi, batch):
+            chunk = torch.from_numpy(ids[b:min(hi, b + batch)]).to(dev)
+            pos = torch.arange(b, b + chunk.shape[0], dtype=pdt, device=dev)
+            ev = batch_events(chunk, pos, torch.ones_like(pos, dtype=bool),
+                              last_pos)
+            hist += event_histogram(ev, include_cold=False)
+            head.scatter_(0, torch.where(ev["cold"], ev["key"],
+                                         n_lines).long(), ev["pos"])
+        return _host((hist, head[:n_lines], last_pos[:n_lines]))
+
+    outs = _run_segments(devs, segment)
+    hist = _steal_boundary_merge(dict(enumerate(outs)), D, n_lines)
+    return ReplayResult(hist, n, n_lines)
+
+
+def _shard_replay_file_steal(path: str, cls: int, devs: list, window: int,
+                             precompacted: bool, bw: int,
+                             resident_cache: bool = False) -> ReplayResult:
+    """Work-stealing sharded replay: a sequential reader and compactor
+    feeds chunk ids into a bounded queue, one worker per listed device
+    pulls the next produced chunk
+    (:class:`pluss_torch.parallel.steal.QueueDispatcher`; a pull off the
+    static split counts as a steal), and the host merges the chunk
+    boundaries in stream order, so the pull schedule never reaches the
+    histogram.  Each chunk is one :func:`_steal_chunk_fn` (one kernel-2
+    launch) under its worker's stream.
+
+    ``resident_cache`` keeps the compacted chunks on their devices as ONE
+    grouped entry of the residency store (:mod:`pluss_torch.residency`):
+    a repeat replay skips the read and compact feed and reruns the chunk
+    functions over the stored ids into the same merge."""
+    from pluss_torch.parallel.shard import _Streams
+    from pluss_torch.parallel.steal import QueueDispatcher
+
+    D = len(devs)
+    n = _u64_count(path)
+    if n == 0:
+        return ReplayResult(np.zeros(NBINS, np.int64), 0, 0)
+    if cls & (cls - 1):
+        raise ValueError(f"cache line size {cls} is not a power of two")
+    shift = int(cls).bit_length() - 1
+    chunk = bw * window
+    n_chunks = -(-n // chunk)
+    pdt = _pos_dtype(n_chunks, chunk)
+
+    store = key = None
+    if resident_cache:
+        store = residency.store()
+        key = _residency_key(path, cls=cls, window=window, bw=bw,
+                             precompacted=precompacted, devices=devs)
+        ent = store.lookup_pin(key, n_run=n)
+        if ent is not None:
+            # a hit: the compacted chunks are already on their devices
+            try:
+                results = {k: _host(_steal_chunk_fn(ids_dev, k * chunk, n,
+                                                    int(cap_k), pdt))
+                           for k, (ids_dev, cap_k) in enumerate(ent.value)}
+                hist = _steal_boundary_merge(results, n_chunks, ent.n_lines)
+                obs.counter_add("trace.shard_refs_replayed", n)
+                return ReplayResult(hist, n, ent.n_lines)
+            finally:
+                store.unpin(key)
+
+    comp = _Compactor()
+    read_raw = _extent_reader(path, chunk, n)
+    compact = _compact_stage(comp, shift, precompacted, snapshot=False)
+    results: dict[int, tuple] = {}
+    staged: dict[int, tuple] = {}
+    through = store is not None
+    if through:
+        try:
+            # compacted ids stay int32 on the device: 4 B per ref
+            store.reserve(n_chunks * chunk * 4)
+        except ResourceExhausted:
+            through = False   # reserve counted the fallback
+
+    def produce():
+        for k in range(n_chunks):
+            faults.check("trace.read_batch")  # chaos injection site
+            ids, cap_k, _ = compact(k, read_raw(k))
+            if len(ids) < chunk:
+                ids = np.concatenate([ids, np.zeros(chunk - len(ids),
+                                                    np.int32)])
+            yield k, (ids, cap_k)
+
+    streams = _Streams(devs)
+
+    def run_chunk(wi: int, k: int, payload) -> None:
+        ids, cap_k = payload
+        dev = devs[wi]
+        with streams(wi):
+            t = torch.from_numpy(ids)
+            ids_dev = t if dev.type == "cpu" else \
+                t.pin_memory().to(dev, non_blocking=True)
+            out = _steal_chunk_fn(ids_dev, k * chunk, n, int(cap_k), pdt)
+            results[k] = _host(out)
+        if through:
+            staged[k] = (ids_dev, cap_k)
+
+    disp = QueueDispatcher(D, run_chunk, depth=D + 2)
+    with obs.span("trace.shard_replay_file", refs=n, devices=D,
+                  dispatch="steal") as sp:
+        stats = disp.run(produce(), n_chunks)
+        hist = _steal_boundary_merge(results, n_chunks, comp.next_free)
+        sp.set(chunks=n_chunks, steals=stats["steals"])
+    if through and len(staged) == n_chunks:
+        for dev in set(devs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        value = tuple(staged[k] for k in range(n_chunks))
+        nbytes = sum(int(v[0].numel()) * 4 for v in value)
+        store.put(key, value, n_lines=comp.next_free, n_run=n, nbytes=nbytes,
+                  meta={"path": path, "grouped": True, "devices": D})
+        obs.counter_add("residency.stage_through")
+        obs.trace_event("residency.stage_through", nbytes=nbytes)
+    obs.counter_add("shard.chunks", n_chunks)
+    obs.counter_add("shard.steals", stats["steals"])
+    obs.counter_add("trace.shard_refs_replayed", n)
+    for i, bf in enumerate(stats["busy_frac"]):
+        obs.gauge_set(f"shard.device_busy_frac.{i}", round(bf, 4))
+    return ReplayResult(hist, n, comp.next_free)
+
+
+def shard_replay_file(path: str, cls: int = 64, devices=None,
+                      window: int = TRACE_WINDOW,
+                      precompacted: bool = False,
+                      batch_windows: int | None = None,
+                      initial_capacity: int = 1 << 20,
+                      checkpoint_path: str | None = None,
+                      checkpoint_every: int = 4,
+                      resume: bool = False,
+                      dispatch: str | None = None,
+                      resident_cache: bool | None = None, *,
+                      device=None) -> ReplayResult:
+    """Sharded replay of a u64 trace streamed from disk, over ``devices``
+    (default :func:`pluss_torch.parallel.shard.default_devices` of
+    ``device``), equal to :func:`replay_file`.
+
+    ``dispatch``: ``steal`` (:func:`_shard_replay_file_steal`, with more
+    than one listed device), ``static`` or ``auto``/None
+    (``PLUSS_SHARD_DISPATCH``; steal from 2^23 refs).  Static: device
+    ``d`` owns the segment of ``S = ceil(n / (D * window))`` windows
+    from ``d*S*window``; each step reads and compacts every device's next
+    ``batch_windows`` windows of its segment (device-major, through one
+    compactor, so ids agree across segments), runs one segmented
+    extraction per device against its carried ``last_pos`` and captures
+    first touches as heads; at the end the segments' boundaries merge in
+    stream order.
+
+    ``checkpoint_path`` + ``resume``: every ``checkpoint_every`` steps the
+    carries (``last_pos``, ``hist``, ``head_pos``, all ``[D, capacity]``)
+    go to ``checkpoint_path + '.npz'`` and the step, compactor and run
+    identity to the journal at ``checkpoint_path``, record for record the
+    JAX package's, so either package resumes the other's.  The checkpoint
+    identity is the static segment grid, so a checkpoint pins the static
+    dispatch (an explicit ``steal`` says so on stderr).  A checkpoint of
+    another run is ignored with a notice and never spliced; a finished
+    run retires its own.
+
+    ``resident_cache``: steal only, keep the compacted chunks in the
+    residency store as one grouped entry.  The replay runs in one process.
+    """
+    from pluss_torch.parallel.shard import (_as_devices, _auto_steal,
+                                            _resolve_dispatch,
+                                            default_devices, group_size)
+
+    devs = _as_devices(devices) if devices is not None \
+        else default_devices(device=device)
+    D = len(devs)
+    bw = _resolve_bw(batch_windows, devs[0])
+    if group_size() > 1:
+        raise RuntimeError("shard_replay_file runs in one process (its "
+                           "compactor's ids must agree across segments)")
+    if resident_cache is not None and not isinstance(resident_cache, bool):
+        raise ValueError(
+            f"resident_cache must be a bool or None, got {resident_cache!r}")
+    eff = _resolve_dispatch(dispatch)
+    if eff == "auto":
+        eff = "steal" if _auto_steal(_u64_count(path)) else "static"
+    if eff == "steal" and checkpoint_path is not None:
+        if dispatch == "steal":
+            print("trace: checkpointing pins the static sharded dispatch "
+                  "(the checkpoint identity is the static segment grid); "
+                  "using dispatch='static'", file=sys.stderr)
+        eff = "static"
+    if eff == "steal" and D > 1:
+        return _shard_replay_file_steal(path, cls, devs, window,
+                                        precompacted, bw,
+                                        resident_cache=bool(resident_cache))
+    n = _u64_count(path)
+    if n == 0:
+        return ReplayResult(np.zeros(NBINS, np.int64), 0, 0)
+    if cls & (cls - 1):
+        raise ValueError(f"cache line size {cls} is not a power of two")
+    shift = int(cls).bit_length() - 1
+    S = max(1, -(-n // (D * window)))
+    SB = min(bw, S)
+    n_calls = -(-S // SB)
+    pdt = _pos_dtype(1, D * S * window)
+    npdt = np.int32 if pdt == torch.int32 else np.int64
+    comp = _Compactor()
+    capacity = initial_capacity
+
+    def carries(lp, hi, hp):
+        """Per-device carries from host arrays, each line table with its
+        dump slot."""
+        dump = np.full((D, 1), -1, npdt)
+        return ([torch.from_numpy(np.concatenate([lp, dump], 1)[d]).to(
+                    devs[d], pdt) for d in range(D)],
+                [torch.from_numpy(hi[d].astype(np.int64)).to(devs[d])
+                 for d in range(D)],
+                [torch.from_numpy(np.concatenate([hp, dump], 1)[d]).to(
+                    devs[d], pdt) for d in range(D)])
+
+    def host_carries():
+        return (np.stack([t[:-1].cpu().numpy() for t in last_pos]),
+                np.stack([t.cpu().numpy() for t in hist]).astype(npdt),
+                np.stack([t[:-1].cpu().numpy() for t in head_pos]))
+
+    ident = {"n": n, "window": window, "cls": cls,
+             "precompacted": bool(precompacted), "D": D, "SB": SB,
+             "fp": _trace_fingerprint(path) if checkpoint_path else ""}
+    jr = Journal(checkpoint_path) if checkpoint_path else None
+    npz_path = checkpoint_path + ".npz" if checkpoint_path else None
+    k0 = 0
+    last_pos = None
+    #: a checkpoint of ANOTHER run is never retired by this one
+    foreign = False
+    if jr is not None and len(jr):
+        rec0 = jr.get({"shard_ckpt": 1})
+        foreign = rec0 is None or any(rec0.get(k_) != v
+                                      for k_, v in ident.items())
+        if foreign and not resume:
+            print(f"trace: {checkpoint_path} holds a checkpoint for a "
+                  "DIFFERENT run; this run will overwrite it at its "
+                  "first checkpoint", file=sys.stderr)
+    if resume and jr is not None and len(jr) and os.path.exists(npz_path):
+        rec = jr.get({"shard_ckpt": 1})
+        if rec is None or any(rec.get(k_) != v for k_, v in ident.items()):
+            print(f"trace: shard checkpoint {checkpoint_path} is for a "
+                  "different run; starting fresh", file=sys.stderr)
+        else:
+            try:
+                with np.load(npz_path) as z:
+                    if int(z["k_next"]) != rec["k_next"]:
+                        raise ValueError(
+                            "journal/array checkpoint out of step")
+                    k0 = int(z["k_next"])
+                    capacity = int(z["capacity"])
+                    last_pos, hist, head_pos = carries(
+                        z["last_pos"].astype(npdt), z["hist"],
+                        z["head_pos"].astype(npdt))
+                comp = _Compactor.restore(rec["comp"])
+                print(f"trace: resuming sharded replay at call "
+                      f"{k0}/{n_calls}", file=sys.stderr)
+            except Exception as e:  # noqa: BLE001 — any unreadable one
+                quarantine_artifact(npz_path, "shard replay-checkpoint", e,
+                                    action="starting fresh")
+                k0, last_pos = 0, None
+    if last_pos is None:
+        last_pos, hist, head_pos = carries(
+            np.full((D, capacity), -1, npdt), np.zeros((D, NBINS), npdt),
+            np.full((D, capacity), -1, npdt))
+
+    def save_ckpt(k_next: int) -> None:
+        # the arrays land first (atomic replace), then the journal line
+        # that promises them
+        nonlocal foreign
+        foreign = False
+        lp, hi, hp = host_carries()
+        tmp = f"{npz_path}.tmp.{os.getpid()}.npz"
+        np.savez(tmp, k_next=np.int64(k_next), capacity=np.int64(capacity),
+                 last_pos=lp, hist=hi, head_pos=hp)
+        os.replace(tmp, npz_path)
+        jr.record({"shard_ckpt": 1}, k_next=k_next, comp=comp.snapshot(),
+                  **ident)
+
+    def read_slice(f, d: int, k: int) -> np.ndarray:
+        """Device d's k-th slice of ids, zero-padded to SB*window; the
+        read clips at the stream's end and at the segment's."""
+        faults.check("trace.read_batch")  # chaos injection site
+        lo = d * S * window + k * SB * window
+        count = max(0, min(SB * window, n - lo, (d + 1) * S * window - lo))
+        out = np.zeros(SB * window, np.int32)
+        if count:
+            f.seek(lo * 8)
+            raw = np.fromfile(f, dtype="<u8", count=count)
+            ids = comp.map_raw(raw, 0 if precompacted else shift)
+            if ids is None:
+                lines = raw.astype(np.int64) if precompacted \
+                    else raw.astype(np.int64) >> shift
+                ids = comp.map(lines)
+            out[:count] = ids
+        return out
+
+    with obs.span("trace.shard_replay_file", refs=n, devices=D,
+                  dispatch="static"), open(path, "rb") as f:
+        for k in range(k0, n_calls):
+            slices = [read_slice(f, d, k) for d in range(D)]
+            if comp.next_free > capacity:
+                # table growth: the carries re-pad at the new capacity
+                lp, hi, hp = host_carries()
+                while capacity < comp.next_free:
+                    capacity *= 2
+                pad = np.full((D, capacity - lp.shape[1]), -1, npdt)
+                last_pos, hist, head_pos = carries(
+                    np.concatenate([lp, pad], 1), hi,
+                    np.concatenate([hp, pad], 1))
+            for d in range(D):
+                dev = devs[d]
+                lo = d * S * window + k * SB * window
+                ids = torch.from_numpy(slices[d]).to(dev)
+                pos = torch.arange(lo, lo + SB * window, dtype=pdt,
+                                   device=dev)
+                ev = batch_events(ids, pos,
+                                  pos < min(n, (d + 1) * S * window),
+                                  last_pos[d])
+                hist[d] += event_histogram(ev, include_cold=False)
+                head_pos[d].scatter_(0, torch.where(
+                    ev["cold"], ev["key"], capacity).long(), ev["pos"])
+            if jr is not None and k + 1 < n_calls \
+                    and (k + 1 - k0) % checkpoint_every == 0:
+                save_ckpt(k + 1)
+        results = {d: _host((hist[d], head_pos[d][:-1], last_pos[d][:-1]))
+                   for d in range(D)}
+        out = _steal_boundary_merge(results, D, capacity)
+    if jr is not None and not foreign:
+        for p_ in (checkpoint_path, npz_path):
+            try:
+                os.unlink(p_)
+            except OSError:
+                pass
+    return ReplayResult(out, n, comp.next_free)

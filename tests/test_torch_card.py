@@ -673,3 +673,44 @@ def test_transform_check_on_the_card_matches_the_cpu(cuda_device, argv):
     assert "verified against engine.run" in err
     rc, cpu, _ = cli_run(argv + ["--cpu"])
     assert rc == 0 and card == cpu
+
+
+@pytest.mark.parametrize("model,n", [("gemm", 16), ("cholesky", 16),
+                                     ("syrk", 32), ("trmm", 16)])
+@pytest.mark.parametrize("dispatch,segmented", [("steal", True),
+                                                ("static", True),
+                                                ("static", False)])
+def test_shard_run_on_the_card_matches_the_cpu(cuda_device, model, n,
+                                               dispatch, segmented):
+    """``shard_run`` with one and with four workers on the card equals
+    the CPU's sharded run, both window kernels launching on the card."""
+    from pluss_torch.config import SamplerConfig
+    from pluss_torch.models import REGISTRY
+    from pluss_torch.parallel.shard import shard_run
+
+    spec, cfg = REGISTRY[model](n), SamplerConfig(cls=8)
+    want = shard_run(spec, cfg, devices=["cpu"] * 2, dispatch=dispatch,
+                     segmented=segmented, window_accesses=1)
+    for workers in (1, 4):
+        got = shard_run(spec, cfg, devices=[cuda_device] * workers,
+                        dispatch=dispatch, segmented=segmented,
+                        window_accesses=1)
+        np.testing.assert_array_equal(got.noshare_dense, want.noshare_dense)
+        assert got.share_raw == want.share_raw
+        assert got.max_iteration_count == want.max_iteration_count
+
+
+def test_shard_replay_file_on_the_card_matches_the_cpu(cuda_device,
+                                                       tmp_path):
+    rng = np.random.default_rng(21)
+    path = str(tmp_path / "t.bin")
+    lines = np.concatenate([rng.integers(0, 4096, 30_000),
+                            (1 << 40) + rng.integers(0, 4096, 9_000)])
+    (lines.astype(np.uint64) << np.uint64(6)).astype("<u8").tofile(path)
+    want = trace.replay_file(path, window=1 << 10, batch_windows=2,
+                             device="cpu")
+    for devices, dispatch in (([cuda_device] * 3, "steal"),
+                              ([cuda_device], "static")):
+        got = trace.shard_replay_file(path, window=1 << 10, batch_windows=2,
+                                      devices=devices, dispatch=dispatch)
+        np.testing.assert_array_equal(got.hist, want.hist)

@@ -41,7 +41,8 @@ def test_acc_block_matches_jax_cli(model, n, capsys):
     jax_cli.main(["acc", "--cpu", "--backends", "vmap", "--model", model,
                   "--n", str(n)])
     want = capsys.readouterr().out
-    assert cli.main(["acc", "--cpu", "--model", model, "--n", str(n)]) == 0
+    assert cli.main(["acc", "--cpu", "--backends", "vmap", "--model", model,
+                     "--n", str(n)]) == 0
     got = capsys.readouterr().out
     assert got.startswith("TORCH CPU: ")
     assert body(got) == body(want)
@@ -59,9 +60,15 @@ def test_module_entry_runs_with_jax_and_pluss_blocked(capsys):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+    # the default backends (vmap, shard, seq): three blocks, each the JAX
+    # vmap block below its banner
     jax_cli.main(["acc", "--cpu", "--backends", "vmap", "--model", "gemm",
                   "--n", "16"])
-    assert body(out.stdout) == body(capsys.readouterr().out)
+    want = body(capsys.readouterr().out)
+    blocks = out.stdout.split("TORCH CPU")[1:]
+    assert [b.split(":")[0] for b in blocks] == ["", " SHARD", " SEQ"]
+    for b in blocks:
+        assert b.split("\n", 1)[1].splitlines() == want
 
 
 @pytest.mark.parametrize("extra", [
@@ -94,8 +101,8 @@ def test_sample_module_entry_runs_with_jax_and_pluss_blocked(capsys):
 
 def test_start_point_matches_jax_cli(capsys):
     args = ["acc", "--cpu", "--model", "trmm", "--n", "16", "--start-point",
-            "8"]
-    jax_cli.main(args + ["--backends", "vmap"])
+            "8", "--backends", "vmap"]
+    jax_cli.main(args)
     want = capsys.readouterr().out
     assert cli.main(args) == 0
     assert body(capsys.readouterr().out) == body(want)
@@ -337,7 +344,8 @@ def test_spec_load_matches_jax_cli(tmp_path):
     assert want[1].startswith("TPU IMPORT gemm16: ")
     assert got[1].splitlines()[1:] == want[1].splitlines()[1:]
     # and the loaded spec's block is the acc block of the same model
-    acc = run_cli(cli.main, ["acc", "--cpu", "--model", "gemm", "--n", "16"])
+    acc = run_cli(cli.main, ["acc", "--cpu", "--backends", "vmap", "--model",
+                             "gemm", "--n", "16"])
     assert got[1].splitlines()[1:] == acc[1].splitlines()[1:]
 
 
@@ -360,7 +368,7 @@ def test_verify_matches_jax_cli(mode, tmp_path):
     argv = [mode, "--cpu", "--verify", "--model", "trmm", "--n", "16",
             *extra]
     want = run_cli(jax_cli.main, argv + ["--backends", "vmap"])
-    got = run_cli(cli.main, argv)
+    got = run_cli(cli.main, argv + ["--backends", "vmap"])
     assert got[0] == want[0] == 0
     if mode == "acc":
         assert body(got[1]) == body(want[1])
@@ -687,8 +695,8 @@ def test_import_and_spec_dir_run_with_jax_and_pluss_blocked(tmp_path,
                    reg])
     assert jax_cli.main(["import", src, "--json"]) == 0
     assert run.stdout == capsys.readouterr().out
-    run = blocked(["acc", "--cpu", "--model", "tiny", "--n", "16"],
-                  env={"PLUSS_SPEC_DIR": reg})
+    run = blocked(["acc", "--cpu", "--backends", "vmap", "--model", "tiny",
+                   "--n", "16"], env={"PLUSS_SPEC_DIR": reg})
     assert "ignoring n=16" in run.stderr
     assert jax_cli.main(["import", src, "--run", "--cpu"]) == 0
     want = capsys.readouterr().out.split("TPU IMPORT second")[0]
@@ -785,8 +793,9 @@ def test_serve_usage_errors(capsys, tmp_path):
     with pytest.raises(SystemExit):
         cli.main(["serve", "--cpu"])
     assert "exactly one of --socket/--port" in capsys.readouterr().err
-    assert cli.main(["serve", "--cpu", "--socket", str(tmp_path / "h.sock"),
-                     "--heartbeat-dir", str(tmp_path)]) == 2
-    assert "item 7" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main(["serve", "--cpu", "--socket", str(tmp_path / "h.sock"),
+                  "--port", "0", "--heartbeat-dir", str(tmp_path)])
+    assert "exactly one of --socket/--port" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cli.main(["autotune", "--cpu", "--force", "--dry-run"])

@@ -98,11 +98,12 @@ def block(text: str) -> list[str]:
 @pytest.mark.parametrize("model", ["cholesky", "trmm", "syrk_tri", "durbin"])
 def test_acc_block_matches_jax_cli(model, capsys):
     """``pluss.cli acc`` prints one block per backend, the vmap one first;
-    the port's single block equals it below the banner."""
+    the port's vmap block equals it below the banner."""
     jax_cli.main(["acc", "--cpu", "--backends", "vmap", "--model", model,
                   "--n", "16"])
     want = capsys.readouterr().out
-    assert cli.main(["acc", "--cpu", "--model", model, "--n", "16"]) == 0
+    assert cli.main(["acc", "--cpu", "--backends", "vmap", "--model", model,
+                     "--n", "16"]) == 0
     got = capsys.readouterr().out
     assert got.startswith("TORCH CPU: ")
     assert block(got) == block(want)

@@ -268,10 +268,21 @@ def test_plain_engine_run_still_raises_raw():
         engine.run(carried("gemm", 16), SamplerConfig(**KW), device="cpu")
 
 
-def test_shard_backend_is_a_classified_error():
-    with pytest.raises(PlussError, match="item 7"):
+def test_shard_backend_is_a_classified_error(fast_retry):
+    """The shard backend runs under its own ladder (SHARD_LADDER); a
+    failure its rungs cannot absorb comes back classified, never raw."""
+    faults.install(FaultPlan.parse("shard_oom"))
+    with pytest.raises(ResourceExhausted) as ei:
         run_resilient(carried("gemm", 16), SamplerConfig(**KW),
-                      backend="shard", device="cpu")
+                      backend="shard", device="cpu", rungs=(),
+                      retry=fast_retry)
+    assert isinstance(ei.value.cause, torch.OutOfMemoryError)
+    faults.install(None)
+    got = run_resilient(carried("gemm", 16), SamplerConfig(**KW),
+                        backend="shard", device="cpu", retry=fast_retry)
+    same_result(got, engine.run(carried("gemm", 16), SamplerConfig(**KW),
+                                device="cpu"))
+    assert got.degradations == ()
 
 
 def test_describe_path_carries_degradation_stamp():

@@ -5,7 +5,7 @@ and ``pluss/obsplane_smoke.py`` run on the port's daemon — breaker trip,
 brown-out, typed shedding and re-close; the journal recovered across a
 restart; a watchdog abandon and its flight dump; the drain hard bound;
 the metrics endpoint equal to the metrics verb; the connection cap.
-Plus the ``heartbeat_dir`` refusal and the warm-window quirk, pinned on
+Plus the ``heartbeat_dir`` exporter's start and stop and the warm-window quirk, pinned on
 both packages.
 """
 
@@ -25,7 +25,7 @@ from pluss.serve import Server as JaxServer
 from pluss.serve.journal import RequestJournal as JaxJournal
 from pluss_torch import engine, obs
 from pluss_torch.resilience import (CacheCorrupt, CircuitBreaker, FaultPlan,
-                                    PlussError, faults)
+                                    faults)
 from pluss_torch.resilience.errors import Overloaded
 from pluss_torch.serve import (AdmissionQueue, Client, RequestJournal,
                                ServeConfig, Server)
@@ -566,11 +566,17 @@ def test_conn_cap_sheds_typed_at_accept(server_factory):
 
 
 def test_heartbeat_dir_is_refused(tmp_path):
-    with pytest.raises(PlussError, match="item 7") as ei:
-        Server(socket_path=str(tmp_path / "h.sock"),
-               config=ServeConfig(heartbeat_dir=str(tmp_path),
-                                  device="cpu"))
-    assert ei.value.site == "serve.heartbeat"
+    """``heartbeat_dir`` is no longer refused: it starts the multihost
+    heartbeat exporter with the daemon and stops it with the drain."""
+    srv = Server(socket_path=str(tmp_path / "h.sock"),
+                 config=ServeConfig(heartbeat_dir=str(tmp_path),
+                                    num_processes=1, prom_refresh_s=0.1,
+                                    device="cpu"))
+    srv.start()
+    try:
+        assert srv._hb_stop is not None
+    finally:
+        srv.shutdown()
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ package's (``pluss.sweep``), on the CPU.
   from a journal either package wrote, and the journal records are the
   JAX package's;
 - ``device_groups``: on one device the groups clamp to one and the points
-  equal the serial sweep's; a group of more than one device raises a
-  classified error naming ROADMAP item 7;
+  equal the serial sweep's; a group of more than one device runs its
+  point sharded over the group, equal too;
 - the precompile thread plans the next point (``sweep.precompiles``);
 - ``cli sweep --cpu --model gemm --n 16`` (and with ``--resume``) prints
   what ``pluss.cli sweep --cpu`` prints, byte for byte.
@@ -27,7 +27,6 @@ from pluss.models import REGISTRY as JAX_REGISTRY
 from pluss_torch import cli, cri, engine, mrc, obs, sweep
 from pluss_torch.config import SamplerConfig
 from pluss_torch.models import REGISTRY
-from pluss_torch.resilience.errors import PlussError
 
 CPU = torch.device("cpu")
 
@@ -148,11 +147,14 @@ def test_device_groups_clamp_on_one_device():
 
 
 def test_device_group_of_several_devices_is_refused(monkeypatch):
+    """A group of several devices is no longer refused: its point runs
+    through the sharded backend over the group, equal to the serial
+    sweep."""
     monkeypatch.setattr(sweep, "_devices_like",
                         lambda dev: [torch.device("cpu")] * 4)
-    with pytest.raises(PlussError, match="item 7"):
-        sweep.sweep(REGISTRY["gemm"](8), thread_nums=(1, 2),
-                    chunk_sizes=(4,), device_groups=2, device=CPU)
+    kw = dict(thread_nums=(1, 2), chunk_sizes=(4,), device=CPU)
+    same_points(sweep.sweep(REGISTRY["gemm"](8), device_groups=2, **kw),
+                sweep.sweep(REGISTRY["gemm"](8), **kw))
 
 
 def test_precompile_thread_plans_the_next_point(tmp_path, monkeypatch):
