@@ -13,7 +13,9 @@ the sampler there, the authoring and transform modes, whose specs run
 there, the autotuner, the schedule sweep and the serving daemon,
 which run both paths there, and the multi-device layer, which runs both
 paths sharded there (``parallel.shard_run``, ``trace.shard_replay_file``,
-process groups on ``torch.distributed``) — and holds every kernel of
+process groups on ``torch.distributed``), and the native C++ runtime on
+the host (``pluss_torch.native``), the independent sampler the card's
+results are held against — and holds every kernel of
 those paths against its plain torch version.  Each phase prints one JSON line; any failed check
 raises, so the script exits non-zero and prints no result line.  Phases:
 
@@ -199,7 +201,29 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     run; (f) ``cli acc --model gemm --n 128`` with the default backends
     (vmap, shard, seq): three blocks, each phase 16's below its banner,
     and ``stats`` of its telemetry shows the ``shard scale-out:`` block;
-28. the kernels line, the card's name and power limit, and the result line.
+28. native: the card's engine and replay against the port's native C++
+    runtime (``pluss_torch/cpp``, built into ``pluss_torch/_build/``; it
+    runs on the host, not the card): (a) its library and ``pluss_cpp``
+    binary built at once, with each one's seconds; (b) ``pluss_cpp acc
+    128`` prints phase 16's block below the banner; (c) all 29 families
+    at n=16, the card's ``engine.run`` against ``native.run`` (per-thread
+    histograms and access counts exactly, CRI keys exactly and values
+    within 1e-11 relative, the MRC within L2 1e-12); (d) mvt-4000 (kernel
+    1: 4) and cholesky-1000 (PolyBench LARGE is 2000: its native run is
+    predicted from cholesky-1000's time and taken only under 60 s) the
+    same way; (e) trmm-1000 through ``write_spec_file`` and ``pluss_cpp acc
+    --spec``, the card's block below the banner (kernel 1: 63); (f)
+    ``native.replay`` of phase 17's first 2^24 refs against the card's
+    ``replay_file`` of them (phase 17's) and of their line ids written as
+    a precompacted trace (kernels 2 and 3 once); (g) on those ids, two
+    gloo ranks sharing the card and NCCL at world
+    1: ``shard_replay`` and ``shard_replay_file(precompacted=True)`` equal
+    to the single-device ``replay_file`` bit for bit (kernel 2 once per
+    rank each), and ``cli trace --backends shard`` on the raw prefix equal
+    below the banner to the in-memory sharded block (world 2) or the
+    single-process block (world 1); the native seconds beside the card's,
+    with the card's name and power limit and the host CPU;
+29. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
 (phases 5-16, 17-18's first replay, phase 19's staging, first staged
@@ -208,7 +232,8 @@ phase 22's ``--check``, engine and ``spec load --run`` runs, phase
 23's ``import``, engine, corpus, ``transform`` and ``tune`` runs, each
 of phase 24's calibration points and its tuned replay, phase 25's
 sweeps and CLI run, phase 26's requests (a)-(d), and each of phase 27's
-runs but the ranks of (d), which count their own)
+runs but the ranks of (d), which count their own, and each of phase 28's
+card runs but the ranks of (g), which count their own)
 and read just after it: the
 event kernel must launch once per plan window that sorts something (0 for
 GEMM and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
@@ -897,9 +922,9 @@ def main() -> int:
     # 17-18. the trace replay's main path, on a 2^28-ref trace -------------
     tmp = tempfile.mkdtemp(prefix="pluss_torch_smoke_")
     try:
-        batches, streamed = trace_phases(tmp, by_path)
+        batches, streamed, prefix = trace_phases(tmp, by_path)
         # 19. the packed, device-resident replay of the same trace
-        resident_phase(tmp, streamed, by_path)
+        resident_phase(tmp, streamed, by_path, prefix)
         # 20. the mvt-4000 run and the streamed replay under telemetry
         telemetry_phase(tmp, cfg, by_path, resm, by_path["mvt4000"],
                         streamed, by_path["trace"])
@@ -925,10 +950,12 @@ def main() -> int:
         # 27. the multi-device layer: shard_run, the sharded replay,
         # process groups, the shard ladder and the CLI's three backends
         shard_phase(tmp, cfg, by_path, resc, streamed, resm, lines)
+        # 28. the card's engine and replay against the native C++ runtime
+        native_phase(tmp, cfg, by_path, lines, resc, prefix)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 28. kernels line, card, result -----------------------------------------
+    # 29. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
@@ -1011,21 +1038,24 @@ dist.destroy_process_group()
 """
 
 
-def shard_ranks(tmp: str, world: int, backend: str) -> list[dict]:
-    """Run :data:`_SHARD_RANK` as ``world`` processes on the card through
-    a file rendezvous in ``tmp``; every rank must exit 0 within its time
-    limit (the rest are killed); returns their JSON documents."""
+def shard_ranks(tmp: str, world: int, backend: str, script: str = _SHARD_RANK,
+                tag: str = "", args=()) -> list[dict]:
+    """Run ``script`` (default :data:`_SHARD_RANK`) as ``world`` processes
+    on the card through a file rendezvous in ``tmp``, each given the repo,
+    the rendezvous, the world, its rank, ``backend``, its output stem and
+    ``args``; every rank must exit 0 within its time limit (the rest are
+    killed); returns their JSON documents."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    rdv = os.path.join(tmp, f"rdv_{backend}_{world}")
-    out = os.path.join(tmp, f"ranks_{backend}_{world}.json")
-    logs = [open(os.path.join(tmp, f"rank_{backend}_{i}.log"), "w+")
+    rdv = os.path.join(tmp, f"rdv{tag}_{backend}_{world}")
+    out = os.path.join(tmp, f"ranks{tag}_{backend}_{world}.json")
+    logs = [open(os.path.join(tmp, f"rank{tag}_{backend}_{i}.log"), "w+")
             for i in range(world)]
     procs = []
     try:
         for i in range(world):
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", _SHARD_RANK, repo, f"file://{rdv}",
-                 str(world), str(i), backend, out],
+                [sys.executable, "-c", script, repo, f"file://{rdv}",
+                 str(world), str(i), backend, out, *args],
                 stdout=logs[i], stderr=subprocess.STDOUT))
         for p_, lg in zip(procs, logs):
             try:
@@ -1223,6 +1253,314 @@ def shard_phase(tmp: str, cfg, by_path: dict, resc, streamed, resm,
                                   if "chunks" in ln or "busy" in ln]}
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "shard", **out, "ok": True})
+
+
+#: one rank of phase 28 (g): a process group of ``world`` ranks through a
+#: file rendezvous on this rank's card; the sharded replays of a
+#: precompacted trace (``shard_replay`` and ``shard_replay_file``) and
+#: ``cli trace --backends shard`` on the raw trace, each with its kernel-2
+#: launches, to a JSON file
+_REPLAY_RANK = r"""
+import io, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch.distributed as dist
+from pluss_torch import cli, trace
+from pluss_torch.ops.event_hist import masked_histogram
+from pluss_torch.parallel import multihost
+rendezvous, world, rank, backend, out, ids_path, raw_path = sys.argv[2:9]
+world, rank = int(world), int(rank)
+multihost.initialize(rendezvous, world, rank, device="cuda", backend=backend)
+devs = multihost.global_devices("cuda")
+ids = np.fromfile(ids_path, dtype="<u8").astype(np.int64)
+doc = {"rank": rank}
+for label, fn in (
+        ("shard_replay", lambda: trace.shard_replay(
+            ids, devices=devs, precompacted=True)),
+        ("shard_replay_file", lambda: trace.shard_replay_file(
+            ids_path, devices=devs, precompacted=True))):
+    masked_histogram.launches = 0
+    t0 = time.perf_counter()
+    rep = fn()
+    doc[label] = {"seconds": time.perf_counter() - t0,
+                  "launches": masked_histogram.launches,
+                  "hist": rep.hist.tolist(), "refs": rep.total_count}
+# each rank writes its MRC in a directory of its own, under one name
+work = f"{out}.cli{rank}"
+os.makedirs(work, exist_ok=True)
+os.chdir(work)
+buf, saved = io.StringIO(), sys.stdout
+masked_histogram.launches = 0
+t0 = time.perf_counter()
+sys.stdout = buf
+try:
+    rc = cli.main(["trace", "--file", raw_path, "--backends", "shard",
+                   "--out", "m.csv"])
+finally:
+    sys.stdout = saved
+doc["cli"] = {"rc": rc, "seconds": time.perf_counter() - t0,
+              "launches": masked_histogram.launches,
+              "lines": buf.getvalue().splitlines(),
+              "csv": open("m.csv").read()}
+json.dump(doc, open(f"{out}.{rank}", "w"))
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def host_cpu() -> str:
+    """The host CPU's model name as ``lscpu`` gives it, and
+    ``/proc/cpuinfo``'s beside it when ``lscpu`` does not know it (a
+    virtual machine may hide it from both)."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                 if ln.startswith("Model name:")), "unknown")
+    if name == "unknown" and os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            info = next((ln.split(":", 1)[1].strip() for ln in f
+                         if ln.startswith("model name")), "unknown")
+        name = f"{name} (lscpu); {info} (/proc/cpuinfo)"
+    return name
+
+
+def native_phase(tmp: str, cfg, by_path: dict, acc_lines, resc,
+                 prefix) -> dict:
+    """Phase 28: the card's engine and replay held against the port's
+    native C++ runtime (``pluss_torch.native``, built from
+    ``pluss_torch/cpp``; it runs on the host, not on the card): (a) build
+    its library and ``pluss_cpp`` binary, one compiler each, at once; (b)
+    ``pluss_cpp acc 128`` prints phase 16's block below the banner (the
+    GEMM-128 goldens); (c) all 29 families at n=16, the card's
+    ``engine.run`` against ``native.run``: per-thread no-share and share
+    histograms and the access count exactly, the CRI histogram's keys
+    exactly and its values within 1e-11 relative (the CRI sums in another
+    order: the port's racetrack is vectorized), the MRC within
+    ``mrc.l2_error`` 1e-12 (tests/test_native.py's tolerance between two
+    implementations) and the native MRC against the port's AET of the
+    native CRI histogram at rtol 1e-12; (d) mvt-4000 (kernel 1: 4) and
+    cholesky-1000 (kernel 1 in every window) the same way, and
+    cholesky-2000 (phase 8's run) too when cholesky-1000's native time
+    predicts under 60 s for it; (e) trmm-1000 written with
+    ``write_spec_file`` through ``pluss_cpp acc --spec``: the card's block
+    below the banner (kernel 1: 63); (f) ``native.replay`` of phase 17's
+    first 2^24 refs against the card's ``replay_file`` of them (``prefix``,
+    phase 17's), and against the card's replay of their line ids written
+    as a precompacted trace (kernels 2 and 3 once each); (g) on those ids,
+    two gloo ranks sharing the card, then NCCL at world 1, each run
+    ``shard_replay`` and ``shard_replay_file(precompacted=True)`` equal to
+    the single-device ``replay_file`` of those ids bit for bit, and ``cli
+    trace --backends shard`` on the raw prefix, whose block below the
+    banner is the in-memory sharded replay's (the single-process block's
+    histogram; the table size of the in-memory compaction, as in JAX's
+    multi-process route) and at world 1 the single-process block itself.
+    Returns the native and card seconds."""
+    import numpy as np
+    import torch
+
+    from pluss_torch import cli, cri, engine, mrc, native, trace
+    from pluss_torch.models import REGISTRY, cholesky, gemm, mvt, trmm
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card_line(), "host_cpu": host_cpu(),
+                 "host_threads": os.cpu_count()}
+    T = cfg.thread_num
+
+    # (a) build
+    t0 = time.perf_counter()
+    built = native.build()
+    out["build"] = {"seconds": time.perf_counter() - t0,
+                    **{k: v["seconds"] for k, v in built.items()}}
+    check(os.path.exists(native.BIN_PATH)
+          and os.path.exists(native.LIB_PATH), "native build outputs")
+
+    def pluss_cpp(*argv) -> tuple[list[str], float]:
+        t1 = time.perf_counter()
+        p_ = subprocess.run([native.BIN_PATH, *argv], capture_output=True,
+                            text=True, timeout=600)
+        dt = time.perf_counter() - t1
+        check(p_.returncode == 0, f"pluss_cpp {argv}: {p_.stderr[-2000:]}")
+        return p_.stdout.splitlines(), dt
+
+    # (b) the GEMM-128 block
+    nat, dt = pluss_cpp("acc", "128")
+    check(nat[0].startswith("NATIVE C++: ") and nat[1:] == acc_lines[1:],
+          "pluss_cpp acc 128 != phase 16's block")
+    out["gemm128_acc"] = {"native_s": dt, "lines": len(nat)}
+
+    def held(res, nat_res, label: str) -> dict:
+        """The card's result against the native run's."""
+        check(res.noshare_list() == nat_res.noshare_list()
+              and res.share_list() == nat_res.share_list()
+              and res.max_iteration_count == nat_res.max_iteration_count,
+              f"{label}: card != native histograms")
+        ri = cri.distribute(res.noshare_list(), res.share_list(), T)
+        nri = nat_res.rihist()
+        check(set(ri) == set(nri), f"{label}: CRI keys differ")
+        rel = max((abs(ri[k] - nri[k]) / abs(nri[k]) for k in ri if nri[k]),
+                  default=0.0)
+        check(rel <= 1e-11, f"{label}: CRI off by {rel} relative")
+        card_curve, nat_curve = mrc.aet_mrc(ri, cfg), nat_res.mrc()
+        l2 = mrc.l2_error(card_curve, nat_curve)
+        check(len(card_curve) == len(nat_curve) and l2 < 1e-12,
+              f"{label}: MRC L2 {l2}")
+        check(np.allclose(nat_curve, mrc.aet_mrc(nri, cfg), rtol=1e-12,
+                          atol=0.0), f"{label}: native MRC != port AET")
+        return {"cri_rel": rel, "mrc_l2": l2}
+
+    def card_vs_native(spec, label: str) -> dict:
+        t1 = time.perf_counter()
+        res, counts = counted(lambda: engine.run(spec, cfg))
+        card_s = time.perf_counter() - t1
+        clean(label, res)
+        by_path[label] = counts
+        t1 = time.perf_counter()
+        nat_res = native.run(spec, cfg)
+        nat_s = time.perf_counter() - t1
+        return {"card_s": card_s, "native_s": nat_s,
+                "refs": res.max_iteration_count, "launches": counts,
+                **held(res, nat_res, label)}
+
+    # (c) every family at n=16
+    t0 = time.perf_counter()
+    fam = {"card_s": 0.0, "native_s": 0.0, "cri_rel": 0.0, "mrc_l2": 0.0}
+
+    def families():
+        for name in sorted(REGISTRY):
+            sp = REGISTRY[name](16)
+            t1 = time.perf_counter()
+            res = clean(f"native_{name}16", engine.run(sp, cfg))
+            t2 = time.perf_counter()
+            nat_res = native.run(sp, cfg)
+            fam["card_s"] += t2 - t1
+            fam["native_s"] += time.perf_counter() - t2
+            h = held(res, nat_res, f"{name}16")
+            fam["cri_rel"] = max(fam["cri_rel"], h["cri_rel"])
+            fam["mrc_l2"] = max(fam["mrc_l2"], h["mrc_l2"])
+
+    _, counts = counted(families)
+    by_path["native_families16"] = counts
+    check(counts["carried_event_hist"] > 0, "families: kernel 1 not launched")
+    out["families16"] = {"models": len(REGISTRY), "launches": counts,
+                         "seconds": time.perf_counter() - t0, **fam}
+
+    # (d) mvt-4000 and cholesky
+    out["mvt4000"] = card_vs_native(mvt(4000), "native_mvt4000")
+    check(out["mvt4000"]["launches"]["carried_event_hist"] == 4,
+          "mvt4000: not 4 kernel-1 launches")
+    chol = out["cholesky1000"] = card_vs_native(cholesky(1000),
+                                                "native_cholesky1000")
+    want = engine.plan(cholesky(1000), cfg).nests[0].n_windows
+    check(chol["launches"]["carried_event_hist"] == want,
+          f"cholesky1000: {chol['launches']}, {want} windows")
+    predicted = chol["native_s"] * resc.max_iteration_count / chol["refs"]
+    out["cholesky2000_native_predicted_s"] = predicted
+    if predicted < 60:
+        t1 = time.perf_counter()
+        nat_res = native.run(cholesky(2000), cfg)
+        out["cholesky2000"] = {"native_s": time.perf_counter() - t1,
+                               **held(resc, nat_res, "cholesky2000")}
+        del nat_res
+
+    # (e) trmm-1000 through a spec file and the binary
+    spec_path = os.path.join(tmp, "trmm1000.spec")
+    native.write_spec_file(trmm(1000), spec_path)
+    t1 = time.perf_counter()
+    res, counts = counted(lambda: engine.run(trmm(1000), cfg))
+    card_s = time.perf_counter() - t1
+    clean("native_trmm1000", res)
+    by_path["native_trmm1000"] = counts
+    check(counts["carried_event_hist"] == 63, f"trmm1000: {counts}")
+    nat, dt = pluss_cpp("acc", "--spec", spec_path)
+    check(nat[1:] == block_of(res, cfg, "x")[1:],
+          "pluss_cpp acc --spec trmm1000 != the card's block")
+    out["trmm1000_spec"] = {"card_s": card_s, "native_s": dt,
+                            "launches": counts}
+    del res
+
+    # (f) the trace replay, on phase 17's first 2^24 refs, and on their
+    # line ids as a precompacted trace
+    n = 1 << 24
+    raw = np.fromfile(os.path.join(tmp, "smoke.bin"), dtype="<u8", count=n)
+    raw_path, ids_path = (os.path.join(tmp, f) for f in ("prefix.bin",
+                                                          "prefix.ids"))
+    raw.tofile(raw_path)
+    trace.lines_of(raw.astype(np.int64), cfg.cls).astype("<u8").tofile(
+        ids_path)
+    t1 = time.perf_counter()
+    ref, counts = counted(lambda: trace.replay_file(ids_path,
+                                                    precompacted=True))
+    card_s = time.perf_counter() - t1
+    clean("native_replay", ref)
+    by_path["native_replay"] = counts
+    check(counts["masked_hist"] == counts["d24v_decode"] == 1,
+          f"replay prefix ids: {counts}")
+    check(np.array_equal(ref.hist, prefix.hist)
+          and ref.total_count == prefix.total_count == n,
+          "precompacted prefix ids != phase 17's prefix replay")
+    t1 = time.perf_counter()
+    nat_rep = native.replay(raw.astype(np.int64), cfg.cls, cfg.cache_kb)
+    nat_s = time.perf_counter() - t1
+    check(nat_rep.rihist() == prefix.histogram()
+          and nat_rep.max_iteration_count == n, "native.replay != card")
+    l2 = mrc.l2_error(mrc.aet_mrc(prefix.histogram(), cfg), nat_rep.mrc())
+    check(l2 < 1e-12, f"replay MRC L2 {l2}")
+    out["replay2p24"] = {"card_s": card_s, "native_s": nat_s,
+                         "launches": counts, "mrc_l2": l2}
+    del nat_rep, raw
+
+    # (g) the sharded replay in a process group
+    cwd = os.getcwd()
+    one = os.path.join(tmp, "cli_one")
+    os.makedirs(one, exist_ok=True)
+    os.chdir(one)
+    try:
+        (rc, so, se), counts = counted(lambda: cli_call(
+            ["trace", "--file", raw_path, "--backends", "shard", "--out",
+             "m.csv"]))
+        check(rc == 0, f"cli trace --backends shard: {se[-2000:]}")
+        single, single_csv = so.splitlines(), open("m.csv").read()
+        mem = trace.shard_replay(trace.load_trace(raw_path),
+                                 devices=[torch.device("cuda", 0)])
+        buf = io.StringIO()
+        cli._trace_block(mem, 0.0, cfg, torch.device("cuda", 0), "m.csv",
+                         buf)
+        in_memory = buf.getvalue().splitlines()
+    finally:
+        os.chdir(cwd)
+    by_path["native_cli_single"] = counts
+    check(in_memory[1:-1] == single[1:-1],
+          "in-memory sharded block's histogram != the streamed block's")
+    groups = {}
+    t0 = time.perf_counter()
+    for backend, world in (("gloo", 2), ("nccl", 1)):
+        docs = shard_ranks(tmp, world, backend, _REPLAY_RANK, "_replay",
+                           (ids_path, raw_path))
+        want_block = single if world == 1 else in_memory
+        for d in docs:
+            for label in ("shard_replay", "shard_replay_file"):
+                check(d[label]["hist"] == ref.hist.tolist()
+                      and d[label]["refs"] == n,
+                      f"{backend} x{world} rank {d['rank']}: {label} != "
+                      "replay_file")
+                check(d[label]["launches"] > 0,
+                      f"{backend} rank {d['rank']}: {label} launched no "
+                      "kernel 2")
+            c = d["cli"]
+            check(c["rc"] == 0 and c["lines"][1:] == want_block[1:]
+                  and c["csv"] == single_csv,
+                  f"{backend} x{world} rank {d['rank']}: cli trace block")
+        groups[f"{backend}{world}"] = [
+            {"rank": d["rank"],
+             **{f"{lb}_{k}": d[lb][k] for lb in ("shard_replay",
+                                                  "shard_replay_file", "cli")
+                for k in ("seconds", "launches")}} for d in docs]
+    out["groups"] = {"seconds": time.perf_counter() - t0, **groups,
+                     "n_lines_streamed": single[-1].split()[3],
+                     "n_lines_in_memory": in_memory[-1].split()[3]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "native", **out, "ok": True})
+    return out
 
 
 def curve_of(res, cfg):
@@ -1440,7 +1778,8 @@ def sample_phase(cfg, by_path, full) -> None:
 def trace_phases(tmp: str, by_path: dict) -> tuple:
     """Phases 17 and 18: the streamed replay on the card, and its CLI.
     Returns kernels 2 and 3's measurements on one real batch of each part
-    of the trace, and the streamed replay's result."""
+    of the trace, the streamed replay's result and its first batch's
+    replay (the 2^24-ref prefix)."""
     import numpy as np
     import torch
 
@@ -1561,16 +1900,17 @@ def trace_phases(tmp: str, by_path: dict) -> tuple:
           f"cli trace block / launches {counts}")
     emit({"phase": "trace_cli", "lines": len(lines), "launches": counts,
           "ok": True})
-    return batches, rep
+    return batches, rep, prefix
 
 
-def resident_phase(tmp: str, rep, by_path: dict) -> None:
+def resident_phase(tmp: str, rep, by_path: dict, prefix) -> None:
     """Phase 19: the 2^28-ref trace of phase 17 packed (d24v, and u24 on
     its first batch), staged into device memory (kernel 3 once per d24v
     record) and replayed from there (kernel 2 once per batch, or once per
     window on the legacy scan), then through ``replay_file``'s
     residency store: a cold stage-through, a warm hit and a tiny budget.
-    Every replay must equal the streamed replay ``rep`` bit for bit."""
+    Every replay must equal the streamed replay ``rep`` bit for bit (the
+    u24 first batch: ``prefix``, phase 17's replay of that batch)."""
     import numpy as np
     import torch
 
@@ -1600,7 +1940,7 @@ def resident_phase(tmp: str, rep, by_path: dict) -> None:
     t0 = time.perf_counter()
     meta24 = trace.pack_file(path, u24, limit_refs=batch)
     out["pack_u24_prefix_s"] = time.perf_counter() - t0
-    prefix = trace.replay_file(path, limit_refs=batch)
+    # phase 17's replay of the same first batch
     check(meta24["fmt"] == "u24" and meta24["n"] == prefix.total_count
           and meta24["n_lines"] == prefix.n_lines, "u24 sidecar != streamed")
     got = trace.replay_resident(u24, meta24)

@@ -41,7 +41,8 @@ the authoring and transform modes.
   ``--out``.  ``--backends shard`` (explicit and alone) replays it
   sharded (:func:`pluss_torch.trace.shard_replay_file`, with
   ``--shard-dispatch`` and the ``--journal``/``--resume`` checkpoint; a
-  text trace through :func:`pluss_torch.trace.shard_replay`).  Below the
+  text trace, or any trace in a ``torch.distributed`` process group,
+  through :func:`pluss_torch.trace.shard_replay`).  Below the
   banner the block and the CSV are byte for byte those of ``python -m
   pluss.cli trace``.
 - ``stats <events.jsonl>``: aggregate a telemetry stream (``--check``
@@ -719,16 +720,33 @@ def _trace_block(rep, dt: float, cfg: SamplerConfig, device, path: str,
 
 def shard_trace_mode(args, cfg: SamplerConfig, device, out) -> int:
     """``trace --backends shard``: the sharded replay over every card (one
-    worker on the CPU), with the JAX CLI's notices and block."""
-    from pluss_torch.parallel.shard import default_devices
+    worker on the CPU), with the JAX CLI's notices and block.  In an
+    initialized ``torch.distributed`` process group each rank replays on
+    its own device (:func:`pluss_torch.parallel.multihost.global_devices`)
+    and a u64 trace goes through the in-memory :func:`trace.shard_replay`
+    (every rank compacts the whole trace the same way); every rank prints
+    the block."""
+    from pluss_torch.parallel.multihost import global_devices
+    from pluss_torch.parallel.shard import default_devices, group_size
 
-    devices = default_devices(device=device)
+    in_group = group_size() > 1
+    devices = global_devices(device) if in_group \
+        else default_devices(device=device)
     win = args.window or trace.TRACE_WINDOW
     if args.feed_workers is not None or args.wire is not None:
         print("pluss_torch: --feed-workers/--wire have no effect on the "
               "sharded replay", file=sys.stderr)
     t0 = time.perf_counter()
-    if args.fmt == "u64":
+    if args.fmt == "u64" and in_group:
+        if args.resume or args.journal:
+            print("pluss_torch: --resume/--journal have no effect on "
+                  "multi-process sharded replay", file=sys.stderr)
+        if args.batch_windows is not None:
+            print("pluss_torch: --batch-windows has no effect on the "
+                  "in-memory sharded replay", file=sys.stderr)
+        rep = trace.shard_replay(trace.load_trace(args.file, args.fmt),
+                                 cls=cfg.cls, devices=devices, window=win)
+    elif args.fmt == "u64":
         ckpt = None
         if args.resume or args.journal:
             ckpt = args.journal or (args.file + ".shard.ckpt")

@@ -29,6 +29,12 @@ class SamplerConfig:
     cache_kb: int = 2560
 
     @property
+    def lines_per_element_div(self) -> int:
+        """Elements per cache line: ``CLS // DS`` (address -> line is
+        ``addr*DS//CLS``)."""
+        return self.cls // self.ds
+
+    @property
     def aet_cache_entries(self) -> int:
         """AET sweep bound: ``cache_kb * 1024 / sizeof(double)``
         (pluss_utils.h:785)."""
@@ -46,6 +52,11 @@ NBD_MASS_CUT = 0.9999
 
 #: MRC printer dedup epsilon (pluss_utils.h:863, 899).
 MRC_DEDUP_EPS = 1e-5
+
+#: AET vestigial first-step epsilon (pluss_utils.h:798): with MRC_pred=-1 the
+#: branch ``MRC_pred - P[prev_t] < 1e-4`` is always true, so every c gets an
+#: entry.
+AET_PRED_EPS = 1e-4
 
 #: Dense histogram slots.  Slot 0 holds the cold-miss key (-1); slot 1+e
 #: holds the log2 bin with key 2**e.  48 exponent slots cover reuse

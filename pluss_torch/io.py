@@ -17,6 +17,7 @@ from pluss_torch.cri import Histogram, merge
 NOSHARE_TITLE = "Start to dump noshare private reuse time"
 SHARE_TITLE = "Start to dump share private reuse time"
 RI_TITLE = "Start to dump reuse time"
+PRI_TITLE = "Start to dump private reuse time"
 
 
 def fmt_double(v: float) -> str:
@@ -37,6 +38,13 @@ def print_histogram(title: str, hist: Histogram, out: IO[str]) -> None:
         out.write(line + "\n")
 
 
+def merge_noshare(noshare: list[Histogram]) -> Histogram:
+    """Per-thread no-share merge for printing: keys are already log2-binned
+    at insert, so the merge does not re-bin (``in_log_format=false`` in
+    ``pluss_cri_noshare_print_histogram``, pluss_utils.h:938-948)."""
+    return merge(noshare)
+
+
 def merge_share(share: list[Histogram]) -> Histogram:
     """Per-thread share merge for printing: raw (unbinned) reuse keys,
     summed across the share-ratio groups (pluss_utils.h:949-960)."""
@@ -48,14 +56,27 @@ def merge_share(share: list[Histogram]) -> Histogram:
     return out
 
 
+def merge_pri(noshare: list[Histogram], share: list[Histogram]) -> Histogram:
+    """The C++-only private-reuse dump's merge: no-share (binned keys) plus
+    share (raw keys) in one histogram (``pluss_pri_print_histogram``,
+    pluss_utils.h:961-985), printed by ``acc_block(..., with_pri=True)``."""
+    out = merge_noshare(noshare)
+    for k, v in merge_share(share).items():
+        out[k] = out.get(k, 0.0) + v
+    return out
+
+
 def acc_block(banner: str, seconds: float, noshare: list[Histogram],
               share: list[Histogram], rihist: Histogram,
-              max_iteration_count: int, out: IO[str]) -> None:
+              max_iteration_count: int, out: IO[str],
+              with_pri: bool = False) -> None:
     """One full `acc` output block in the C++ main's order (…omp.cpp:337-348).
-    No-share keys are already log2-binned, so their merge does not re-bin."""
+    ``with_pri`` adds the C++-only merged private-reuse dump."""
     out.write(f"{banner}: {seconds:0.6f}\n")
-    print_histogram(NOSHARE_TITLE, merge(noshare), out)
+    print_histogram(NOSHARE_TITLE, merge_noshare(noshare), out)
     print_histogram(SHARE_TITLE, merge_share(share), out)
+    if with_pri:
+        print_histogram(PRI_TITLE, merge_pri(noshare, share), out)
     print_histogram(RI_TITLE, rihist, out)
     out.write("max iteration traversed\n")
     out.write(f"{max_iteration_count}\n")

@@ -1,20 +1,105 @@
-"""Host-native helpers of the port: the trace feed's line mapper.
+"""The port's native host code: the C++ sampler runtime and the trace feed's
+line mapper, bound with ctypes.
 
-The port's counterpart of ``pluss/native.py:line_mapper`` over its own
-``csrc/map_lines.cpp`` (the copy of ``pluss_map_lines``,
-``pluss/cpp/capi.cpp``), built by :mod:`pluss_torch.ops.build` with the
-host compiler at first use and bound with ctypes.  A failed build raises;
-nothing falls back to numpy.
+The runtime (``pluss_torch/cpp``: ``pluss_rt.hpp``, ``pluss_rt.cpp``,
+``capi.cpp``, ``main.cpp``) is an independent sampler on the host: it
+interprets the same :class:`~pluss_torch.spec.LoopNestSpec` the card's
+engine runs, marshalled as a flat int64 token stream (:func:`spec_tokens`,
+grammar in ``pluss_rt.hpp``), with OpenMP across the simulated threads and
+its own CRI and AET.  It is the oracle the card's results are held
+against, and the ``pluss_cpp`` binary prints the reference's ``acc``,
+``mrc`` and ``trace`` blocks.  :func:`build` compiles the library
+(:data:`LIB_PATH`) and the binary (:data:`BIN_PATH`) with the host
+compiler into ``pluss_torch/_build/`` (:mod:`pluss_torch.ops.build`);
+:func:`run` and :func:`replay` build the library at first use.  A failed
+build raises; this is a host oracle, not a device path, so nothing here
+runs on the card.
+
+The line mapper (:func:`line_mapper`) is ``csrc/map_lines.cpp``, a library
+of its own.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
+import shutil
+import sys
 
 import numpy as np
 
-from pluss_torch.ops import build
+from pluss_torch.config import DEFAULT, SamplerConfig
+from pluss_torch.ops import build as _ops
+from pluss_torch.spec import LoopNestSpec, Ref, flatten_nest
+
+CPP_DIR = _ops.CPP
+LIB_PATH = _ops.stable_path("pluss_rt")
+BIN_PATH = _ops.stable_path("pluss_cpp")
+
+#: magic word of the on-disk spec format ("PLUS" little-endian), read by
+#: ``pluss_cpp --spec`` (main.cpp)
+SPEC_FILE_MAGIC = 0x53554C50
+
+
+def build(quiet: bool = True) -> dict[str, dict]:
+    """Build the runtime's library and binary from ``pluss_torch/cpp``
+    (host ``c++`` with OpenMP, both at once); a no-op when both are current.
+    Returns :func:`pluss_torch.ops.build.build`'s seconds per target;
+    raises ``RuntimeError`` (:class:`~pluss_torch.ops.build.BuildError`)
+    with the compiler's output when a build fails."""
+    out = _ops.build("pluss_rt", "pluss_cpp")
+    if not quiet:
+        for name, info in out.items():
+            print(f"native: {name} built in {info['seconds']:.3f} s "
+                  f"-> {_ops.library_path(name)}", file=sys.stderr)
+    return out
+
+
+def available(autobuild: bool = False) -> bool:
+    """True when the library of the current sources is built (after a
+    build if ``autobuild``).  With no host compiler at all a failed build
+    leaves the answer to whatever is built; a failed compile with the
+    compiler present raises, since a stale library would corrupt every
+    comparison."""
+    if autobuild:
+        try:
+            build()
+        except _ops.BuildError:
+            if shutil.which("c++") is not None:
+                raise
+    return os.path.exists(_ops.library_path("pluss_rt"))
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
+    """The runtime's library with its C signatures (built at first use)."""
+    lib = _ops.load("pluss_rt")
+    i64p = ctypes.POINTER(ctypes.c_longlong)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.pluss_run.restype = ctypes.c_void_p
+    lib.pluss_run.argtypes = [
+        i64p, ctypes.c_longlong, i64p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+    ]
+    lib.pluss_total_count.restype = ctypes.c_longlong
+    lib.pluss_total_count.argtypes = [ctypes.c_void_p]
+    for name in ("pluss_get_noshare", "pluss_get_share"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, i64p, f64p,
+                       ctypes.c_longlong]
+    lib.pluss_get_ri.restype = ctypes.c_longlong
+    lib.pluss_get_ri.argtypes = [ctypes.c_void_p, i64p, f64p,
+                                 ctypes.c_longlong]
+    lib.pluss_get_mrc.restype = ctypes.c_longlong
+    lib.pluss_get_mrc.argtypes = [ctypes.c_void_p, f64p, ctypes.c_longlong]
+    lib.pluss_replay.restype = ctypes.c_void_p
+    lib.pluss_replay.argtypes = [i64p, ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_longlong]
+    lib.pluss_destroy.restype = None
+    lib.pluss_destroy.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 @functools.cache
@@ -27,7 +112,7 @@ def line_mapper():
     (the caller then probes the cluster table in general).  Builds the
     library on the first call and raises ``RuntimeError`` if that fails.
     """
-    fn = build.load("map_lines").pluss_torch_map_lines
+    fn = _ops.load("map_lines").pluss_torch_map_lines
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_void_p]
@@ -46,3 +131,149 @@ def line_mapper():
         return out if ok else None
 
     return map_lines
+
+
+def spec_tokens(spec: LoopNestSpec) -> np.ndarray:
+    """Marshal a spec into the int64 token grammar of ``pluss_rt.hpp``.
+
+    Runs the engine's structural checks first (:func:`flatten_nest`: no
+    bounds on the parallel loop, no nested bounded loops, bounds within
+    ``[0, trip]``), so the runtime refuses exactly what the engine refuses
+    instead of reading an invalid spec as rectangular."""
+    for nest in spec.nests:
+        flatten_nest(nest)
+    toks: list[int] = [len(spec.nests)]
+
+    def emit(item) -> None:
+        if isinstance(item, Ref):
+            toks.extend([1, spec.array_index(item.array), item.addr_base,
+                         -1 if item.share_span is None else item.share_span,
+                         len(item.addr_terms)])
+            for depth, coef in item.addr_terms:
+                toks.extend([depth, coef])
+        elif item.bound_coef is not None or item.start_coef:
+            # a bounded loop (TRI): effective trip a + b*idx of the level
+            # bound_level names (0 = the parallel index), first value
+            # start + start_coef*k; a varying start with a fixed trip ships
+            # the constant bound (trip, 0)
+            a, b = item.bound_coef or (item.trip, 0)
+            toks.extend([2, item.trip, item.start, item.step, a, b,
+                         item.start_coef, item.bound_level, len(item.body)])
+            for bd in item.body:
+                emit(bd)
+        else:
+            toks.extend([0, item.trip, item.start, item.step, len(item.body)])
+            for bd in item.body:
+                emit(bd)
+
+    for nest in spec.nests:
+        emit(nest)
+    return np.asarray(toks, np.int64)
+
+
+def write_spec_file(spec: LoopNestSpec, path: str) -> None:
+    """Write a spec for ``pluss_cpp <mode> --spec <path>``: little-endian
+    int64 words ``magic, n_arrays, elems[n_arrays], n_tokens,
+    tokens[n_tokens]`` (:func:`spec_tokens`' grammar), replaced
+    atomically."""
+    toks = spec_tokens(spec)
+    elems = [e for _, e in spec.arrays]
+    out = np.concatenate([
+        np.asarray([SPEC_FILE_MAGIC, len(elems)], np.int64),
+        np.asarray(elems, np.int64),
+        np.asarray([len(toks)], np.int64),
+        toks,
+    ])
+    tmp = path + ".tmp"
+    out.astype("<i8").tofile(tmp)
+    os.replace(tmp, path)
+
+
+class NativeResult:
+    """One native run: the per-thread histograms of
+    :class:`pluss_torch.engine.SamplerResult`, the CRI histogram and the
+    MRC, read from the runtime's handle (freed with the object)."""
+
+    def __init__(self, handle, lib, thread_num: int):
+        self._h = handle
+        self._lib = lib
+        self.thread_num = thread_num
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.pluss_destroy(self._h)
+            self._h = None
+
+    def _hist(self, getter, *pre) -> dict:
+        cap = 256
+        while True:
+            keys = np.empty(cap, np.int64)
+            vals = np.empty(cap, np.float64)
+            n = getter(
+                self._h, *pre,
+                keys.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+                vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), cap,
+            )
+            if n < 0:
+                raise ValueError("bad tid")
+            if n <= cap:
+                return {int(k): float(v) for k, v in zip(keys[:n], vals[:n])}
+            cap = int(n)
+
+    def noshare_list(self) -> list[dict]:
+        return [self._hist(self._lib.pluss_get_noshare, t)
+                for t in range(self.thread_num)]
+
+    def share_list(self) -> list[dict]:
+        out = []
+        for t in range(self.thread_num):
+            h = self._hist(self._lib.pluss_get_share, t)
+            out.append({self.thread_num - 1: h} if h else {})
+        return out
+
+    def rihist(self) -> dict:
+        return self._hist(self._lib.pluss_get_ri)
+
+    def mrc(self) -> np.ndarray:
+        n = self._lib.pluss_get_mrc(self._h, None, 0)
+        out = np.empty(n, np.float64)
+        got = self._lib.pluss_get_mrc(
+            self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n)
+        if got != n:
+            raise RuntimeError(f"native MRC: {got} entries, expected {n}")
+        return out
+
+    @property
+    def max_iteration_count(self) -> int:
+        return int(self._lib.pluss_total_count(self._h))
+
+
+def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT) -> NativeResult:
+    """Run the sampler and CRI in the native runtime, on the host."""
+    lib = _load()
+    toks = spec_tokens(spec)
+    elems = np.asarray([n for _, n in spec.arrays], np.int64)
+    h = lib.pluss_run(
+        toks.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), len(toks),
+        elems.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), len(elems),
+        cfg.thread_num, cfg.chunk_size, cfg.ds, cfg.cls, cfg.cache_kb,
+    )
+    if not h:
+        raise ValueError("native runtime rejected the spec")
+    return NativeResult(h, lib, cfg.thread_num)
+
+
+def replay(addrs: np.ndarray, cls: int = 64,
+           cache_kb: int = DEFAULT.cache_kb) -> NativeResult:
+    """Native trace replay (``pluss::replay_trace``), the host twin of
+    :func:`pluss_torch.trace.replay`: one clock, no CRI dilation; results
+    through ``rihist()`` and ``mrc()``."""
+    lib = _load()
+    a = np.ascontiguousarray(np.asarray(addrs, np.int64))
+    h = lib.pluss_replay(
+        a.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), len(a),
+        cls, cache_kb,
+    )
+    if not h:
+        raise RuntimeError("native replay failed")
+    return NativeResult(h, lib, thread_num=1)

@@ -1,16 +1,23 @@
-"""Build the port's native code from ``pluss_torch/csrc`` at first use.
+"""Build the port's native code from ``pluss_torch/csrc`` and
+``pluss_torch/cpp`` at first use.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ``ctypes``: a file
 that does not include PyTorch's headers builds in seconds, where a PyTorch
 extension takes minutes.  Each ``csrc/<name>.cpp`` (host code: the trace
-feed's line mapper) compiles the same way with the host C++ compiler.
-Libraries land in ``pluss_torch/_build/`` (git-ignored), named by a hash
-of the source, the shared headers (``csrc/*.cuh``, for CUDA sources) and
-the flags, so an edited source rebuilds and an unchanged one is reused.
-Nothing is built when a module is imported; :func:`load` builds on the
-first use, and :func:`build` compiles several sources at once, one
-compiler each, all started together.  A failed build raises.
+feed's line mapper) compiles the same way with the host C++ compiler.  The
+native runtime (``cpp/``, :mod:`pluss_torch.native`) has two targets of
+several sources each, built with OpenMP (:data:`HOST_TARGETS`): the
+``pluss_rt`` library and the standalone ``pluss_cpp`` binary.
+Outputs land in ``pluss_torch/_build/`` (git-ignored), named by a hash of
+every source, the shared headers (``csrc/*.cuh`` for CUDA sources,
+``cpp/*.hpp`` for the runtime) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused; the runtime's targets are also
+published under stable names (``_build/libpluss_rt.so``,
+``_build/pluss_cpp``, links to the current build).  Nothing is built when a
+module is imported; :func:`load` builds on the first use, and :func:`build`
+compiles several targets at once, one compiler each, all started together.
+A failed build raises.
 """
 
 from __future__ import annotations
@@ -27,11 +34,21 @@ from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
+CPP = os.path.join(_PKG, "cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+#: the native runtime's flags: OpenMP fans the simulated threads out
+RT_FLAGS = ("-O2", "-std=c++17", "-fopenmp", "-fPIC")
+
+#: the native runtime's targets, each of several ``cpp/`` sources:
+#: name -> (sources, shared library or executable)
+HOST_TARGETS = {
+    "pluss_rt": (("pluss_rt.cpp", "capi.cpp"), True),
+    "pluss_cpp": (("main.cpp", "pluss_rt.cpp"), False),
+}
 
 
 class BuildError(RuntimeError):
@@ -60,23 +77,58 @@ def _source(name: str) -> str:
     return cu if os.path.exists(cu) else os.path.join(CSRC, f"{name}.cpp")
 
 
-def _command(name: str, out: str) -> list[str]:
+def _recipe(name: str) -> tuple:
+    """``(directory, sources, headers, flags, shared)`` of a target: one
+    ``csrc`` source, or one of :data:`HOST_TARGETS`."""
+    if name in HOST_TARGETS:
+        srcs, shared = HOST_TARGETS[name]
+        headers = sorted(f for f in os.listdir(CPP) if f.endswith(".hpp"))
+        return CPP, srcs, headers, \
+            RT_FLAGS + (("-shared",) if shared else ()), shared
     src = _source(name)
-    if src.endswith(".cu"):
-        return [nvcc(), *NVCC_FLAGS, "-o", out, src]
-    return [cxx(), *CXX_FLAGS, "-o", out, src]
+    cuda = src.endswith(".cu")
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")) \
+        if cuda else []
+    return CSRC, (os.path.basename(src),), headers, \
+        NVCC_FLAGS if cuda else CXX_FLAGS, True
+
+
+def _command(name: str, out: str) -> list[str]:
+    d, srcs, _, flags, _ = _recipe(name)
+    paths = [os.path.join(d, f) for f in srcs]
+    return [nvcc() if srcs[0].endswith(".cu") else cxx(), *flags, "-o", out,
+            *paths]
 
 
 def library_path(name: str) -> str:
-    src = _source(name)
-    cuda = src.endswith(".cu")
-    digest = hashlib.sha256(repr(NVCC_FLAGS if cuda else CXX_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")) \
-        if cuda else []
-    for f in [os.path.basename(src), *headers]:
-        with open(os.path.join(CSRC, f), "rb") as fh:
+    """The build output of ``name``: ``lib<name>-<hash>.so`` for a shared
+    library, ``<name>-<hash>`` for an executable."""
+    d, srcs, headers, flags, shared = _recipe(name)
+    digest = hashlib.sha256(repr(flags).encode())
+    for f in [*srcs, *headers]:
+        with open(os.path.join(d, f), "rb") as fh:
             digest.update(f.encode() + fh.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    tag = digest.hexdigest()[:12]
+    return os.path.join(BUILD_DIR,
+                        f"lib{name}-{tag}.so" if shared else f"{name}-{tag}")
+
+
+def stable_path(name: str) -> str:
+    """The stable name of a :data:`HOST_TARGETS` output in ``_build/``
+    (``libpluss_rt.so``, ``pluss_cpp``): a link to its current build."""
+    shared = HOST_TARGETS[name][1]
+    return os.path.join(BUILD_DIR, f"lib{name}.so" if shared else name)
+
+
+def _publish(name: str) -> None:
+    """Point :func:`stable_path` at the current build (a relative link,
+    swapped in atomically)."""
+    link, target = stable_path(name), os.path.basename(library_path(name))
+    if os.path.islink(link) and os.readlink(link) == target:
+        return
+    tmp = f"{link}.tmp{os.getpid()}-{threading.get_ident()}"
+    os.symlink(target, tmp)
+    os.replace(tmp, link)
 
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -91,8 +143,10 @@ def _lock_of(table: dict, name: str) -> threading.Lock:
 
 
 def build(*names: str) -> dict[str, dict]:
-    """Compile each ``csrc/<name>.cu`` or ``.cpp`` that is not built
-    already, one compiler process per source, all started together.
+    """Compile each ``csrc/<name>.cu`` or ``.cpp``, or runtime target of
+    :data:`HOST_TARGETS`, that is not built already, one compiler process
+    per target, all started together (a runtime target is then published
+    under its :func:`stable_path`).
     Returns, per name, the seconds from the start to that compiler's exit
     and its ``ptxas info`` lines (0 and empty when nothing was compiled);
     raises :class:`BuildError` with the compilers' output if a build fails
@@ -135,6 +189,9 @@ def build(*names: str) -> dict[str, dict]:
                                    if "ptxas info" in ln or "spill" in ln]}
     if failed:
         raise BuildError("native build failed: " + "\n".join(failed))
+    for name in names:
+        if name in HOST_TARGETS:
+            _publish(name)
     return out
 
 

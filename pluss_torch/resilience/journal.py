@@ -70,6 +70,9 @@ class Journal:
         """The last record for ``key``, or None (later records win)."""
         return self._by_key.get(_canon(key))
 
+    def done(self, key: dict) -> bool:
+        return _canon(key) in self._by_key
+
     def record(self, key: dict, **payload) -> dict:
         """Append one record durably (single write + flush + fsync)."""
         rec = {"key": key, **payload}

@@ -73,6 +73,26 @@ class ChunkSchedule:
         execution order (the static analyses walk these)."""
         return list(range(tid, self.n_chunks, self.thread_num))
 
+    def n_chunks_of_thread(self, tid: int) -> int:
+        return len(self.chunks_of_thread(tid))
+
+    def max_rounds(self) -> int:
+        """Most chunks any one thread serves (the engine's row bound)."""
+        return -(-self.n_chunks // self.thread_num) if self.n_chunks else 0
+
+    def thread_iteration_indices(self, tid: int) -> list[int]:
+        """All iteration indices (0..trip) of thread ``tid`` in execution
+        order."""
+        out = []
+        for cid in self.chunks_of_thread(tid):
+            b, e = self.chunk_index_range(cid)
+            out.extend(range(b, e))
+        return out
+
+    def thread_iteration_values(self, tid: int) -> list[int]:
+        return [self.start + i * self.step
+                for i in self.thread_iteration_indices(tid)]
+
     # -- iteration value -> (round, tid, pos), the C++ dispatcher's API -----
 
     def static_tid(self, i: int) -> int:
@@ -90,6 +110,13 @@ class ChunkSchedule:
     def static_thread_local_pos(self, i: int) -> int:
         """``getStaticThreadLocalPos`` (pluss_utils.h:437-439)."""
         return (i - self.start) // self.step % self.chunk_size
+
+    def local_rank(self, i: int) -> int:
+        """Rank of iteration value ``i`` within its owner thread's stream:
+        ``round*chunk_size + pos`` (only the globally-last chunk can be
+        partial, so every earlier chunk of the owner is full)."""
+        return self.static_chunk_id(i) * self.chunk_size \
+            + self.static_thread_local_pos(i)
 
     # -- resume / start-point API (pluss_utils.h:443-587) -------------------
 
@@ -133,3 +160,38 @@ class ChunkSchedule:
         """``getPrevKChunksFrom`` (pluss_utils.h:554-587) in chunk-id
         space."""
         return list(range(cid - 1, max(cid - 1 - k, -1), -1))
+
+    def dynamic_assignment(self, request_order: list[int] | None = None
+                           ) -> list[int]:
+        """Chunk -> thread map under FIFO dynamic scheduling
+        (``getNextChunk``, pluss_utils.h:393-408).  ``request_order``: the
+        sequence of thread ids asking for chunks; default round-robin,
+        which equals the static map."""
+        n = self.n_chunks
+        if request_order is None:
+            return [c % self.thread_num for c in range(n)]
+        if len(request_order) < n:
+            raise ValueError("request_order shorter than number of chunks")
+        return list(request_order[:n])
+
+
+def chunks_check(trip: int, chunk_size: int) -> int:
+    return -(-trip // chunk_size)
+
+
+def iteration_value_grid(sched: ChunkSchedule, tid: int):
+    """(rounds, chunk_size) grids of thread ``tid`` as plain lists: for
+    round r and in-chunk pos p, ``(g, v, rank, valid)`` with global index
+    ``g = (r*T + tid)*CS + p``, value ``v = start + g*step``, local rank
+    ``r*CS + p`` and ``valid = g < trip`` (the engine's formulas, for the
+    tests to hold against :meth:`ChunkSchedule.thread_iteration_indices`)."""
+    T, CS = sched.thread_num, sched.chunk_size
+    rows = []
+    for r in range(sched.max_rounds()):
+        row = []
+        for p in range(CS):
+            g = (r * T + tid) * CS + p
+            row.append((g, sched.start + g * sched.step, r * CS + p,
+                        g < sched.trip))
+        rows.append(row)
+    return rows

@@ -1823,14 +1823,27 @@ def _steal_chunk_fn(ids: torch.Tensor, base: int, n_valid: int, L: int, pdt,
     return hist, head[:L], last_pos[:L]
 
 
+def _resolve_heads(hist: np.ndarray, hp: np.ndarray,
+                   prev: np.ndarray) -> None:
+    """Add a scope's heads ``hp`` (host, -1 = none), resolved against the
+    earlier scopes' tails ``prev``, to ``hist``: a head with no earlier
+    tail is cold (slot 0), any other a reuse."""
+    from pluss_torch.parallel.shard import np_head_hist
+
+    hp = hp.astype(np.int64)
+    evt = (hp >= 0) & (prev >= 0)
+    hist[0] += int(((hp >= 0) & (prev < 0)).sum())
+    r = (hp - prev)[evt]
+    if r.size:
+        hist += np_head_hist(r)
+
+
 def _steal_boundary_merge(results: dict, n_chunks: int, L: int) -> np.ndarray:
     """Canonical-order boundary merge of per-scope ``(hist, heads, tails)``
     host arrays (the host twin of a static exchange): the heads of scope
     ``k`` resolve against the running max of earlier scopes' tails.  The
     order is the stream's whichever worker ran which scope, so any pull
     or steal schedule gives the same histogram."""
-    from pluss_torch.parallel.shard import np_head_hist
-
     prev = np.full(L, -1, np.int64)
     hist = np.zeros(NBINS, np.int64)
     for k in range(n_chunks):
@@ -1840,18 +1853,45 @@ def _steal_boundary_merge(results: dict, n_chunks: int, L: int) -> np.ndarray:
             pad = np.full(L - hp.shape[0], -1, hp.dtype)
             hp = np.concatenate([hp, pad])
             tp = np.concatenate([tp, pad])
-        hp = hp.astype(np.int64)
-        evt = (hp >= 0) & (prev >= 0)
-        hist[0] += int(((hp >= 0) & (prev < 0)).sum())
-        r = (hp - prev)[evt]
-        if r.size:
-            hist += np_head_hist(r)
+        _resolve_heads(hist, hp, prev)
         prev = np.where(tp >= 0, tp.astype(np.int64), prev)
     return hist
 
 
 def _host(out) -> tuple:
     return tuple(t.cpu().numpy() for t in out)
+
+
+def _exchange(devs: list):
+    """The static exchange of a sharded replay over this process's
+    ``devs`` (:mod:`pluss_torch.parallel.shard`): the process group's when
+    there is one (this rank's segments are ``ex.first ..``), else the
+    local stack."""
+    from pluss_torch.parallel.shard import (_GroupExchange, _in_group,
+                                            _LocalExchange)
+
+    return _GroupExchange(len(devs), devs[0]) if _in_group() \
+        else _LocalExchange(len(devs))
+
+
+def _exchange_merge(ex, outs: list, L: int) -> np.ndarray:
+    """Boundary merge of a static sharded replay: ``outs`` are this
+    process's segments' host ``(hist, heads, tails)``; every segment's
+    tails come through the exchange, the heads of segment ``g`` resolve
+    against the running max of earlier segments' tails, and the
+    histograms sum over the group.  In one process it is
+    :func:`_steal_boundary_merge` over the segments."""
+    tails = ex.gather(torch.from_numpy(
+        np.stack([o[2] for o in outs]))).numpy().astype(np.int64)
+    prev = np.full(L, -1, np.int64)
+    hist = np.zeros(NBINS, np.int64)
+    for g in range(ex.n_segments):
+        i = g - ex.first
+        if 0 <= i < len(outs):
+            hist += np.asarray(outs[i][0], np.int64)
+            _resolve_heads(hist, outs[i][1], prev)
+        prev = np.where(tails[g] >= 0, tails[g], prev)
+    return ex.sum(torch.from_numpy(hist)).numpy()
 
 
 def shard_replay(addrs: np.ndarray, cls: int = 64, devices=None,
@@ -1863,28 +1903,36 @@ def shard_replay(addrs: np.ndarray, cls: int = 64, devices=None,
     captures the accesses with no predecessor in its segment as heads, and
     the segments' boundaries merge in stream order; a segment runs in
     batches of the replay's batch geometry.  Exact: equal to
-    :func:`replay`."""
+    :func:`replay`.
+
+    In an initialized ``torch.distributed`` process group ``devices`` are
+    this rank's own: every rank compacts the whole stream the same way,
+    replays its devices' segments of the group's ``world * len(devices)``,
+    and the tails and histograms go through the group's exchange, so
+    every rank returns the same result."""
     from pluss_torch.parallel.shard import (_as_devices, _run_segments,
                                             default_devices)
 
     devs = _as_devices(devices) if devices is not None \
         else default_devices(device=device)
-    D = len(devs)
     addrs = np.asarray(addrs)
     if addrs.ndim != 1:
         raise ValueError("trace must be a 1-D address stream")
     n = addrs.shape[0]
     if n == 0:
         return ReplayResult(np.zeros(NBINS, np.int64), 0, 0)
+    ex = _exchange(devs)
+    D = ex.n_segments
     lines = addrs.astype(np.int64) if precompacted else lines_of(addrs, cls)
     ids, n_lines = _compact(lines, window)
     seg = max(1, -(-n // (D * window))) * window
     pdt = _pos_dtype(1, D * seg)
     batch = _resolve_bw(None, devs[0]) * window
 
-    def segment(d: int) -> tuple:
-        dev = devs[d]
-        lo, hi = d * seg, min(n, (d + 1) * seg)
+    def segment(i: int) -> tuple:
+        dev = devs[i]
+        g = ex.first + i
+        lo, hi = g * seg, min(n, (g + 1) * seg)
         last_pos = torch.full((n_lines + 1,), -1, dtype=pdt, device=dev)
         head = torch.full((n_lines + 1,), -1, dtype=pdt, device=dev)
         hist = torch.zeros(NBINS, dtype=torch.int64, device=dev)
@@ -1899,8 +1947,7 @@ def shard_replay(addrs: np.ndarray, cls: int = 64, devices=None,
         return _host((hist, head[:n_lines], last_pos[:n_lines]))
 
     outs = _run_segments(devs, segment)
-    hist = _steal_boundary_merge(dict(enumerate(outs)), D, n_lines)
-    return ReplayResult(hist, n, n_lines)
+    return ReplayResult(_exchange_merge(ex, outs, n_lines), n, n_lines)
 
 
 def _shard_replay_file_steal(path: str, cls: int, devs: list, window: int,
@@ -2048,7 +2095,20 @@ def shard_replay_file(path: str, cls: int = 64, devices=None,
     run retires its own.
 
     ``resident_cache``: steal only, keep the compacted chunks in the
-    residency store as one grouped entry.  The replay runs in one process.
+    residency store as one grouped entry.
+
+    In an initialized ``torch.distributed`` process group ``devices`` are
+    this rank's own and the dispatch is static over the group's ``D =
+    world * len(devices)`` segments; the ids must be ``precompacted``
+    (JAX's rule).  Every rank reads and compacts every segment's slices
+    through one compactor in the same order, so the ids agree, runs its
+    own segments, and the tails and histograms go through the group's
+    exchange: every rank returns the same result.  A checkpoint holds the
+    whole group's carries: they are gathered to the coordinator
+    (:func:`pluss_torch.parallel.multihost.is_coordinator`), which alone
+    writes and retires it; on resume every rank reads it and takes its own
+    rows, and the ranks start fresh together unless every one resumes at
+    the same step.
     """
     from pluss_torch.parallel.shard import (_as_devices, _auto_steal,
                                             _resolve_dispatch,
@@ -2056,11 +2116,12 @@ def shard_replay_file(path: str, cls: int = 64, devices=None,
 
     devs = _as_devices(devices) if devices is not None \
         else default_devices(device=device)
-    D = len(devs)
     bw = _resolve_bw(batch_windows, devs[0])
-    if group_size() > 1:
-        raise RuntimeError("shard_replay_file runs in one process (its "
-                           "compactor's ids must agree across segments)")
+    if group_size() > 1 and not precompacted:
+        raise RuntimeError(
+            "shard_replay_file needs precompacted ids under multi-process "
+            "execution (per-process cluster discovery would diverge)"
+        )
     if resident_cache is not None and not isinstance(resident_cache, bool):
         raise ValueError(
             f"resident_cache must be a bool or None, got {resident_cache!r}")
@@ -2073,7 +2134,7 @@ def shard_replay_file(path: str, cls: int = 64, devices=None,
                   "(the checkpoint identity is the static segment grid); "
                   "using dispatch='static'", file=sys.stderr)
         eff = "static"
-    if eff == "steal" and D > 1:
+    if eff == "steal" and len(devs) > 1:
         return _shard_replay_file_steal(path, cls, devs, window,
                                         precompacted, bw,
                                         resident_cache=bool(resident_cache))
@@ -2082,7 +2143,12 @@ def shard_replay_file(path: str, cls: int = 64, devices=None,
         return ReplayResult(np.zeros(NBINS, np.int64), 0, 0)
     if cls & (cls - 1):
         raise ValueError(f"cache line size {cls} is not a power of two")
+    from pluss_torch.parallel.multihost import is_coordinator
+
     shift = int(cls).bit_length() - 1
+    # this process's segments are ex.first .. ex.first + nl - 1 of D
+    ex = _exchange(devs)
+    D, nl, first = ex.n_segments, len(devs), ex.first
     S = max(1, -(-n // (D * window)))
     SB = min(bw, S)
     n_calls = -(-S // SB)
@@ -2092,20 +2158,24 @@ def shard_replay_file(path: str, cls: int = 64, devices=None,
     capacity = initial_capacity
 
     def carries(lp, hi, hp):
-        """Per-device carries from host arrays, each line table with its
-        dump slot."""
-        dump = np.full((D, 1), -1, npdt)
-        return ([torch.from_numpy(np.concatenate([lp, dump], 1)[d]).to(
-                    devs[d], pdt) for d in range(D)],
-                [torch.from_numpy(hi[d].astype(np.int64)).to(devs[d])
-                 for d in range(D)],
-                [torch.from_numpy(np.concatenate([hp, dump], 1)[d]).to(
-                    devs[d], pdt) for d in range(D)])
+        """This process's per-device carries from host arrays (``[nl,
+        ...]``), each line table with its dump slot."""
+        dump = np.full((nl, 1), -1, npdt)
+        return ([torch.from_numpy(np.concatenate([lp, dump], 1)[i]).to(
+                    devs[i], pdt) for i in range(nl)],
+                [torch.from_numpy(hi[i].astype(np.int64)).to(devs[i])
+                 for i in range(nl)],
+                [torch.from_numpy(np.concatenate([hp, dump], 1)[i]).to(
+                    devs[i], pdt) for i in range(nl)])
 
     def host_carries():
         return (np.stack([t[:-1].cpu().numpy() for t in last_pos]),
                 np.stack([t.cpu().numpy() for t in hist]).astype(npdt),
                 np.stack([t[:-1].cpu().numpy() for t in head_pos]))
+
+    def mine(a: np.ndarray) -> np.ndarray:
+        """This process's rows of a ``[D, ...]`` checkpoint array."""
+        return a[first:first + nl]
 
     ident = {"n": n, "window": window, "cls": cls,
              "precompacted": bool(precompacted), "D": D, "SB": SB,
@@ -2138,26 +2208,40 @@ def shard_replay_file(path: str, cls: int = 64, devices=None,
                     k0 = int(z["k_next"])
                     capacity = int(z["capacity"])
                     last_pos, hist, head_pos = carries(
-                        z["last_pos"].astype(npdt), z["hist"],
-                        z["head_pos"].astype(npdt))
+                        mine(z["last_pos"]).astype(npdt), mine(z["hist"]),
+                        mine(z["head_pos"]).astype(npdt))
                 comp = _Compactor.restore(rec["comp"])
                 print(f"trace: resuming sharded replay at call "
                       f"{k0}/{n_calls}", file=sys.stderr)
             except Exception as e:  # noqa: BLE001 — any unreadable one
-                quarantine_artifact(npz_path, "shard replay-checkpoint", e,
-                                    action="starting fresh")
+                if is_coordinator():
+                    quarantine_artifact(npz_path, "shard replay-checkpoint",
+                                        e, action="starting fresh")
                 k0, last_pos = 0, None
+    if nl < D and jr is not None:
+        # a group resumes only when every rank resumes at the same step
+        k0s = ex.gather(torch.tensor([[k0]], dtype=torch.int64)).flatten()
+        if bool((k0s != k0).any()):
+            if k0:
+                print("trace: the group's ranks disagree on the shard "
+                      "checkpoint; starting fresh", file=sys.stderr)
+            k0, last_pos = 0, None
+            comp, capacity = _Compactor(), initial_capacity
     if last_pos is None:
         last_pos, hist, head_pos = carries(
-            np.full((D, capacity), -1, npdt), np.zeros((D, NBINS), npdt),
-            np.full((D, capacity), -1, npdt))
+            np.full((nl, capacity), -1, npdt), np.zeros((nl, NBINS), npdt),
+            np.full((nl, capacity), -1, npdt))
 
     def save_ckpt(k_next: int) -> None:
-        # the arrays land first (atomic replace), then the journal line
-        # that promises them
+        # the whole group's carries, gathered to the coordinator, which
+        # alone writes: the arrays land first (atomic replace), then the
+        # journal line that promises them
         nonlocal foreign
         foreign = False
-        lp, hi, hp = host_carries()
+        lp, hi, hp = (ex.gather(torch.from_numpy(a)).numpy()
+                      for a in host_carries())
+        if not is_coordinator():
+            return
         tmp = f"{npz_path}.tmp.{os.getpid()}.npz"
         np.savez(tmp, k_next=np.int64(k_next), capacity=np.int64(capacity),
                  last_pos=lp, hist=hi, head_pos=hp)
@@ -2186,35 +2270,38 @@ def shard_replay_file(path: str, cls: int = 64, devices=None,
     with obs.span("trace.shard_replay_file", refs=n, devices=D,
                   dispatch="static"), open(path, "rb") as f:
         for k in range(k0, n_calls):
+            # every segment's slice, device-major through the one
+            # compactor (so every rank's ids agree); this process runs
+            # its own
             slices = [read_slice(f, d, k) for d in range(D)]
             if comp.next_free > capacity:
                 # table growth: the carries re-pad at the new capacity
                 lp, hi, hp = host_carries()
                 while capacity < comp.next_free:
                     capacity *= 2
-                pad = np.full((D, capacity - lp.shape[1]), -1, npdt)
+                pad = np.full((nl, capacity - lp.shape[1]), -1, npdt)
                 last_pos, hist, head_pos = carries(
                     np.concatenate([lp, pad], 1), hi,
                     np.concatenate([hp, pad], 1))
-            for d in range(D):
-                dev = devs[d]
+            for i in range(nl):
+                d, dev = first + i, devs[i]
                 lo = d * S * window + k * SB * window
                 ids = torch.from_numpy(slices[d]).to(dev)
                 pos = torch.arange(lo, lo + SB * window, dtype=pdt,
                                    device=dev)
                 ev = batch_events(ids, pos,
                                   pos < min(n, (d + 1) * S * window),
-                                  last_pos[d])
-                hist[d] += event_histogram(ev, include_cold=False)
-                head_pos[d].scatter_(0, torch.where(
+                                  last_pos[i])
+                hist[i] += event_histogram(ev, include_cold=False)
+                head_pos[i].scatter_(0, torch.where(
                     ev["cold"], ev["key"], capacity).long(), ev["pos"])
             if jr is not None and k + 1 < n_calls \
                     and (k + 1 - k0) % checkpoint_every == 0:
                 save_ckpt(k + 1)
-        results = {d: _host((hist[d], head_pos[d][:-1], last_pos[d][:-1]))
-                   for d in range(D)}
-        out = _steal_boundary_merge(results, D, capacity)
-    if jr is not None and not foreign:
+        results = [_host((hist[i], head_pos[i][:-1], last_pos[i][:-1]))
+                   for i in range(nl)]
+        out = _exchange_merge(ex, results, capacity)
+    if jr is not None and not foreign and is_coordinator():
         for p_ in (checkpoint_path, npz_path):
             try:
                 os.unlink(p_)

@@ -16,6 +16,7 @@
 
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -244,3 +245,16 @@ def test_port_imports_no_jax_and_no_pluss():
                                                 "pluss_torch/model/",
                                                 "pluss_torch/frontend/"))} \
         == analysis | model | frontend
+    # the native runtime's C++ (pluss_torch/cpp): its own copy, which
+    # includes only its own header and names no file of the JAX package
+    cpp_dir = os.path.join(REPO, "pluss_torch", "cpp")
+    cpp = sorted(os.listdir(cpp_dir))
+    assert cpp == ["capi.cpp", "main.cpp", "pluss_rt.cpp", "pluss_rt.hpp"]
+    for f in cpp:
+        with open(os.path.join(cpp_dir, f)) as fh:
+            for i, line in enumerate(fh, 1):
+                where = f"pluss_torch/cpp/{f}:{i}"
+                assert not re.search(r"(?<![\w.])pluss/", line), where
+                m = re.match(r'\s*#\s*include\s*"([^"]+)"', line)
+                if m:
+                    assert m.group(1) in cpp, where

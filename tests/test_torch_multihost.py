@@ -11,6 +11,7 @@ killed by the ``kill_worker`` fault, ``initialize`` retries through the
 heartbeat exporter publishes the workers' heartbeat ages.
 """
 
+import io
 import json
 import os
 import subprocess
@@ -308,3 +309,261 @@ def test_serve_heartbeat_exporter_gauges(tmp_path):
     assert g["multihost.heartbeat_age_s.1"] == -1.0
     assert 0 <= g["multihost.heartbeat_age_s.0"] < 5
     assert srv._hb_stop is not None
+
+
+# ---------------------------------------------------------------------------
+# the sharded trace replay in a process group
+
+#: one rank of a sharded replay in a group: ``mode`` ``replay`` runs
+#: ``shard_replay`` (raw and precompacted) and ``shard_replay_file``
+#: (precompacted) and records the refusals; ``ckpt`` stops a checkpointed
+#: ``shard_replay_file`` with a read fault and resumes it; ``cli`` runs
+#: ``cli trace --backends shard`` in a directory of its own
+REPLAY_RANK = r"""
+import io, json, os, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from pluss_torch import cli, trace
+from pluss_torch.parallel import multihost
+from pluss_torch.resilience import FaultPlan, faults
+rdv, world, rank, raw_path, ids_path, out, mode, window = sys.argv[2:10]
+world, rank, window = int(world), int(rank), int(window)
+multihost.initialize(rdv, world, rank, device="cpu", connect_timeout_s=60)
+devs = multihost.global_devices("cpu")
+doc = {}
+if mode == "replay":
+    addrs = np.fromfile(raw_path, dtype="<u8").astype(np.int64)
+    ids = np.fromfile(ids_path, dtype="<u8").astype(np.int64)
+    for key, rep in (
+            ("raw", trace.shard_replay(addrs, devices=devs, window=window)),
+            ("ids", trace.shard_replay(ids, devices=devs, window=window,
+                                       precompacted=True)),
+            ("file", trace.shard_replay_file(
+                ids_path, devices=devs, window=window, batch_windows=2,
+                precompacted=True))):
+        doc[key] = [rep.hist.tolist(), rep.total_count, rep.n_lines]
+    for key, kw in (("not_precompacted", {}),
+                    ("steal", {"precompacted": True, "dispatch": "steal"})):
+        try:
+            trace.shard_replay_file(ids_path, devices=devs, window=window,
+                                    **kw)
+            doc[key] = None
+        except RuntimeError as e:
+            doc[key] = str(e)
+elif mode == "ckpt":
+    ckpt = os.path.join(os.path.dirname(out), "shard.ckpt")
+    kw = dict(devices=devs, window=window, batch_windows=2,
+              precompacted=True, checkpoint_path=ckpt, checkpoint_every=4)
+    faults.install(FaultPlan.parse(f"trace_loss@{9 * world + 1}"))
+    try:
+        trace.shard_replay_file(ids_path, **kw)
+        doc["stopped"] = False
+    except Exception as e:
+        doc["stopped"] = type(e).__name__
+    faults.install(None)
+    # the next run starts once every rank has stopped (the coordinator's
+    # last checkpoint written)
+    import torch.distributed as dist
+    dist.barrier()
+    if rank == 0:
+        import shutil
+        for ext in ("", ".npz"):
+            shutil.copy(ckpt + ext, ckpt + ".copy" + ext)
+    with np.load(ckpt + ".npz") as z:
+        doc["k_next"] = int(z["k_next"])
+        doc["ckpt_rows"] = int(z["last_pos"].shape[0])
+    rep = trace.shard_replay_file(ids_path, resume=True, **kw)
+    doc["resumed"] = [rep.hist.tolist(), rep.total_count, rep.n_lines]
+    dist.barrier()   # the coordinator retires the checkpoint after the merge
+    doc["retired"] = not os.path.exists(ckpt)
+else:
+    work = f"{out}.cli{rank}"
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    so, se = io.StringIO(), io.StringIO()
+    saved = sys.stdout, sys.stderr
+    sys.stdout, sys.stderr = so, se
+    try:
+        rc = cli.main(["trace", "--cpu", "--file", raw_path, "--backends",
+                       "shard", "--window", str(window), "--journal", "j",
+                       "--batch-windows", "2", "--out", "m.csv"])
+    finally:
+        sys.stdout, sys.stderr = saved
+    doc = {"rc": rc, "stdout": so.getvalue(), "stderr": se.getvalue(),
+           "csv": open("m.csv").read()}
+json.dump(doc, open(f"{out}.{rank}", "w"))
+sys.stdout.flush()
+import torch.distributed as dist
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+WINDOW = 256
+
+
+@pytest.fixture()
+def replay_trace(tmp_path):
+    """A u64 trace of two far regions (the compactor's cluster probe) and
+    its line ids as a precompacted trace."""
+    from pluss_torch import trace as tt
+
+    rng = np.random.default_rng(7)
+    n = 40000
+    near = rng.integers(0, 3000, n)
+    far = rng.integers(0, 2000, n) + (1 << 40)
+    addrs = np.where(rng.random(n) < 0.7, near, far).astype(np.int64) * 64 \
+        + rng.integers(0, 64, n)
+    raw, ids = tmp_path / "t.bin", tmp_path / "t.ids"
+    addrs.astype("<u8").tofile(raw)
+    tt.lines_of(addrs, 64).astype("<u8").tofile(ids)
+    return addrs, str(raw), str(ids)
+
+
+def run_replay_ranks(tmp_path, world: int, raw: str, ids: str, mode: str,
+                     limit_s: float = 180.0):
+    script = tmp_path / "replay_rank.py"
+    script.write_text(REPLAY_RANK)
+    out = str(tmp_path / f"{mode}_out")
+    rdv = f"file://{tmp_path / f'rdv_{mode}'}"
+    logs, procs = [], []
+    try:
+        for r in range(world):
+            env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+            env.pop("PLUSS_FAULT_PLAN", None)
+            logs.append(open(tmp_path / f"{mode}_rank{r}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), REPO, rdv, str(world), str(r),
+                 raw, ids, out, mode, str(WINDOW)],
+                env=env, stdout=logs[r], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + limit_s
+        rcs = []
+        for p, lg in zip(procs, logs):
+            try:
+                rcs.append(p.wait(timeout=max(1.0, deadline
+                                              - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                lg.seek(0)
+                pytest.fail(f"a rank outlived {limit_s} s:\n"
+                            f"{lg.read()[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for lg in logs:
+            lg.seek(0)
+            texts.append(lg.read())
+            lg.close()
+    assert rcs == [0] * world, texts
+    return [json.load(open(f"{out}.{r}")) for r in range(world)]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_process_group_sharded_replay_equals_jax_replay(tmp_path,
+                                                        replay_trace,
+                                                        world):
+    """``shard_replay`` (raw and precompacted) and ``shard_replay_file``
+    (precompacted) on ``world`` gloo ranks: every rank's histogram equals
+    ``pluss.trace.replay`` bit for bit, and the single-process port's table
+    sizes; without ``precompacted`` the file replay raises JAX's error,
+    and steal is refused in the group."""
+    from pluss import trace as jax_trace
+    from pluss_torch import trace as tt
+
+    addrs, raw, ids = replay_trace
+    want = jax_trace.replay(addrs, window=WINDOW)
+    one_raw = tt.shard_replay(addrs, devices=["cpu"], window=WINDOW)
+    one_file = tt.shard_replay_file(ids, devices=["cpu"] * world,
+                                    window=WINDOW, batch_windows=2,
+                                    precompacted=True, dispatch="static")
+    docs = run_replay_ranks(tmp_path, world, raw, ids, "replay")
+    for doc in docs:
+        for key in ("raw", "ids", "file"):
+            hist, count, _ = doc[key]
+            assert hist == want.hist.tolist(), key
+            assert count == len(addrs), key
+        assert doc["raw"][2] == one_raw.n_lines
+        assert doc["file"][2] == one_file.n_lines
+        assert doc["not_precompacted"] == (
+            "shard_replay_file needs precompacted ids under multi-process "
+            "execution (per-process cluster discovery would diverge)")
+        assert "dispatch='steal'" in doc["steal"]
+
+
+def test_process_group_replay_checkpoint_resumes(tmp_path, replay_trace,
+                                                 capsys):
+    """A checkpointed ``shard_replay_file`` on two ranks, stopped by a read
+    fault after its checkpoint at step 8: the coordinator wrote the whole
+    group's carries (one row per segment), both ranks resume from it to
+    the uninterrupted histogram, the finished run retires it, and the JAX
+    package resumes a copy of it in one process."""
+    from pluss import trace as jax_trace
+
+    addrs, raw, ids = replay_trace
+    want = jax_trace.replay(addrs, window=WINDOW)
+    docs = run_replay_ranks(tmp_path, 2, raw, ids, "ckpt")
+    for doc in docs:
+        assert doc["stopped"] == "DataLoss"
+        assert doc["k_next"] == 8 and doc["ckpt_rows"] == 2
+        assert doc["resumed"][0] == want.hist.tolist()
+        assert doc["resumed"][1] == len(addrs)
+        assert doc["retired"]
+    # the group's checkpoint is the single-process format: the JAX
+    # package's static replay over two devices resumes it
+    got = jax_trace.shard_replay_file(
+        ids, mesh=default_mesh(2), window=WINDOW, batch_windows=2,
+        precompacted=True, dispatch="static",
+        checkpoint_path=str(tmp_path / "shard.ckpt.copy"), resume=True)
+    assert "resuming sharded replay at call 8/" in capsys.readouterr().err
+    np.testing.assert_array_equal(got.hist, want.hist)
+
+
+def test_process_group_cli_trace_shard_prints_the_single_process_block(
+        tmp_path, replay_trace):
+    """``cli trace --backends shard`` on two gloo ranks: each rank prints
+    the in-memory sharded replay's block (JAX's multi-process route), whose
+    histogram and CSV are the single-process block's, and JAX's notices
+    for ``--journal`` and ``--batch-windows``."""
+    import torch
+
+    from pluss_torch import cli as tcli
+    from pluss_torch import trace as tt
+
+    addrs, raw, ids = replay_trace
+    single_dir = tmp_path / "single"
+    single_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(single_dir)
+    try:
+        buf = io.StringIO()
+        saved = sys.stdout
+        sys.stdout = buf
+        try:
+            assert tcli.main(["trace", "--cpu", "--file", raw, "--backends",
+                              "shard", "--window", str(WINDOW), "--out",
+                              "m.csv"]) == 0
+        finally:
+            sys.stdout = saved
+        single = buf.getvalue().splitlines()
+        single_csv = open("m.csv").read()
+        mem = io.StringIO()
+        tcli._trace_block(tt.shard_replay(addrs, devices=["cpu"],
+                                          window=WINDOW),
+                          0.0, SamplerConfig(), torch.device("cpu"), "m.csv",
+                          mem)
+        in_memory = mem.getvalue().splitlines()
+    finally:
+        os.chdir(cwd)
+    assert in_memory[1:-1] == single[1:-1]
+    docs = run_replay_ranks(tmp_path, 2, raw, ids, "cli")
+    for doc in docs:
+        assert doc["rc"] == 0
+        lines = doc["stdout"].splitlines()
+        assert lines[0].startswith("TORCH CPU TRACE: ")
+        assert lines[1:] == in_memory[1:]
+        assert doc["csv"] == single_csv
+        assert ("pluss_torch: --resume/--journal have no effect on "
+                "multi-process sharded replay") in doc["stderr"]
+        assert ("pluss_torch: --batch-windows has no effect on the "
+                "in-memory sharded replay") in doc["stderr"]
