@@ -119,10 +119,12 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     (host work: no dispatch, no launch, no device allocation), equal to
     the same command with ``--cpu``, then with ``--check --json`` on the
     card, whose document (every derivable family bit-identical to its
-    engine run) equals ``--check --cpu``'s; (b) GEMM-1024's closed-form
+    engine run) equals ``--check --cpu``'s; (b) GEMM-512's closed-form
     prediction against the card's engine (template path, no kernel-1
-    launch) and (c) mvt-4000's dense prediction against template + sort
-    (4 launches), each with its host predict and card engine seconds;
+    launch) and (c) mvt-2000's dense prediction against template + sort
+    (kernel 1 once per sort window), each with its host predict and card
+    engine seconds (both cut from GEMM-1024 and mvt-4000 for the script's
+    time);
     (d) ``cli tune mvt --n 1000`` alone (host), then with ``--check``:
     the same search, and the winner's one engine run on the card
     verifies; (e) ``cli lint --all``, ``analyze --model gemm --n 128`` and
@@ -141,8 +143,9 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     --check-model mvt``, equal to phase 7's block (4 launches a run); (c)
     the PolyBench corpus (``frontend.polybench``, five families),
     analyzer-clean, each on the card and the CPU, exactly, conserving its
-    accesses; (d) ``cli transform gemm --n 256`` with ``--interchange
-    0,2`` and with ``--tile 0:32,1:32,2:32``, each ``--check --json``:
+    accesses; (d) ``cli transform gemm --n 128`` (cut from 256 for the
+    script's time) with ``--interchange 0,2`` and with ``--tile
+    0:32,1:32,2:32``, each ``--check --json``:
     the card's engine run of the transformed spec bit-identical to its
     host prediction; ``cli tune gemm --transforms --n 64 --cache-kb 1
     --check`` (a tiled winner, its engine run verified); and ``transform
@@ -211,8 +214,9 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     within 1e-11 relative, the MRC within L2 1e-12); (d) mvt-4000 (kernel
     1: 4) and cholesky-1000 (PolyBench LARGE is 2000: its native run is
     predicted from cholesky-1000's time and taken only under 60 s) the
-    same way; (e) trmm-1000 through ``write_spec_file`` and ``pluss_cpp acc
-    --spec``, the card's block below the banner (kernel 1: 63); (f)
+    same way; (e) trmm-500 (cut from 1000 for the script's time) through
+    ``write_spec_file`` and ``pluss_cpp acc --spec``, the card's block
+    below the banner (kernel 1 once per window); (f)
     ``native.replay`` of phase 17's first 2^24 refs against the card's
     ``replay_file`` of them (phase 17's) and of their line ids written as
     a precompacted trace (kernels 2 and 3 once); (g) on those ids, two
@@ -223,7 +227,22 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     below the banner to the in-memory sharded block (world 2) or the
     single-process block (world 1); the native seconds beside the card's,
     with the card's name and power limit and the host CPU;
-29. the kernels line, the card's name and power limit, and the result line.
+29. soak: the port's soak harness (``python -m pluss_torch.soak``) on the
+    card, each mode a subprocess with its fixed seed printed (the
+    property and chaos soaks at once, then the serve soak alone), after the
+    kernels were built here (phase 1), so the subprocesses load that
+    build: (a) the property soak at 60 examples (random specs card ==
+    CPU, random schedules, ``shard_run`` over 1, 2 and 4 copies of the
+    card, steal and static); (b) the chaos soak at 6 rounds on
+    mvt-4000, trmm-1000, GEMM-1024, GEMM-512 and syrk-500 plus the
+    sweep kill at GEMM-256; (c) the serve soak at 16 requests with
+    ``--telemetry``, then ``python -m pluss_torch.cli stats --check`` on
+    that stream (``cli.main`` in this process).  Each must exit 0; kernel
+    1 must launch in all three (in (c) in the daemon), kernel 2 in (a)
+    and in (c)'s daemon (the trace request), kernel 3 in (c)'s daemon
+    (the d24v wire); each mode's seconds and launches on the phase's
+    line;
+30. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
 (phases 5-16, 17-18's first replay, phase 19's staging, first staged
@@ -233,7 +252,8 @@ phase 22's ``--check``, engine and ``spec load --run`` runs, phase
 of phase 24's calibration points and its tuned replay, phase 25's
 sweeps and CLI run, phase 26's requests (a)-(d), and each of phase 27's
 runs but the ranks of (d), which count their own, and each of phase 28's
-card runs but the ranks of (g), which count their own)
+card runs but the ranks of (g), which count their own; phase 29's soak
+processes and the serve soak's daemon count their own)
 and read just after it: the
 event kernel must launch once per plan window that sorts something (0 for
 GEMM and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
@@ -253,6 +273,7 @@ result, when there is no CUDA device or when run outside the repository.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -267,7 +288,13 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 
 
+#: the script's start, for the elapsed seconds on every phase line
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -922,7 +949,7 @@ def main() -> int:
     # 17-18. the trace replay's main path, on a 2^28-ref trace -------------
     tmp = tempfile.mkdtemp(prefix="pluss_torch_smoke_")
     try:
-        batches, streamed, prefix = trace_phases(tmp, by_path)
+        batches, streamed, prefix, part_a = trace_phases(tmp, by_path)
         # 19. the packed, device-resident replay of the same trace
         resident_phase(tmp, streamed, by_path, prefix)
         # 20. the mvt-4000 run and the streamed replay under telemetry
@@ -942,7 +969,7 @@ def main() -> int:
                        resc)
 
         # 24. the autotuner, its winner persisted for this card
-        autotune_phase(by_path, os.path.join(tmp, "smoke.bin"), streamed)
+        autotune_phase(by_path, os.path.join(tmp, "smoke.bin"), part_a)
         # 25. the schedule sweep, journaled and resumed
         sweep_phase(cfg, by_path, sort_windows)
         # 26. the serving daemon, on phase 17's trace among others
@@ -951,11 +978,13 @@ def main() -> int:
         # process groups, the shard ladder and the CLI's three backends
         shard_phase(tmp, cfg, by_path, resc, streamed, resm, lines)
         # 28. the card's engine and replay against the native C++ runtime
-        native_phase(tmp, cfg, by_path, lines, resc, prefix)
+        native_phase(tmp, cfg, by_path, lines, resc, prefix, sort_windows)
+        # 29. the soak harness: property, chaos and serve soaks
+        soak_phase(tmp, by_path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 29. kernels line, card, result -----------------------------------------
+    # 30. kernels line, card, result -----------------------------------------
     def launches_of(name):
         return {path: c[name] for path, c in by_path.items()}
 
@@ -1325,7 +1354,7 @@ def host_cpu() -> str:
 
 
 def native_phase(tmp: str, cfg, by_path: dict, acc_lines, resc,
-                 prefix) -> dict:
+                 prefix, sort_windows) -> dict:
     """Phase 28: the card's engine and replay held against the port's
     native C++ runtime (``pluss_torch.native``, built from
     ``pluss_torch/cpp``; it runs on the host, not on the card): (a) build
@@ -1341,9 +1370,10 @@ def native_phase(tmp: str, cfg, by_path: dict, acc_lines, resc,
     native CRI histogram at rtol 1e-12; (d) mvt-4000 (kernel 1: 4) and
     cholesky-1000 (kernel 1 in every window) the same way, and
     cholesky-2000 (phase 8's run) too when cholesky-1000's native time
-    predicts under 60 s for it; (e) trmm-1000 written with
-    ``write_spec_file`` through ``pluss_cpp acc --spec``: the card's block
-    below the banner (kernel 1: 63); (f) ``native.replay`` of phase 17's
+    predicts under 60 s for it; (e) trmm-500 (cut from 1000 for the
+    script's time) written with ``write_spec_file`` through ``pluss_cpp
+    acc --spec``: the card's block below the banner (kernel 1 once per
+    plan window); (f) ``native.replay`` of phase 17's
     first 2^24 refs against the card's ``replay_file`` of them (``prefix``,
     phase 17's), and against the card's replay of their line ids written
     as a precompacted trace (kernels 2 and 3 once each); (g) on those ids,
@@ -1462,20 +1492,23 @@ def native_phase(tmp: str, cfg, by_path: dict, acc_lines, resc,
                                **held(resc, nat_res, "cholesky2000")}
         del nat_res
 
-    # (e) trmm-1000 through a spec file and the binary
-    spec_path = os.path.join(tmp, "trmm1000.spec")
-    native.write_spec_file(trmm(1000), spec_path)
+    # (e) trmm-500 through a spec file and the binary (cut from 1000 for
+    # the script's time limit: the native trmm-1000 was most of this phase)
+    spec_path = os.path.join(tmp, "trmm500.spec")
+    native.write_spec_file(trmm(500), spec_path)
     t1 = time.perf_counter()
-    res, counts = counted(lambda: engine.run(trmm(1000), cfg))
+    res, counts = counted(lambda: engine.run(trmm(500), cfg))
     card_s = time.perf_counter() - t1
-    clean("native_trmm1000", res)
-    by_path["native_trmm1000"] = counts
-    check(counts["carried_event_hist"] == 63, f"trmm1000: {counts}")
+    clean("native_trmm500", res)
+    by_path["native_trmm500"] = counts
+    want = sort_windows(engine.plan(trmm(500), cfg))
+    check(counts["carried_event_hist"] == want > 0,
+          f"trmm500: {counts}, {want} sort windows")
     nat, dt = pluss_cpp("acc", "--spec", spec_path)
     check(nat[1:] == block_of(res, cfg, "x")[1:],
-          "pluss_cpp acc --spec trmm1000 != the card's block")
-    out["trmm1000_spec"] = {"card_s": card_s, "native_s": dt,
-                            "launches": counts}
+          "pluss_cpp acc --spec trmm500 != the card's block")
+    out["trmm500_spec"] = {"card_s": card_s, "native_s": dt,
+                           "launches": counts}
     del res
 
     # (f) the trace replay, on phase 17's first 2^24 refs, and on their
@@ -1561,6 +1594,107 @@ def native_phase(tmp: str, cfg, by_path: dict, acc_lines, resc,
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "native", **out, "ok": True})
     return out
+
+
+#: phase 29's modes: (label, arguments of ``python -m pluss_torch.soak``)
+#: (the chaos rounds and serve requests cut from 8 and 24 for the script's
+#: time limit; PERF.md has the measurements)
+SOAKS = (("property", ["60", "2910"]),
+         ("chaos", ["--chaos", "6", "2920"]),
+         ("serve", ["--serve", "16", "2930", "--telemetry"]))
+
+
+def soak_phase(tmp: str, by_path: dict) -> None:
+    """Phase 29: the three modes of ``python -m pluss_torch.soak`` on the
+    card, one subprocess each with a fixed seed, in the repository; the
+    serve soak's telemetry stream then passes ``cli stats --check``.  A
+    mode that exits non-zero fails the script.  Each mode's launches are
+    the ones its summary line prints: the soak process's own, and for the
+    serve soak its daemon's (read off the daemon's ``kernel.launches.*``
+    counters) beside its solo runs'."""
+    import torch
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # the earlier phases' cached blocks go back to the card: the soak
+    # processes size their sort windows and residency from free memory
+    torch.cuda.empty_cache()
+
+    def start(label: str, args: list[str]):
+        """Start one mode, its output to files (two run at once)."""
+        outs = [open(os.path.join(tmp, f"soak_{label}.{k}"), "w+")
+                for k in ("out", "err")]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pluss_torch.soak", *args], cwd=repo,
+            stdout=outs[0], stderr=outs[1], text=True)
+        return label, args, time.perf_counter(), proc, outs
+
+    def finish(label, args, t0, proc, outs) -> None:
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        text = []
+        for fh in outs:
+            fh.seek(0)
+            text.append(fh.read())
+            fh.close()
+        stdout, stderr = text
+        # the mode's own lines (seeds, rounds, latencies) go to stderr
+        sys.stderr.write(stdout)
+        check(rc == 0, f"soak {label} {args}: exit {rc}\n"
+                       f"{stdout[-4000:]}\n{stderr[-4000:]}")
+        summary = [ln for ln in stdout.splitlines()
+                   if re.search(r"launches \{", ln)]
+        check(len(summary) == 1, f"soak {label}: no summary line")
+        found = re.findall(r"launches (\{[^}]*\})", summary[0])
+        out[label] = {"args": args, "seconds": seconds,
+                      "summary": summary[0].split("; launches")[0],
+                      "launches": json.loads(found[0])}
+        if len(found) > 1:
+            out[label]["daemon_launches"] = json.loads(found[1])
+
+    tel = os.path.join(tmp, "soak_serve.jsonl")
+    modes = dict(SOAKS)
+    # the property and chaos soaks hold no latency bound: they run at
+    # once; the serve soak, whose first request is held against its steady
+    # p50, runs alone after them
+    both = [start("property", modes["property"]),
+            start("chaos", modes["chaos"])]
+    for run in both:
+        finish(*run)
+    finish(*start("serve", modes["serve"] + [tel]))
+    # `python -m pluss_torch.cli stats --check` on the stream, in this
+    # process (an interpreter start costs the card's host ~8 s)
+    from pluss_torch import cli
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["stats", tel, "--check"])
+    check(rc == 0, f"stats --check of the serve soak's stream: exit {rc}")
+    out["stats_check"] = {"seconds": time.perf_counter() - t0,
+                          "line": buf.getvalue().strip()}
+    prop, chaos = out["property"]["launches"], out["chaos"]["launches"]
+    daemon = out["serve"]["daemon_launches"]
+    by_path["soak_property"] = prop
+    by_path["soak_chaos"] = chaos
+    by_path["soak_serve_daemon"] = daemon
+    by_path["soak_serve_solo"] = out["serve"]["launches"]
+    check(prop["carried_event_hist"] > 0 and chaos["carried_event_hist"] > 0
+          and daemon["carried_event_hist"] > 0,
+          f"soak: kernel 1 not launched in every mode: {out}")
+    check(prop["masked_hist"] > 0 and daemon["masked_hist"] > 0,
+          f"soak: kernel 2 not launched in the property and serve soaks: "
+          f"{out}")
+    check(daemon["d24v_decode"] > 0,
+          f"soak: kernel 3 not launched in the serve soak's daemon: {out}")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "soak", **out, "ok": True})
 
 
 def curve_of(res, cfg):
@@ -1778,8 +1912,8 @@ def sample_phase(cfg, by_path, full) -> None:
 def trace_phases(tmp: str, by_path: dict) -> tuple:
     """Phases 17 and 18: the streamed replay on the card, and its CLI.
     Returns kernels 2 and 3's measurements on one real batch of each part
-    of the trace, the streamed replay's result and its first batch's
-    replay (the 2^24-ref prefix)."""
+    of the trace, the streamed replay's result, its first batch's replay
+    (the 2^24-ref prefix) and part A's replay (its first 2^27 refs)."""
     import numpy as np
     import torch
 
@@ -1900,7 +2034,7 @@ def trace_phases(tmp: str, by_path: dict) -> tuple:
           f"cli trace block / launches {counts}")
     emit({"phase": "trace_cli", "lines": len(lines), "launches": counts,
           "ok": True})
-    return batches, rep, prefix
+    return batches, rep, prefix, part_a
 
 
 def resident_phase(tmp: str, rep, by_path: dict, prefix) -> None:
@@ -2341,13 +2475,16 @@ def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
         - len(derivable), "check_seconds": check_s, "launches": counts,
         "dispatches": dispatches, "card_doc_equals_cpu": True}
 
-    # (b, c) GEMM-1024 (closed form) and mvt-4000 (dense): ``predict
-    # --check`` through the CLI, under a telemetry session whose spans
-    # split the call into the host prediction (``ri.derive``) and the
-    # card's engine run (the ``engine.*`` spans, first start to last end)
+    # (b, c) GEMM-512 (closed form) and mvt-2000 (dense), cut from
+    # GEMM-1024 and mvt-4000 for the script's time limit (their host
+    # predictions were most of this phase): ``predict --check`` through the
+    # CLI, under a
+    # telemetry session whose spans split the call into the host
+    # prediction (``ri.derive``) and the card's engine run (the
+    # ``engine.*`` spans, first start to last end)
     tmp = tempfile.mkdtemp(prefix="pluss_torch_predict_")
 
-    def predict_check(label, model, n, method, path):
+    def predict_check(label, model, n, method):
         ev = os.path.join(tmp, f"{label}.jsonl")
         d0 = engine.DEVICE_DISPATCHES
         try:
@@ -2365,9 +2502,12 @@ def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
         check(detail.get("histogram_identical") is True
               and "bit-identical to engine.run" in err,
               f"{label}: prediction != card engine ({detail})")
-        check(counts == by_path[path] and dispatches <= 1,
-              f"{label}: launches {counts}, phase {path}: "
-              f"{by_path[path]}; {dispatches} dispatches")
+        want = {"carried_event_hist": sort_windows(
+            engine.plan(REGISTRY[model](n), SamplerConfig())),
+            "masked_hist": 0, "d24v_decode": 0}
+        check(counts == want and dispatches <= 1,
+              f"{label}: launches {counts}, the plan's {want}; "
+              f"{dispatches} dispatches")
         host_s, engine_s = predict_and_engine_s(ev, label)
         mrc_v = "bit-identical" if detail["mrc_exact"] \
             else f"l2={detail['mrc_l2_error']:.2e}"
@@ -2382,14 +2522,14 @@ def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
             "mrc": mrc_v, "dispatches": dispatches, "launches": counts}
 
     try:
-        predict_check("gemm1024", "gemm", 1024, "closed-form", "gemm1024")
-        predict_check("mvt4000", "mvt", 4000, "dense", "mvt4000")
+        predict_check("gemm512", "gemm", 512, "closed-form")
+        predict_check("mvt2000", "mvt", 2000, "dense")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check(by_path["predict_gemm1024"]["carried_event_hist"] == 0,
-          "gemm1024: kernel 1 launched")
-    check(by_path["predict_mvt4000"]["carried_event_hist"] == 4,
-          "mvt4000: kernel 1 not launched 4 times")
+    check(by_path["predict_gemm512"]["carried_event_hist"] == 0,
+          "gemm512: kernel 1 launched")
+    check(by_path["predict_mvt2000"]["carried_event_hist"] > 0,
+          "mvt2000: kernel 1 not launched")
 
     # (d) tune mvt-1000: the search alone (host), then with --check: the
     # winner's one engine run on the card verifies
@@ -2581,20 +2721,21 @@ def frontend_phase(cfg, by_path: dict, sort_windows, conserved, res1k, resm,
                          "launches": counts["carried_event_hist"]}
         out["corpus"] = fams
 
-        # (d) transforms of GEMM-256, checked on the card against the host
-        # prediction of the transformed spec
+        # (d) transforms of GEMM-128 (cut from 256 for the script's time
+        # limit), checked on the card against the host prediction of the
+        # transformed spec
         for label, flag in (("interchange02", ["--interchange", "0,2"]),
                             ("tile32", ["--tile", "0:32,1:32,2:32"])):
             ev = os.path.join(tmp, f"{label}.jsonl")
             t0 = time.perf_counter()
             try:
                 (rc, so, err), counts = counted(lambda: cli_call(
-                    ["transform", "gemm", "--n", "256", *flag, "--check",
+                    ["transform", "gemm", "--n", "128", *flag, "--check",
                      "--json", "--telemetry", ev]))
             finally:
                 obs.shutdown()
             dt = time.perf_counter() - t0
-            by_path[f"transform_gemm256_{label}"] = counts
+            by_path[f"transform_gemm128_{label}"] = counts
             doc = json.loads(so) if rc == 0 else {}
             detail = doc.get("check", {})
             check(rc == 0 and doc["verdict"] == "PL951"
@@ -2606,11 +2747,11 @@ def frontend_phase(cfg, by_path: dict, sort_windows, conserved, res1k, resm,
             check(counts["carried_event_hist"] == want,
                   f"transform {label}: launches {counts}, {want} windows")
             host_s, engine_s = predict_and_engine_s(ev, label)
-            out[f"transform_gemm256_{label}"] = {
+            out[f"transform_gemm128_{label}"] = {
                 "spec": tspec.name, "seconds": dt, "host_predict_s": host_s,
                 "card_engine_s": engine_s, "histogram_identical": True,
                 "mrc_exact": detail["mrc_exact"], "launches": counts}
-            print(f"frontend transform gemm256 {label}: {tspec.name}, host "
+            print(f"frontend transform gemm128 {label}: {tspec.name}, host "
                   f"predict {host_s:.3f} s, card engine {engine_s:.3f} s, "
                   f"histograms bit-identical; kernel-1 launches "
                   f"{counts['carried_event_hist']}", flush=True)
@@ -2686,7 +2827,7 @@ def _env_scope(**env):
     return restore
 
 
-def autotune_phase(by_path: dict, big_path: str, big_rep) -> None:
+def autotune_phase(by_path: dict, big_path: str, part_a) -> None:
     """Phase 24: the autotuner (``pluss_torch.autotune``) on the card, under
     a temporary plan-cache directory: ``calibrate(force=True)`` at the
     default 2^20 refs, every point's histogram bit-identical to the first
@@ -2694,9 +2835,11 @@ def autotune_phase(by_path: dict, big_path: str, big_rep) -> None:
     persisted under a salt that names the card and ``sm_90``; a second
     ``calibrate()`` short-circuits with one ``autotune.hit``;
     ``replay_file`` with no geometry kwargs resolves to the tuned values
-    and returns the same histogram; phase 17's 2^28 trace replays under
-    the shipped defaults (consult off), the persisted winner, and the
-    shipped defaults again, each timed and equal to phase 17's replay;
+    and returns the same histogram; part A of phase 17's trace (its first
+    2^27 refs; the whole 2^28 was cut for the script's time limit)
+    replays under the shipped defaults (consult off), the persisted
+    winner, and the shipped defaults again, each timed and equal to phase
+    17's replay of part A;
     ``cli autotune --dry-run`` exits 0, and with a doctored salt exits 1
     and counts ``autotune.stale``."""
     import numpy as np
@@ -2783,7 +2926,7 @@ def autotune_phase(by_path: dict, big_path: str, big_rep) -> None:
               f"tuned replay: wire {rep.wire}, workers "
               f"{rep.feed_workers}, launches {counts}, winner {geo}")
         # the winner against the shipped defaults at the size users
-        # replay: phase 17's 2^28 trace, shipped / tuned / shipped
+        # replay: part A of phase 17's trace, shipped / tuned / shipped
         big: dict = {"shipped_s": [], "tuned_s": []}
         for label in ("shipped", "tuned", "shipped"):
             scope = _env_scope(PLUSS_AUTOTUNE="0" if label == "shipped"
@@ -2791,21 +2934,22 @@ def autotune_phase(by_path: dict, big_path: str, big_rep) -> None:
             try:
                 window = trace._resolve_window(None, dev)
                 t0 = time.perf_counter()
-                r, counts = counted(lambda: trace.replay_file(big_path))
+                r, counts = counted(lambda: trace.replay_file(
+                    big_path, limit_refs=part_a.total_count))
                 big[f"{label}_s"].append(time.perf_counter() - t0)
             finally:
                 scope()
-            by_path[f"autotune_2^28_{label}"] = counts
+            by_path[f"autotune_2^27_{label}"] = counts
             big[f"{label}_launches"] = counts
             big[f"{label}_geometry"] = {"window": window,
                                         "wire": r.wire,
                                         "feed_workers": r.feed_workers}
-            check(np.array_equal(r.hist, big_rep.hist)
-                  and r.total_count == big_rep.total_count,
-                  f"2^28 replay under the {label} geometry != phase 17's")
-        print(f"autotune 2^28 replay: shipped {big['shipped_s']} s, "
+            check(np.array_equal(r.hist, part_a.hist)
+                  and r.total_count == part_a.total_count,
+                  f"part A replay under the {label} geometry != phase 17's")
+        print(f"autotune 2^27 replay: shipped {big['shipped_s']} s, "
               f"tuned {big['tuned_s']} s (winner {geo})", flush=True)
-        out["replay_2^28"] = big
+        out["replay_2^27"] = big
         rc, so, se = cli_call(["autotune", "--dry-run"])
         check(rc == 0 and "valid sidecar" in so, f"dry-run: {rc} {so} {se}")
         bad = dict(doc, salt=doc["salt"].replace("/sm_90/", "/sm_00/"))

@@ -108,7 +108,10 @@ touch a device, the CUDA card unless ``--cpu`` is given.
 
 ``--telemetry PATH`` (or ``PLUSS_TELEMETRY``) writes the run's spans,
 counters, gauges and events to PATH as JSONL
-(:mod:`pluss_torch.obs`).
+(:mod:`pluss_torch.obs`).  ``--profile DIR`` on ``acc``, ``mrc``,
+``import --run`` and ``spec load --run`` writes a ``torch.profiler``
+Chrome trace of each timed run into DIR; the printed block does not
+change.
 
 The timed region of ``acc``/``speed`` is the reference's: sampler + CRI
 distribute (…omp.cpp:337-339), after one untimed warm-up run that builds
@@ -164,12 +167,22 @@ def sampler_step(spec, cfg: SamplerConfig, device, window=None,
     return step
 
 
-def timed(step):
+def timed(step, profile_dir: str | None = None):
     """Seconds of one step (the run ends in a copy to the host, which waits
-    for the device) plus its result."""
-    t0 = time.perf_counter()
-    res, ri = step()
-    return time.perf_counter() - t0, res, ri
+    for the device) plus its result.  ``profile_dir`` (``--profile``)
+    writes a ``torch.profiler`` Chrome trace of the step into that
+    directory (:func:`pluss_torch.obs.xprof.chrome_trace`)."""
+    import contextlib
+
+    from pluss_torch.obs import xprof
+
+    ctx = xprof.chrome_trace(profile_dir) if profile_dir \
+        else contextlib.nullcontext()
+    with ctx:
+        t0 = time.perf_counter()
+        res, ri = step()
+        dt = time.perf_counter() - t0
+    return dt, res, ri
 
 
 def banner_of(device, backend: str = "vmap") -> str:
@@ -408,6 +421,11 @@ def main(argv: list[str] | None = None) -> int:
                         "references (default 2^20)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the host CPU instead of the CUDA card")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="acc/mrc mode, import --run, spec load --run: "
+                        "write a torch.profiler Chrome trace of the timed "
+                        "region into DIR (open it in chrome://tracing or "
+                        "Perfetto)")
     args = p.parse_args(argv)
 
     if args.target is not None and args.mode not in (
@@ -488,7 +506,7 @@ def run_mode(args, p, cfg: SamplerConfig, device, out) -> int:
         for b in backends:
             step = step_of(b)
             step()  # warm-up: kernel build and device start-up stay untimed
-            dt, res, ri = timed(step)
+            dt, res, ri = timed(step, args.profile)
             acc_block(banner_of(device, b), dt, res.noshare_list(),
                       res.share_list(), ri, res.max_iteration_count, out)
     elif args.mode == "speed":
@@ -498,7 +516,7 @@ def run_mode(args, p, cfg: SamplerConfig, device, out) -> int:
             speed_block(banner_of(device, b),
                         [timed(step)[0] for _ in range(args.reps)], out)
     else:
-        _, _, ri = timed(step_of(backends[0]))
+        _, _, ri = timed(step_of(backends[0]), args.profile)
         curve = mrc.aet_mrc(ri, cfg)
         mrc.write_mrc(args.out, curve)
         out.write(f"wrote {len(mrc.dedup_lines(curve))} MRC lines to "
@@ -1410,7 +1428,7 @@ def _run_spec_block(spec, cfg: SamplerConfig, args, device, out):
     dumps) of a loaded spec, under the banner ``<device> IMPORT <name>``."""
     step = sampler_step(spec, cfg, device, args.window, args.start_point)
     step()
-    dt, res, ri = timed(step)
+    dt, res, ri = timed(step, args.profile)
     acc_block(f"{banner_of(device)} IMPORT {spec.name}", dt,
               res.noshare_list(), res.share_list(), ri,
               res.max_iteration_count, out)

@@ -1472,6 +1472,26 @@ def precompile(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
          start_point, window_accesses, tb), warm)
 
 
+def warm_run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
+             device=None, window_accesses: int | None = None) -> None:
+    """Run a default-scheduled plan once on ``device`` and drop the
+    result: torch loads each CUDA kernel's module at its first launch and
+    the caching allocator grows at its first allocations, so a daemon's
+    warm-up that ends with this leaves none of that to its first request.
+    Not an attempt of :func:`run`: no fault site, no dispatch count; the
+    auto-dispatch ladder applies as in :func:`run`, silently."""
+    dev = resolve_device(device)
+    pl = _plan_cached(spec, cfg, None, None, window_accesses)
+    tb = budget = None
+    if not os.environ.get("PLUSS_NO_AUTO_DISPATCH"):
+        decision = _auto_dispatch(pl, cfg, tb, sort_budget(dev))
+        if decision is not None:
+            tb, budget = decision[0], _dispatch_entry_budget()
+    check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, sort_budget(dev),
+                      tb)
+    _execute(pl, dev, thread_batch=tb, dispatch_entries=budget)
+
+
 def is_warm(spec: LoopNestSpec, cfg: SamplerConfig,
             window_accesses: int | None = None) -> bool:
     """Whether a default run of ``spec`` (no assignment, no start point)

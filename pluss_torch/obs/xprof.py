@@ -16,6 +16,8 @@ arms both halves:
 With the variable unset both are near-free no-ops (one ``environ.get`` +
 ``None`` check), and any profiler failure degrades to a no-op with one
 stderr notice: observability must never sink the run it observes.
+:func:`chrome_trace` profiles one region into a directory it is given
+(the CLI's ``--profile DIR``), under the same rule.
 :func:`profiler` is the one place the port builds a profiler (host
 operations, plus the card's when there is one): ``pluss_torch.profile``
 reads its device times through it as well.
@@ -95,6 +97,37 @@ def session():
                     _broken = True
                     print(f"xprof: writing {out} failed: {e}",
                           file=sys.stderr)
+
+
+@contextlib.contextmanager
+def chrome_trace(directory: str):
+    """Profile the enclosed region into one Chrome trace
+    (``pluss_torch-<pid>-<n>.json``) in ``directory``: the CLI's
+    ``--profile``.  A profiler that fails to start or to write is reported
+    on stderr, and the region runs (or has run) all the same."""
+    global _n_traces
+    prof = None
+    try:
+        os.makedirs(directory, exist_ok=True)
+        prof = profiler()
+        prof.start()
+    except Exception as e:  # profiler unusable: report, don't sink the run
+        prof = None
+        print(f"xprof: starting torch.profiler into {directory} failed: "
+              f"{e}", file=sys.stderr)
+    try:
+        yield
+    finally:
+        if prof is not None:
+            with _lock:
+                _n_traces += 1
+                out = os.path.join(
+                    directory, f"pluss_torch-{os.getpid()}-{_n_traces}.json")
+            try:
+                prof.stop()
+                prof.export_chrome_trace(out)
+            except Exception as e:
+                print(f"xprof: writing {out} failed: {e}", file=sys.stderr)
 
 
 def annotate(name: str):

@@ -231,9 +231,14 @@ def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``, a kernel wrapper's launch count,
     under a lock: the shard dispatch launches kernels from several worker
     threads at once, and an unlocked ``+= 1`` (a read, an add, a write)
-    can lose one of two racing updates."""
+    can lose one of two racing updates.  The launch also lands in the
+    telemetry counter ``kernel.launches.<wrapper>``, which is how another
+    process (the serving daemon) reports its launches."""
+    from pluss_torch import obs
+
     with _count_lock:
         wrapper.launches += 1
+    obs.counter_add(f"kernel.launches.{wrapper.__name__}")
 
 
 def launch_context(dev):

@@ -537,6 +537,17 @@ class Server:
                         engine.precompile(req.spec, req.cfg,
                                           window_accesses=req.window,
                                           device=self.device)
+                        if self.device.type == "cuda":
+                            # the port's kernels are built, not compiled
+                            # per shape as JAX's are: what a first run on
+                            # the card still pays (kernel modules loaded,
+                            # the allocator grown) is paid here, once, on
+                            # the device loop
+                            self._on_device_loop(
+                                lambda: engine.warm_run(
+                                    req.spec, req.cfg,
+                                    window_accesses=req.window,
+                                    device=self.device))
                 warmed += 1
                 obs.counter_add("serve.warmed")
             except Exception as e:  # noqa: BLE001 — entry-local failure

@@ -49,6 +49,25 @@ def test_acc_block_matches_jax_cli(model, n, capsys):
     assert "max iteration traversed" in got
 
 
+def test_profile_writes_a_chrome_trace_and_keeps_the_block(tmp_path,
+                                                            capsys):
+    """``--profile DIR`` writes one Chrome trace of the timed run into
+    DIR; the block below the banner is the one printed without it."""
+    argv = ["acc", "--cpu", "--backends", "vmap", "--model", "gemm",
+            "--n", "16"]
+    assert cli.main(argv) == 0
+    want = capsys.readouterr().out
+    prof = tmp_path / "prof"
+    assert cli.main(argv + ["--profile", str(prof)]) == 0
+    got = capsys.readouterr().out
+    assert got.splitlines()[1:] == want.splitlines()[1:]
+    assert got.startswith("TORCH CPU: ")
+    traces = sorted(prof.iterdir())
+    assert len(traces) == 1 and traces[0].suffix == ".json"
+    doc = json.loads(traces[0].read_text())
+    assert doc["traceEvents"]
+
+
 def test_module_entry_runs_with_jax_and_pluss_blocked(capsys):
     """``python -m pluss_torch.cli`` in a fresh interpreter where importing
     jax or the pluss package fails: the port needs neither."""

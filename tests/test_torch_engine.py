@@ -198,7 +198,7 @@ def test_port_imports_no_jax_and_no_pluss():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "pluss"):
+                if top in ("jax", "jaxlib", "pluss", "tests"):
                     bad.append(f"{os.path.relpath(path, REPO)}: {name}")
     assert not bad, bad
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
@@ -240,7 +240,7 @@ def test_port_imports_no_jax_and_no_pluss():
         "pluss_torch/plancache.py", "pluss_torch/sweep.py",
         "pluss_torch/obs/tracectx.py", "pluss_torch/obs/slo.py",
         "pluss_torch/obs/flight.py",
-        "pluss_torch/resilience/breaker.py"} <= scanned
+        "pluss_torch/resilience/breaker.py", "pluss_torch/soak.py"} <= scanned
     assert {p for p in scanned if p.startswith(("pluss_torch/analysis/",
                                                 "pluss_torch/model/",
                                                 "pluss_torch/frontend/"))} \

@@ -647,3 +647,43 @@ def test_warm_window_quirk_on_both_packages(tmp_path, monkeypatch,
     assert (wc.get("residency.hit", 0) == 1) == hit, wc
     assert (gc.get("residency.stage_through", 0) == 1) == (not hit), gc
     assert (wc.get("residency.stage_through", 0) == 1) == (not hit), wc
+
+
+@pytest.mark.parametrize("device,runs", [("cuda", 1), ("cpu", 0)])
+def test_warm_entry_runs_once_on_the_card(server_factory, monkeypatch,
+                                          device, runs):
+    """On the card a ``--warm`` model entry is planned and then run once
+    (``engine.warm_run`` on the device loop), so the daemon's first
+    request pays no first-launch costs; on the CPU it is only planned, as
+    in JAX.  The card is faked: ``warm_run`` records its calls, the
+    sort budget is the host's and no kernel is built."""
+    from pluss_torch.ops import build
+
+    calls = []
+    monkeypatch.setattr(build, "load", lambda name: None)
+    monkeypatch.setattr(engine, "sort_budget",
+                        lambda dev: engine.CPU_SORT_BUDGET)
+    monkeypatch.setattr(
+        engine, "warm_run", lambda spec, cfg, **kw: calls.append(
+            (spec.name, cfg.thread_num, cfg.chunk_size, str(kw["device"]))))
+    srv = server_factory(warm="gemm:16:2:2", device=device)
+    with Client(srv.socket_path) as c:
+        t0 = time.monotonic()
+        while not c.request({"op": "ready"})["ready"]:
+            assert time.monotonic() - t0 < 60
+            time.sleep(0.05)
+    assert calls == [("gemm16", 2, 2, "cuda")] * runs
+
+
+def test_warm_run_is_not_a_run_attempt(clean_faults):
+    """``engine.warm_run`` dispatches the plan once and drops the result:
+    no ``engine.run`` fault site (an armed ``oom`` stays armed for the
+    first real run) and no dispatch count."""
+    from pluss_torch.models import gemm
+
+    faults.install(FaultPlan.parse("oom"))
+    n0 = engine.DEVICE_DISPATCHES
+    engine.warm_run(gemm(16), device="cpu")
+    assert engine.DEVICE_DISPATCHES == n0
+    with pytest.raises(Exception, match="out of memory"):
+        engine.run(gemm(16), device="cpu")
