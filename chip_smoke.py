@@ -91,8 +91,10 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     window, 256), and through ``replay_file(resident_cache=True)``: a cold
     stage-through whose published bytes equal the direct staging, a warm
     hit with no copy and no decode, and a budget of 1024 bytes that
-    streams and publishes nothing; each equal to phase 17's replay;
-20. telemetry: mvt-4000 and phase 17's replay again, with a telemetry
+    streams part A (cut from the whole trace for the script's time) and
+    publishes nothing; each equal to phase 17's replay (of part A);
+20. telemetry: mvt-4000 and phase 17's replay of part A (cut from the
+    whole trace for the script's time) again, with a telemetry
     session writing to a temp ``events.jsonl`` (``pluss_torch.obs``):
     each equal bit for bit to its telemetry-off run, with the same kernel
     launch counts; the stream passes ``stats --check``, its
@@ -192,11 +194,14 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     cholesky-2000 through ``shard_run``, steal with one worker and with
     four workers on ``cuda:0`` (kernel 2 once per thread and window) and
     static with one device on the legacy windows (kernel 1 once per
-    window), each equal to phase 8's run; (b) cholesky-1000 at four
-    workers under steal seeds 0 and 1: equal results, different chunk ->
-    worker maps; (c) phase 17's trace through ``shard_replay_file``, steal
-    at four workers and static at one device (kernel 2 sixteen times
-    each), equal to phase 17's replay; (d) two gloo ranks sharing the
+    window), each equal to phase 8's run; (b) cholesky-700 (cut from 1000
+    for the script's time) at four workers under steal seeds 0 and 1:
+    equal results, different chunk -> worker maps; (c) part A of phase
+    17's trace (its first 2^27 refs, written to a file of its own; the
+    whole trace until the script's time limit called for a cut) through
+    ``shard_replay_file``, steal at four workers and static at one device
+    (kernel 2 eight times each), equal to phase 17's replay of part A;
+    (d) two gloo ranks sharing the
     card (``torch.distributed`` through a file rendezvous), static
     ``shard_run`` of trmm-1000 equal to ``engine.run``, and a world of one
     under NCCL; (e) ``run_resilient(backend="shard")`` of mvt-4000 under
@@ -227,21 +232,32 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     below the banner to the in-memory sharded block (world 2) or the
     single-process block (world 1); the native seconds beside the card's,
     with the card's name and power limit and the host CPU;
-29. soak: the port's soak harness (``python -m pluss_torch.soak``) on the
-    card, each mode a subprocess with its fixed seed printed (the
-    property and chaos soaks at once, then the serve soak alone), after the
-    kernels were built here (phase 1), so the subprocesses load that
-    build: (a) the property soak at 60 examples (random specs card ==
+29. soak: one ``ri.derive`` at each of the serve soak's placement sizes
+    on the card and at the next size of its ladder (the placement cut's
+    reason, host seconds); then the port's soak harness (``python -m
+    pluss_torch.soak``) on the card, each mode a subprocess with its
+    fixed seed printed (the serve soak first, alone until it has passed
+    its crash/recover phase; then the property and chaos soaks beside its
+    placement and observability phases), after the kernels were built
+    here (phase 1), so the subprocesses load that build: (a) the property soak at 60 examples (random specs card ==
     CPU, random schedules, ``shard_run`` over 1, 2 and 4 copies of the
     card, steal and static); (b) the chaos soak at 6 rounds on
     mvt-4000, trmm-1000, GEMM-1024, GEMM-512 and syrk-500 plus the
     sweep kill at GEMM-256; (c) the serve soak at 16 requests with
-    ``--telemetry``, then ``python -m pluss_torch.cli stats --check`` on
-    that stream (``cli.main`` in this process).  Each must exit 0; kernel
-    1 must launch in all three (in (c) in the daemon), kernel 2 in (a)
-    and in (c)'s daemon (the trace request), kernel 3 in (c)'s daemon
-    (the d24v wire); each mode's seconds and launches on the phase's
-    line;
+    ``--telemetry``, then its later phases, each on the card: six
+    requests for a fresh 2^24-ref trace at window 2^18 (cold, then
+    resident hits at least 5x faster), a journaled daemon SIGKILLed with
+    three requests queued and a ``--recover`` daemon replaying them (3
+    recovered, at most 2 device dispatches), the placement arms on and
+    off (at the cut sizes of ``soak.PLACEMENT_N``; choices >= 1 and 0),
+    and the observability daemon (breaker, flight dump, four traced ids
+    resolved, none browned out), then ``python -m pluss_torch.cli stats
+    --check`` on the first daemon's stream (``cli.main`` in this
+    process).  Each must exit 0; kernel 1 must launch in all three (in
+    (c) in its daemons), kernel 2 in (a) and in (c)'s daemons (the trace
+    requests), kernel 3 in (c)'s daemons (the d24v wire); each mode's
+    seconds and launches, and (c)'s later phases' numbers, on the
+    phase's line;
 30. the kernels line, the card's name and power limit, and the result line.
 
 Every kernel launch count is set to 0 just before each main-path run
@@ -253,7 +269,7 @@ of phase 24's calibration points and its tuned replay, phase 25's
 sweeps and CLI run, phase 26's requests (a)-(d), and each of phase 27's
 runs but the ranks of (d), which count their own, and each of phase 28's
 card runs but the ranks of (g), which count their own; phase 29's soak
-processes and the serve soak's daemon count their own)
+processes and the serve soak's daemons count their own)
 and read just after it: the
 event kernel must launch once per plan window that sorts something (0 for
 GEMM and syrk_tri, every window for mvt-4000, cholesky and trmm, the last
@@ -951,10 +967,9 @@ def main() -> int:
     try:
         batches, streamed, prefix, part_a = trace_phases(tmp, by_path)
         # 19. the packed, device-resident replay of the same trace
-        resident_phase(tmp, streamed, by_path, prefix)
+        resident_phase(tmp, streamed, by_path, prefix, part_a)
         # 20. the mvt-4000 run and the streamed replay under telemetry
-        telemetry_phase(tmp, cfg, by_path, resm, by_path["mvt4000"],
-                        streamed, by_path["trace"])
+        telemetry_phase(tmp, cfg, by_path, resm, by_path["mvt4000"], part_a)
         # 21. the degradation ladder: injected faults, a genuine card OOM,
         # the CPU rung, and the empty stamps of every earlier phase
         resilience_phase(tmp, cfg, by_path, resm, rest, resc,
@@ -976,7 +991,7 @@ def main() -> int:
         serve_lines = serve_phase(tmp, cfg, by_path, streamed, resm, res1k)
         # 27. the multi-device layer: shard_run, the sharded replay,
         # process groups, the shard ladder and the CLI's three backends
-        shard_phase(tmp, cfg, by_path, resc, streamed, resm, lines)
+        shard_phase(tmp, cfg, by_path, resc, part_a, resm, lines)
         # 28. the card's engine and replay against the native C++ runtime
         native_phase(tmp, cfg, by_path, lines, resc, prefix, sort_windows)
         # 29. the soak harness: property, chaos and serve soaks
@@ -1074,6 +1089,11 @@ def shard_ranks(tmp: str, world: int, backend: str, script: str = _SHARD_RANK,
     the rendezvous, the world, its rank, ``backend``, its output stem and
     ``args``; every rank must exit 0 within its time limit (the rest are
     killed); returns their JSON documents."""
+    import torch
+
+    # the ranks size their sort budgets from the card's free memory: this
+    # process's cached blocks go back to the card first
+    torch.cuda.empty_cache()
     repo = os.path.dirname(os.path.abspath(__file__))
     rdv = os.path.join(tmp, f"rdv{tag}_{backend}_{world}")
     out = os.path.join(tmp, f"ranks{tag}_{backend}_{world}.json")
@@ -1103,19 +1123,20 @@ def shard_ranks(tmp: str, world: int, backend: str, script: str = _SHARD_RANK,
     return [json.load(open(f"{out}.{i}")) for i in range(world)]
 
 
-def shard_phase(tmp: str, cfg, by_path: dict, resc, streamed, resm,
+def shard_phase(tmp: str, cfg, by_path: dict, resc, part_a, resm,
                 acc_lines) -> None:
     """Phase 27: the multi-device layer (``pluss_torch.parallel``) on the
     card: (a) cholesky-2000 through ``shard_run``, steal with one worker
     and with four workers on ``cuda:0`` (each under its own stream;
     kernel 2 once per thread and window) and static with one device on
     the legacy windows (kernel 1 once per window), each equal to phase 8's
-    run; (b) cholesky-1000 at four workers under steal seeds 0 and 1:
-    equal results, different chunk -> worker maps; (c) phase 17's trace
-    through ``shard_replay_file``, steal at four workers and static at
-    one device (kernel 2 once per 2^24-ref chunk or step, 16), each equal
-    to the streamed replay; (d) two gloo ranks sharing the card, static
-    ``shard_run`` of trmm-1000 equal to ``engine.run`` (with the route
+    run; (b) cholesky-700 at four workers under steal seeds 0 and 1:
+    equal results, different chunk -> worker maps; (c) part A of phase
+    17's trace (its first 2^27 refs) through ``shard_replay_file``, steal
+    at four workers and static at one device (kernel 2 once per 2^24-ref
+    chunk or step, 8), each equal to phase 17's replay of part A; (d) two
+    gloo ranks sharing the card, static ``shard_run`` of trmm-1000 equal
+    to ``engine.run`` (with the route
     their exchange took), and a world of one under NCCL; (e)
     ``run_resilient(backend="shard")`` of mvt-4000 under ``shard_oom@1``,
     recovered on ``shrink_window`` and equal to phase 7's run; (f) ``cli
@@ -1181,7 +1202,7 @@ def shard_phase(tmp: str, cfg, by_path: dict, resc, streamed, resm,
                 "num_alloc_retries")}}
 
     # (b) steal seeds permute the schedule, never the result
-    small = cholesky(1000)
+    small = cholesky(700)
     ref = engine.run(small, cfg)
     maps = []
     t0 = time.perf_counter()
@@ -1189,18 +1210,21 @@ def shard_phase(tmp: str, cfg, by_path: dict, resc, streamed, resm,
         res, counts = counted(lambda: shard.shard_run(
             small, cfg, devices=[card] * 4, dispatch="steal",
             steal_seed=seed))
-        by_path[f"shard_cholesky1000_seed{seed}"] = counts
-        check(same_result(res, ref), f"cholesky1000 seed {seed} != engine")
+        by_path[f"shard_cholesky700_seed{seed}"] = counts
+        check(same_result(res, ref), f"cholesky700 seed {seed} != engine")
         maps.append(res.dispatch_stats["ran_by"])
     check(maps[0] != maps[1], "steal seeds 0 and 1 ran the same schedule")
-    out["cholesky1000_seeds"] = {"seconds": time.perf_counter() - t0,
+    out["cholesky700_seeds"] = {"seconds": time.perf_counter() - t0,
                                  "chunks": len(maps[0]),
                                  "moved": sum(maps[0][c] != maps[1][c]
                                               for c in maps[0])}
 
-    # (c) the 2^28-ref trace, sharded
-    path = os.path.join(tmp, "smoke.bin")
+    # (c) part A of the 2^28-ref trace, sharded
+    path = os.path.join(tmp, "part_a.bin")
+    np.fromfile(os.path.join(tmp, "smoke.bin"), dtype="<u8",
+                count=part_a.total_count).tofile(path)
     geo = dict(window=trace.TRACE_WINDOW, batch_windows=16)
+    chunks = part_a.total_count // (16 * trace.TRACE_WINDOW)
     for label, devs, mode in (("steal4", [card] * 4, "steal"),
                               ("static1", [card], "static")):
         t0 = time.perf_counter()
@@ -1208,17 +1232,25 @@ def shard_phase(tmp: str, cfg, by_path: dict, resc, streamed, resm,
             path, devices=devs, dispatch=mode, **geo))
         dt = time.perf_counter() - t0
         by_path[f"shard_trace_{label}"] = counts
-        check(np.array_equal(rep.hist, streamed.hist)
-              and rep.total_count == streamed.total_count,
-              f"shard_replay_file {label} != replay_file")
-        check(counts["masked_hist"] == 16 and counts["d24v_decode"] == 0
+        check(np.array_equal(rep.hist, part_a.hist)
+              and rep.total_count == part_a.total_count,
+              f"shard_replay_file {label} != replay_file of part A")
+        check(counts["masked_hist"] == chunks == 8
+              and counts["d24v_decode"] == 0
               and counts["carried_event_hist"] == 0,
               f"shard_replay_file {label}: launches {counts}")
         out[f"trace_{label}"] = {"seconds": dt, "launches": counts,
                                  "refs_per_s": rep.total_count / dt}
+    os.unlink(path)
 
     # (d) processes: two gloo ranks on the one card, NCCL at world 1
     want = engine.run(trmm(1000), cfg)
+    # what the card holds before the ranks start (``shard_ranks`` returns
+    # this process's cached blocks to the card first)
+    out["card_gib_before_ranks"] = {
+        "free": torch.cuda.mem_get_info()[0] / 2**30,
+        "allocated_here": torch.cuda.memory_allocated() / 2**30,
+        "reserved_here": torch.cuda.memory_reserved() / 2**30}
     t0 = time.perf_counter()
     for backend, world in (("gloo", 2), ("nccl", 1)):
         docs = shard_ranks(tmp, world, backend)
@@ -1604,14 +1636,83 @@ SOAKS = (("property", ["60", "2910"]),
          ("serve", ["--serve", "16", "2930", "--telemetry"]))
 
 
+#: the next size up the ladder from each of ``soak.PLACEMENT_N``'s
+PLACEMENT_NEXT = {"gemm": 256, "mvt": 1500, "syrk": 160}
+
+
+def placement_cut() -> dict:
+    """The reason for the serve soak's one cut: one ``ri.derive`` (host
+    work, what the placer runs inline per new pair) at each placement
+    size of the card (``soak.PLACEMENT_N``) and at the next size of its
+    ladder, in seconds."""
+    import torch
+
+    from pluss_torch import soak
+    from pluss_torch.analysis import ri
+    from pluss_torch.config import SamplerConfig
+    from pluss_torch.models import REGISTRY
+
+    pool, _ = soak.serve_pool(torch.device("cuda", 0), "")
+    out = {}
+    for q in soak.placement_pool(torch.device("cuda", 0), pool):
+        cfg = SamplerConfig(thread_num=q["threads"], chunk_size=q["chunk"])
+        for n in (q["n"], PLACEMENT_NEXT[q["model"]]):
+            t0 = time.perf_counter()
+            ri.derive(REGISTRY[q["model"]](n), cfg)
+            out[f"{q['model']}{n}"] = time.perf_counter() - t0
+    return out
+
+
+def serve_phases(stdout: str) -> dict:
+    """The serve soak's later phases, read off its lines (each must be
+    there): the repeated trace's cold and warm ms, the recovered count and
+    the recovery daemon's dispatches, the placement choices of each arm
+    with the cut sizes, and the traced ids resolved."""
+    def line(pattern: str):
+        m = re.search(pattern, stdout, re.M)
+        check(m is not None, f"serve soak: no line {pattern!r}")
+        return m.groups()
+
+    cold, warm, ratio = map(float, line(
+        r"^serve soak: repeated trace cold ([\d.]+) ms -> warm ([\d.]+) "
+        r"ms \(([\d.]+)x\)$"))
+    replayed, counted_, dispatches = map(int, line(
+        r"^serve soak: crash/recover -> (\d+) entries replayed \((\d+) "
+        r"counted\), (\d+) device dispatch"))
+    placement = {}
+    for arm in ("on", "off"):
+        n, sizes, advisory = line(
+            rf"^serve soak: placement={arm} -> 9 adversarial-mix responses "
+            r"bit-identical to solo, (\d+) placement choice\(s\) \(([^;]+);"
+            r" interference advisory (\w+)\)$")
+        placement[arm] = {"choices": int(n), "sizes": sizes,
+                          "interference_advisory": advisory}
+    resolved, of, brown = map(int, line(
+        r"^serve soak: obs phase -> breaker flight dump checked, (\d+) of "
+        r"(\d+) traced rids resolved to span trees, /metrics == rollup, "
+        r"(\d+) browned out$"))
+    check(cold >= 5.0 * max(warm, 50.0) and replayed == counted_ == 3
+          and 0 <= dispatches <= 2 and placement["on"]["choices"] >= 1
+          and placement["off"]["choices"] == 0 and resolved == of == 4
+          and brown == 0, "serve soak: a later phase's line is off")
+    return {"repeated_trace": {"cold_ms": cold, "warm_ms": warm,
+                               "ratio": ratio},
+            "crash_recover": {"replayed": replayed, "recovered": counted_,
+                              "device_dispatches": dispatches},
+            "placement": placement,
+            "observability": {"traced_ids_resolved": resolved,
+                              "browned_out": brown}}
+
+
 def soak_phase(tmp: str, by_path: dict) -> None:
     """Phase 29: the three modes of ``python -m pluss_torch.soak`` on the
     card, one subprocess each with a fixed seed, in the repository; the
     serve soak's telemetry stream then passes ``cli stats --check``.  A
     mode that exits non-zero fails the script.  Each mode's launches are
     the ones its summary line prints: the soak process's own, and for the
-    serve soak its daemon's (read off the daemon's ``kernel.launches.*``
-    counters) beside its solo runs'."""
+    serve soak its daemons' (read off each daemon's ``kernel.launches.*``
+    counters before it stops, summed) beside its solo runs'; the serve
+    soak's later phases are read off their lines (:func:`serve_phases`)."""
     import torch
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1622,7 +1723,7 @@ def soak_phase(tmp: str, by_path: dict) -> None:
     torch.cuda.empty_cache()
 
     def start(label: str, args: list[str]):
-        """Start one mode, its output to files (two run at once)."""
+        """Start one mode, its output to files (several run at once)."""
         outs = [open(os.path.join(tmp, f"soak_{label}.{k}"), "w+")
                 for k in ("out", "err")]
         proc = subprocess.Popen(
@@ -1644,6 +1745,8 @@ def soak_phase(tmp: str, by_path: dict) -> None:
             text.append(fh.read())
             fh.close()
         stdout, stderr = text
+        if label == "serve":
+            serve_out.append(stdout)
         # the mode's own lines (seeds, rounds, latencies) go to stderr
         sys.stderr.write(stdout)
         check(rc == 0, f"soak {label} {args}: exit {rc}\n"
@@ -1658,16 +1761,26 @@ def soak_phase(tmp: str, by_path: dict) -> None:
         if len(found) > 1:
             out[label]["daemon_launches"] = json.loads(found[1])
 
+    out["placement_derive_s"] = placement_cut()
     tel = os.path.join(tmp, "soak_serve.jsonl")
     modes = dict(SOAKS)
-    # the property and chaos soaks hold no latency bound: they run at
-    # once; the serve soak, whose first request is held against its steady
-    # p50, runs alone after them
-    both = [start("property", modes["property"]),
-            start("chaos", modes["chaos"])]
-    for run in both:
+    serve_out: list[str] = []
+    # the serve soak's warm-start and repeated-trace bounds and its wait
+    # for a killed daemon's memory run alone; the property and chaos soaks
+    # (no such bound) start once it has printed its crash/recover line and
+    # run beside its placement and observability phases (none either)
+    serve = start("serve", modes["serve"] + [tel])
+    serve_stdout = os.path.join(tmp, "soak_serve.out")
+    while serve[3].poll() is None:
+        with open(serve_stdout) as fh:
+            if "serve soak: crash/recover" in fh.read():
+                break
+        time.sleep(1.0)
+    others = [start("property", modes["property"]),
+              start("chaos", modes["chaos"])]
+    for run in (serve, *others):
         finish(*run)
-    finish(*start("serve", modes["serve"] + [tel]))
+    out["serve"]["phases"] = serve_phases(serve_out[0])
     # `python -m pluss_torch.cli stats --check` on the stream, in this
     # process (an interpreter start costs the card's host ~8 s)
     from pluss_torch import cli
@@ -1953,11 +2066,21 @@ def trace_phases(tmp: str, by_path: dict) -> tuple:
                                _kernels=cap_a.kernels())
     check(np.array_equal(rep.hist, part_a.hist + layout["part_b_hist"]),
           "trace != part A replay + part B's hand-worked histogram")
+    # the plain versions and the pack wire on part A (cut from the whole
+    # trace for the script's time limit: part B's delta blocks are held by
+    # phase 4, the captured batch below and the resumed leg)
+    def same_a(other, what):
+        check(np.array_equal(other.hist, part_a.hist)
+              and other.total_count == part_a.total_count
+              and other.n_lines == part_a.n_lines, f"trace: {what}")
+
     t1 = time.perf_counter()
-    same(trace.replay_file(path, _kernels=PLAIN), "plain versions")
+    same_a(trace.replay_file(path, limit_refs=layout["part_a_refs"],
+                             _kernels=PLAIN), "plain versions on part A")
     plain_s = time.perf_counter() - t1
     t1 = time.perf_counter()
-    same(trace.replay_file(path, wire="pack"), "pack wire")
+    same_a(trace.replay_file(path, limit_refs=layout["part_a_refs"],
+                             wire="pack"), "pack wire on part A")
     pack_s = time.perf_counter() - t1
 
     # checkpoint/resume: a read fault at batch 9 stops the first leg after
@@ -2009,8 +2132,9 @@ def trace_phases(tmp: str, by_path: dict) -> tuple:
                                 "h2d_bytes", "growths")},
           "wire": rep.wire, "feed_workers": rep.feed_workers,
           "n_lines": rep.n_lines, "peak_device_gib": peak / 2**30,
-          "launches": counts, "golden": True, "plain_s": plain_s,
-          "plain_match": True, "pack_s": pack_s, "pack_match": True,
+          "launches": counts, "golden": True, "part_a_refs":
+          layout["part_a_refs"], "plain_part_a_s": plain_s,
+          "plain_match": True, "pack_part_a_s": pack_s, "pack_match": True,
           "resume_match": True, "prefix_cpu_s": cpu_s,
           "prefix_card_vs_cpu": True, "ok": True})
 
@@ -2037,14 +2161,17 @@ def trace_phases(tmp: str, by_path: dict) -> tuple:
     return batches, rep, prefix, part_a
 
 
-def resident_phase(tmp: str, rep, by_path: dict, prefix) -> None:
+def resident_phase(tmp: str, rep, by_path: dict, prefix, part_a) -> None:
     """Phase 19: the 2^28-ref trace of phase 17 packed (d24v, and u24 on
     its first batch), staged into device memory (kernel 3 once per d24v
     record) and replayed from there (kernel 2 once per batch, or once per
     window on the legacy scan), then through ``replay_file``'s
-    residency store: a cold stage-through, a warm hit and a tiny budget.
-    Every replay must equal the streamed replay ``rep`` bit for bit (the
-    u24 first batch: ``prefix``, phase 17's replay of that batch)."""
+    residency store: a cold stage-through, a warm hit and a tiny budget
+    (on part A, the first 2^27 refs: the whole trace until the script's
+    time limit called for a cut).  Every replay must equal the streamed
+    replay ``rep`` bit for bit (the u24 first batch: ``prefix``, phase
+    17's replay of that batch; the tiny budget: ``part_a``, phase 17's
+    replay of part A)."""
     import numpy as np
     import torch
 
@@ -2145,8 +2272,11 @@ def resident_phase(tmp: str, rep, by_path: dict, prefix) -> None:
           and counts["masked_hist"] == n_batches,
           f"warm hit {warm.timing}, launches {counts}")
     residency.reset(budget=1024)
-    tiny = trace.replay_file(path, resident_cache=True)
-    same(clean("resident_tiny", tiny), "tiny budget")
+    tiny = clean("resident_tiny", trace.replay_file(
+        path, resident_cache=True, limit_refs=part_a.total_count))
+    check(np.array_equal(tiny.hist, part_a.hist)
+          and tiny.total_count == part_a.total_count
+          and tiny.n_lines == part_a.n_lines, "trace: tiny budget on part A")
     check(tiny.timing["resident"] == "fallback"
           and len(residency.store()) == 0, "tiny budget published")
     residency.reset()
@@ -2161,13 +2291,16 @@ def resident_phase(tmp: str, rep, by_path: dict, prefix) -> None:
 
 
 def telemetry_phase(tmp: str, cfg, by_path: dict, res_off, counts_off: dict,
-                    rep_off, trace_counts_off: dict) -> None:
-    """Phase 20: mvt-4000 and the 2^28-ref replay with a telemetry session
-    on, each equal bit for bit to its telemetry-off run (``res_off``,
-    ``rep_off``) with the same launch counts; the stream passes ``stats
-    --check`` and counts the refs that ran.  The off walls are the earlier
-    phase's and one more run after the on run (host clocks spread on a
-    shared host: the pair, not one number, is the comparison)."""
+                    rep_off) -> None:
+    """Phase 20: mvt-4000 and part A of the 2^28-ref trace (its first 2^27
+    refs; the whole trace until the script's time limit called for a cut)
+    with a telemetry session on, each equal bit for bit to its
+    telemetry-off run (``res_off``, ``rep_off``: phase 17's replay of part
+    A) with the same launch counts (the trace: kernels 2 and 3 once per
+    batch, 8); the stream passes ``stats --check`` and counts the refs
+    that ran.  The off walls are the earlier phase's and one more run
+    after the on run (host clocks spread on a shared host: the pair, not
+    one number, is the comparison)."""
     import numpy as np
 
     from pluss_torch import engine, obs, trace
@@ -2176,6 +2309,10 @@ def telemetry_phase(tmp: str, cfg, by_path: dict, res_off, counts_off: dict,
 
     ev = os.path.join(tmp, "events.jsonl")
     path = os.path.join(tmp, "smoke.bin")
+    n = rep_off.total_count
+    n_batches = n // (trace.WINDOWS_PER_BATCH * trace.TRACE_WINDOW)
+    trace_counts_off = {"carried_event_hist": 0, "masked_hist": n_batches,
+                        "d24v_decode": n_batches}
     spec = mvt(4000)
     # an off run first: the plan memo may have dropped mvt-4000's plan
     # since phase 7, and the walls below compare runs, not plans
@@ -2194,19 +2331,20 @@ def telemetry_phase(tmp: str, cfg, by_path: dict, res_off, counts_off: dict,
               f"telemetry mvt4000: result or launches {counts} differ "
               f"from the telemetry-off run's {counts_off}")
         t0 = time.perf_counter()
-        rep, counts = counted(lambda: trace.replay_file(path))
+        rep, counts = counted(lambda: trace.replay_file(path,
+                                                        limit_refs=n))
         trace_on_s = time.perf_counter() - t0
         by_path["telemetry_trace"] = counts
         check(np.array_equal(rep.hist, rep_off.hist)
               and rep.total_count == rep_off.total_count
               and rep.n_lines == rep_off.n_lines
-              and counts == trace_counts_off,
+              and counts == trace_counts_off and n_batches == 8,
               f"telemetry trace: result or launches {counts} differ from "
               f"the telemetry-off run's {trace_counts_off}")
     finally:
         obs.shutdown()
     t0 = time.perf_counter()
-    off = trace.replay_file(path)
+    off = trace.replay_file(path, limit_refs=n)
     trace_off2_s = time.perf_counter() - t0
     check(np.array_equal(off.hist, rep_off.hist), "telemetry: off rerun")
     # mvt's walls alternate off/on after the first pair
@@ -2237,6 +2375,7 @@ def telemetry_phase(tmp: str, cfg, by_path: dict, res_off, counts_off: dict,
         print(ln, flush=True)
     emit({"phase": "telemetry", "records": len(recs), "spans": len(spans),
           "stats_check": out.getvalue().strip(), **walls,
+          "trace_refs": n,
           "trace_off_s": [rep_off.timing["wall_s"], trace_off2_s],
           "trace_on_s": trace_on_s,
           "trace_span_s": replay_span["dur"],

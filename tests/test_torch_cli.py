@@ -90,6 +90,23 @@ def test_module_entry_runs_with_jax_and_pluss_blocked(capsys):
         assert b.split("\n", 1)[1].splitlines() == want
 
 
+def test_package_root_imports_with_jax_and_pluss_blocked():
+    """``from pluss_torch import ...`` of every root name, in a fresh
+    interpreter where importing jax or the pluss package fails."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['pluss'] = None; "
+            "from pluss_torch import (SamplerConfig, DEFAULT, Loop, "
+            "LoopNestSpec, Ref, ChunkSchedule, __version__); "
+            "assert DEFAULT == SamplerConfig(); "
+            "print(__version__, LoopNestSpec.__module__, "
+            "ChunkSchedule.__module__)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["0.1.0", "pluss_torch.spec",
+                                  "pluss_torch.sched"]
+
+
 @pytest.mark.parametrize("extra", [
     ["--n", "32", "--window", "1", "--rates", "0.5,1.0"],
     ["--n", "32", "--window", "1", "--rates", "0.5", "--sample-mode",

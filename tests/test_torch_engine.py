@@ -184,6 +184,52 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
+def test_package_root_exports_what_pluss_exports():
+    """Every public name of the ``pluss`` package object (its submodules
+    aside) is on ``pluss_torch`` too, as the port's own type, and the
+    versions agree."""
+    import types
+
+    import pluss
+    import pluss_torch
+
+    names = {n for n, v in vars(pluss).items()
+             if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    assert names == {"SamplerConfig", "DEFAULT", "Loop", "LoopNestSpec",
+                     "Ref", "ChunkSchedule"}
+    for n in names:
+        got = getattr(pluss_torch, n)
+        kind = got if isinstance(got, type) else type(got)
+        assert kind.__module__.startswith("pluss_torch."), n
+    assert pluss_torch.__version__ == pluss.__version__ == "0.1.0"
+    assert pluss_torch.DEFAULT == pluss_torch.SamplerConfig()
+    assert vars(pluss_torch.DEFAULT) == vars(pluss.DEFAULT)
+    spec = pluss_torch.LoopNestSpec(
+        name="t", arrays=(("A", 4),),
+        nests=(pluss_torch.Loop(trip=4, body=(pluss_torch.Ref(
+            "A0", "A", addr_terms=((0, 1),)),)),))
+    assert spec.nests[0].trip == 4
+    assert pluss_torch.ChunkSchedule(2, 4, 0, 1, 2).n_chunks \
+        == pluss.ChunkSchedule(2, 4, 0, 1, 2).n_chunks
+
+
+def test_importing_the_package_loads_no_jax_and_no_pluss():
+    """``import pluss_torch`` and its root names, in a fresh interpreter:
+    no module of jax, jaxlib or ``pluss`` is loaded by it."""
+    import subprocess
+    import sys
+
+    code = ("import sys; before = set(sys.modules); import pluss_torch; "
+            "from pluss_torch import (SamplerConfig, DEFAULT, Loop, "
+            "LoopNestSpec, Ref, ChunkSchedule, __version__); "
+            "print(sorted(m for m in set(sys.modules) - before "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'pluss')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_imports_no_jax_and_no_pluss():
     bad = []
     for path in _port_sources():
@@ -211,7 +257,9 @@ def test_port_imports_no_jax_and_no_pluss():
             "pluss_torch/models/stencils.py", "pluss_torch/overlay.py",
             "pluss_torch/sampling.py", "pluss_torch/residency.py",
             "pluss_torch/resilience/journal.py", "pluss_torch/native.py",
-            "pluss_torch/tracebench.py",
+            "pluss_torch/tracebench.py", "pluss_torch/__init__.py",
+            "pluss_torch/config.py", "pluss_torch/spec.py",
+            "pluss_torch/sched.py",
             "pluss_torch/resilience/__init__.py",
             "pluss_torch/resilience/faults.py",
             "pluss_torch/resilience/ladder.py",

@@ -4,10 +4,12 @@ Each mode runs with ``--cpu`` at a small count in a subprocess (the modes
 point the plan cache, the telemetry session and the fault injector at
 their own temp dirs, which must not leak into this test process) and must
 exit 0: the property soak, the chaos soak with its sweep-kill recovery,
-and the serve soak, whose telemetry stream then passes ``cli stats
---check``.  Without ``--cpu`` and without a card every mode raises before
-any run; the chaos soak also runs with ``jax``, ``pluss`` and ``tests``
-blocked.
+and the serve soak, whose phases (shed burst, mixed requests, repeated
+trace, crash/recover, placement on and off, observability) each print
+their line in the JAX soak's order and whose telemetry stream then
+passes ``cli stats --check``.  Without ``--cpu`` and without a card
+every mode raises before any run; the chaos soak also runs with ``jax``,
+``pluss`` and ``tests`` blocked.
 """
 
 import os
@@ -79,8 +81,33 @@ def test_serve_soak_and_its_stream_on_the_cpu(soak_tmp, tmp_path):
     assert re.search(r"shed burst -> [1-9]\d* Overloaded", out), out
     assert re.search(r"^serve soak: 6 mixed requests .* 6 ok, [1-9]\d* "
                      r"degraded via the ladder, 0 divergence", out, re.M), out
+    # the later phases, in the JAX soak's order
+    m = re.search(r"^serve soak: repeated trace cold ([\d.]+) ms -> warm "
+                  r"([\d.]+) ms \(([\d.]+)x\)$", out, re.M)
+    assert m, out
+    cold, warm, _ = map(float, m.groups())
+    assert cold >= 5.0 * max(warm, 50.0), out
+    assert re.search(r"^serve soak: crash/recover -> 3 entries replayed \(3 "
+                     r"counted\), [0-2] device dispatch\(es\), recovered "
+                     r"responses bit-identical to solo$", out, re.M), out
+    choices = dict(re.findall(
+        r"^serve soak: placement=(on|off) -> 9 adversarial-mix responses "
+        r"bit-identical to solo, (\d+) placement choice\(s\) "
+        r"\(gemm16,mvt16,syrk12; interference advisory on\)$", out, re.M))
+    assert int(choices["on"]) >= 1 and int(choices["off"]) == 0, out
+    assert re.search(r"^serve soak: obs phase -> breaker flight dump "
+                     r"checked, 4 of 4 traced rids resolved to span trees, "
+                     r"/metrics == rollup, 0 browned out$", out, re.M), out
+    order = [out.index(s) for s in (
+        "mixed requests", "repeated trace", "crash/recover", "placement=on",
+        "placement=off", "obs phase", "0 failure(s)")]
+    assert order == sorted(order), out
+    assert "FAIL" not in out, out
     assert re.search(r"^serve soak: 0 failure\(s\), seed 5 on cpu", out,
                      re.M), out
+    # one summary line with the launches, which chip_smoke.py reads
+    assert len([ln for ln in out.splitlines()
+                if re.search(r"launches \{", ln)]) == 1, out
     check = subprocess.run(
         [sys.executable, "-m", "pluss_torch.cli", "stats", tel, "--check"],
         cwd=REPO, capture_output=True, text=True, timeout=120)
