@@ -1,0 +1,73 @@
+"""Shared helpers of the benchmark's own tests (CPU, small sizes)."""
+
+import json
+import os
+import shutil
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def tiny_config(model: str, n: int, T: int = 4, CS: int = 4) -> dict:
+    from pluss_torch.models import REGISTRY
+    from pluss_torch.spec_codec import spec_to_json
+    return {"name": f"{model}-{n}", "source": "test", "model": model, "n": n,
+            "thread_num": T, "chunk_size": CS, "ds": 8, "cls": 64,
+            "cache_kb": 2560, "reduced": [],
+            "spec": spec_to_json(REGISTRY[model](n))}
+
+
+@pytest.fixture
+def tiny_root(tmp_path):
+    """A checkout-shaped directory holding the benchmark's traffic and
+    metric files and a BENCHMARK.json over tiny configurations, which a
+    test extends."""
+    root = tmp_path / "root"
+    bench = root / "benchmark"
+    shutil.copytree(os.path.join(ROOT, "benchmark", "traffic"),
+                    bench / "traffic")
+    shutil.copytree(os.path.join(ROOT, "benchmark", "metrics"),
+                    bench / "metrics")
+    (bench / "configs").mkdir()
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        doc = json.load(f)
+    doc["configs"], doc["workloads"] = [], []
+
+    class Root:
+        path = str(root)
+
+        def add(self, config: dict, traffic: str, mix: dict | None = None):
+            name = config["name"]
+            with open(bench / "configs" / f"{name}.json", "w") as f:
+                json.dump(config, f)
+            if mix is not None:
+                with open(bench / "traffic" / f"{traffic}.json", "w") as f:
+                    json.dump(mix, f)
+            if name not in [c["name"] for c in doc["configs"]]:
+                doc["configs"].append({
+                    "name": name, "source": "test", "reduced": [],
+                    "file": f"benchmark/configs/{name}.json"})
+            cell = f"{name}.{traffic}"
+            doc["workloads"].append({"name": cell, "config": name,
+                                     "traffic": traffic, "chips": 1,
+                                     "why": "test"})
+            for m in doc["end_to_end"] + doc["per_layer"]:
+                if "workloads" in m:
+                    m["workloads"].append(cell)
+            self.save()
+            return cell
+
+        def save(self):
+            with open(root / "BENCHMARK.json", "w") as f:
+                json.dump(doc, f)
+
+        doc_ = doc
+
+    r = Root()
+    r.doc = doc
+    return r

@@ -1,0 +1,98 @@
+"""The one traffic generator: a mix file's parameters -> the predictions.
+
+Every cell is a closed loop with one client: the next prediction starts
+when the previous one has ended.  A mix (``benchmark/traffic/<mix>.json``)
+says what each prediction runs:
+
+- ``"run"``: ``"full"`` (every access, ``engine.run``) or ``"sampled"``
+  (``sampling.sampled_run``'s uniform estimate at ``"rate"``, the one the
+  reference implements, with a new sampling seed for each prediction,
+  drawn from ``--seed``);
+- ``"schedules"``: optional ``[[thread_num, chunk_size], ...]``; each
+  prediction takes the next one, from the head of the list, so every seed
+  runs the same schedules (a schedule's plan cost grows with its chunk, so
+  a start the seed set would change the window's work); without it every
+  prediction runs the configuration's schedule;
+- ``"plan_cache"``: whether the program's plan caches are on (default
+  true): its disk cache, and the process's plan memo, which the harness
+  clears before each prediction when off; ``"check"``: how many distinct predictions, drawn from the seed,
+  the reference checks (default 1).
+
+The set-up warms one prediction of the cell's own shape: the
+configuration's schedule, and a sampling seed no window prediction gets.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+RUNS = ("full", "sampled")
+KEYS = {"run", "rate", "schedules", "plan_cache", "check"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Prediction:
+    """One prediction's input: the schedule, and for a sampled run its
+    sampling seed (the mix gives the rate)."""
+
+    thread_num: int
+    chunk_size: int
+    sample_seed: int | None = None
+
+    @property
+    def key(self) -> tuple:
+        return (self.thread_num, self.chunk_size, self.sample_seed)
+
+
+def check_mix(mix: dict) -> None:
+    """Refuse a mix the generator cannot run, before any set-up."""
+    if set(mix) - KEYS:
+        raise ValueError(f"unknown traffic keys {sorted(set(mix) - KEYS)}; "
+                         f"known: {sorted(KEYS)}")
+    if mix.get("run") not in RUNS:
+        raise ValueError(f"traffic 'run' must be one of {RUNS}, got "
+                         f"{mix.get('run')!r}")
+    if mix["run"] == "sampled" and not 0 < float(mix.get("rate", 0)) <= 1:
+        raise ValueError("a sampled mix needs a 'rate' in (0, 1]")
+    for s in mix.get("schedules") or ():
+        if len(s) != 2 or min(s) < 1:
+            raise ValueError(f"bad schedule {s!r}: [thread_num, chunk_size]")
+
+
+def _seq(seed: int, stream: int) -> np.random.Generator:
+    return np.random.default_rng(
+        np.random.SeedSequence([seed % (1 << 64), stream]))
+
+
+def warmup(mix: dict, config: dict, seed: int) -> Prediction:
+    s = _seq(seed, 1).integers(0, 1 << 31) if mix["run"] == "sampled" \
+        else None
+    return Prediction(config["thread_num"], config["chunk_size"],
+                      None if s is None else int(s))
+
+
+def predictions(mix: dict, config: dict, seed: int):
+    """The window's predictions, endless, in order."""
+    scheds = mix.get("schedules")
+    draw = _seq(seed, 0)
+    i = 0
+    while True:
+        if scheds:
+            T, CS = scheds[i % len(scheds)]
+        else:
+            T, CS = config["thread_num"], config["chunk_size"]
+        s = int(draw.integers(0, 1 << 31)) if mix["run"] == "sampled" \
+            else None
+        yield Prediction(T, CS, s)
+        i += 1
+
+
+def checked(keys: list, mix: dict, seed: int) -> list:
+    """The distinct prediction inputs the reference checks: ``check`` of
+    them (all, when fewer ran), drawn from the seed."""
+    distinct = sorted(set(keys), key=keys.index)
+    n = min(len(distinct), int(mix.get("check", 1)))
+    pick = _seq(seed, 2).choice(len(distinct), n, replace=False)
+    return [distinct[i] for i in sorted(pick.tolist())]
