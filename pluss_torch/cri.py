@@ -27,6 +27,7 @@ import math
 
 import numpy as np
 
+from pluss_torch import obs
 from pluss_torch.config import NBD_CUTOFF_COEF, NBD_MASS_CUT
 
 try:  # scipy is optional; the fallback is the same function, scalar
@@ -269,7 +270,8 @@ def racetrack(share: list[Histogram], rihist: Histogram,
 def distribute(noshare: list[Histogram], share: list[Histogram],
                thread_cnt: int) -> Histogram:
     """``pluss_cri_distribute`` (utils.rs:346-349): a fresh result per call."""
-    rihist: Histogram = {}
-    noshare_distribute(noshare, rihist, thread_cnt)
-    racetrack(share, rihist, thread_cnt)
-    return rihist
+    with obs.span("cri.distribute", threads=thread_cnt):
+        rihist: Histogram = {}
+        noshare_distribute(noshare, rihist, thread_cnt)
+        racetrack(share, rihist, thread_cnt)
+        return rihist

@@ -712,18 +712,20 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
         if build_templates and asg is None and not tri \
                 and not nest_has_varying_start(nest) \
                 and W * cfg.chunk_size * body <= MAX_TEMPLATE_WINDOW:
-            clean = _clean_windows(owned, W, NW, cfg.chunk_size, sched.trip)
-            if start_point is None:
-                cache_key = _plan_cache_key(spec, cfg, ni, W, NW)
-                cached = _plan_cache_get(cache_key)
-            tpl_refs, split_var = _split_ref_groups(refs, sched, cfg)
-            if tpl_refs:
-                tpl = cached["tpl"] if cached is not None else \
-                    _build_template(tpl_refs, W, cfg, sched, owned, clean,
-                                    spec.line_bases(cfg), spec.array_index,
-                                    body)
-                if tpl is not None:
-                    var_refs = split_var
+            with obs.span("engine.plan.template"):
+                clean = _clean_windows(owned, W, NW, cfg.chunk_size,
+                                       sched.trip)
+                if start_point is None:
+                    cache_key = _plan_cache_key(spec, cfg, ni, W, NW)
+                    cached = _plan_cache_get(cache_key)
+                tpl_refs, split_var = _split_ref_groups(refs, sched, cfg)
+                if tpl_refs:
+                    tpl = cached["tpl"] if cached is not None else \
+                        _build_template(tpl_refs, W, cfg, sched, owned,
+                                        clean, spec.line_bases(cfg),
+                                        spec.array_index, body)
+                    if tpl is not None:
+                        var_refs = split_var
         overlays: tuple = ()
         if build_overlays and clean is not None and var_refs \
                 and (start_point is None or ni != 0):
@@ -931,41 +933,44 @@ def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
     ``with_sorted`` adds a third item, the sorted ``(key_s, pos_s,
     span_s)`` (the sharded window captures its heads from them).
     """
-    r0 = w * np_.window_rounds
-    bases = spec.line_bases(cfg)
-    # the sort carries a one-byte code per entry, an index into the
-    # window's share spans (ghosts: span 0), and looks the spans up after
-    spans = sorted({0, *(fr.ref.share_span or 0 for fr in refs)})
-    parts = [_ref_window(fr, np_, cfg, owned, r0, nb,
-                         bases[spec.array_index(fr.ref.array)], pdt,
-                         spans.index(fr.ref.share_span or 0), clock)
-             for fr in refs]
-    for b, c in ranges:
-        line, pos, _, valid = ghost_entries(last_pos[:, b:b + c], b)
-        parts.append((line, pos, torch.zeros_like(valid, dtype=torch.uint8),
-                      valid))
-    cols = [torch.cat([p[i] for p in parts], dim=1) for i in range(4)]
-    del parts   # the per-ref blocks are not held through the sort
-    key_s, pos_s, code_s, valid_s = sort_columns(cols)   # empties cols
-    span_s = torch.tensor(spans, dtype=torch.int32,
-                          device=code_s.device)[code_s.long()]
-    del code_s
-    tails = extract_tails(key_s, pos_s, valid_s, sum(c for _, c in ranges))
-    off = 0
-    for b, c in ranges:
-        last_pos[:, b:b + c] = tails[:, off:off + c]
-        off += c
-    if event_hist is None:
-        return None, None
-    if clock is None:
-        win_start = (nb + w * win_shift).to(pdt)
-    else:
-        # bounded nest: the window's smallest position is the clock at its
-        # first stream slot
-        win_start = (nb + clock[:, r0 * cfg.chunk_size]).to(pdt)
-    out = (event_hist(key_s, pos_s, span_s, valid_s, win_start),
-           carried_events(key_s, pos_s, span_s, valid_s, win_start))
-    return out + ((key_s, pos_s, span_s),) if with_sorted else out
+    with obs.tally_span("engine.sort_window"):
+        r0 = w * np_.window_rounds
+        bases = spec.line_bases(cfg)
+        # the sort carries a one-byte code per entry, an index into the
+        # window's share spans (ghosts: span 0), and looks the spans up
+        # after
+        spans = sorted({0, *(fr.ref.share_span or 0 for fr in refs)})
+        parts = [_ref_window(fr, np_, cfg, owned, r0, nb,
+                             bases[spec.array_index(fr.ref.array)], pdt,
+                             spans.index(fr.ref.share_span or 0), clock)
+                 for fr in refs]
+        for b, c in ranges:
+            line, pos, _, valid = ghost_entries(last_pos[:, b:b + c], b)
+            parts.append((line, pos,
+                          torch.zeros_like(valid, dtype=torch.uint8), valid))
+        cols = [torch.cat([p[i] for p in parts], dim=1) for i in range(4)]
+        del parts   # the per-ref blocks are not held through the sort
+        key_s, pos_s, code_s, valid_s = sort_columns(cols)   # empties cols
+        span_s = torch.tensor(spans, dtype=torch.int32,
+                              device=code_s.device)[code_s.long()]
+        del code_s
+        tails = extract_tails(key_s, pos_s, valid_s,
+                              sum(c for _, c in ranges))
+        off = 0
+        for b, c in ranges:
+            last_pos[:, b:b + c] = tails[:, off:off + c]
+            off += c
+        if event_hist is None:
+            return None, None
+        if clock is None:
+            win_start = (nb + w * win_shift).to(pdt)
+        else:
+            # bounded nest: the window's smallest position is the clock at
+            # its first stream slot
+            win_start = (nb + clock[:, r0 * cfg.chunk_size]).to(pdt)
+        out = (event_hist(key_s, pos_s, span_s, valid_s, win_start),
+               carried_events(key_s, pos_s, span_s, valid_s, win_start))
+        return out + ((key_s, pos_s, span_s),) if with_sorted else out
 
 
 class _DeviceTemplate:
@@ -994,18 +999,19 @@ def _template_window(dt: _DeviceTemplate, w: int, tids: torch.Tensor,
     histogram, write the tail positions back (``hist`` and ``last_pos`` in
     place).  Returns the share-capable heads' ``(reuse, share)``."""
     tpl = dt.tpl
-    units = (w - tpl.w0) * tpl.unit_w + (tids - tpl.t0)            # [T]
-    dpos = ((w - tpl.w0) * tpl.pos_shift + nb).to(pdt)
-    carried = last_pos.gather(1, dt.hline + dt.hdl * units[:, None])
-    cold = carried < 0
-    reuse = (dt.hpos + dpos[:, None]) - carried
-    share = ~cold & share_mask(reuse, dt.hspan)
-    evt = ~cold & ~share
-    bins = torch.where(evt, log2_bin(reuse), 0)
-    hist += dt.lhist + bin_histogram(bins, cold | evt)
-    last_pos.scatter_(1, dt.tline + dt.tdl * units[:, None],
-                      dt.tpos + dpos[:, None])
-    return reuse[:, dt.hs_idx], share[:, dt.hs_idx]
+    with obs.tally_span("engine.template_window"):
+        units = (w - tpl.w0) * tpl.unit_w + (tids - tpl.t0)        # [T]
+        dpos = ((w - tpl.w0) * tpl.pos_shift + nb).to(pdt)
+        carried = last_pos.gather(1, dt.hline + dt.hdl * units[:, None])
+        cold = carried < 0
+        reuse = (dt.hpos + dpos[:, None]) - carried
+        share = ~cold & share_mask(reuse, dt.hspan)
+        evt = ~cold & ~share
+        bins = torch.where(evt, log2_bin(reuse), 0)
+        hist += dt.lhist + bin_histogram(bins, cold | evt)
+        last_pos.scatter_(1, dt.tline + dt.tdl * units[:, None],
+                          dt.tpos + dpos[:, None])
+        return reuse[:, dt.hs_idx], share[:, dt.hs_idx]
 
 
 @dataclasses.dataclass
@@ -1582,15 +1588,23 @@ class _Walk:
             cand.append((ev["reuse"], ev["share"]))
         if nt.rpg is not None:
             hist += nt.rpg[rows, w]
-        for out, pairs in ((self.plus, cand), (self.minus, minus)):
-            if pairs:
-                out.append(share_unique(torch.cat(
-                    [share_keys(r, s, tids) for r, s in pairs])))
+        if not (cand or minus):
+            return
+        # torch.unique sizes its output from the device's data, so the
+        # span takes in the wait for the window's work
+        with obs.tally_span("engine.share_unique"):
+            for out, pairs in ((self.plus, cand), (self.minus, minus)):
+                if pairs:
+                    out.append(share_unique(torch.cat(
+                        [share_keys(r, s, tids) for r, s in pairs])))
 
     def fold(self) -> None:
         """Merge the share uniques gathered so far into one pair each."""
-        for lst in (self.plus, self.minus):
-            if len(lst) > 1:
+        lsts = [lst for lst in (self.plus, self.minus) if len(lst) > 1]
+        if not lsts:
+            return
+        with obs.tally_span("engine.share_unique"):
+            for lst in lsts:
                 lst[:] = [share_unique(torch.cat([k for k, _ in lst]),
                                        torch.cat([c for _, c in lst]))]
 
@@ -1628,8 +1642,8 @@ def _execute(pl: StreamPlan, device: torch.device,
         attrs = {"backend": backend}
     name = pl.spec.name
     walk = _Walk(pl, device, event_hist)
-    with obs.span("engine.dispatch", model=name, **attrs) as sp, \
-            xprof.session(), xprof.annotate(f"pluss.engine.{name}"):
+    with xprof.session(), \
+            obs.span("engine.dispatch", model=name, **attrs) as sp:
         for ni, si, w_list in slices:
             for lo in range(0, T, step):
                 rows = slice(lo, min(T, lo + step))

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from pluss_torch import obs
 from pluss_torch.config import DEFAULT, MRC_DEDUP_EPS, SamplerConfig
 
 
@@ -73,11 +74,12 @@ def survival_at(rihist: dict, t: np.ndarray) -> np.ndarray:
 def aet_mrc(rihist: dict, cfg: SamplerConfig = DEFAULT) -> np.ndarray:
     """Miss ratio per cache size c = 0..min(max_key, cache entries) — the
     reference's ``_MRC[c]`` (pluss_utils.h:786-802).  Empty -> [1.0]."""
-    if not rihist:
-        return np.array([1.0])
-    if max(rihist.keys()) < 0:
-        return np.array([1.0])
-    return survival_at(rihist, aet_times(rihist, cfg))
+    with obs.span("mrc.aet_mrc"):
+        if not rihist:
+            return np.array([1.0])
+        if max(rihist.keys()) < 0:
+            return np.array([1.0])
+        return survival_at(rihist, aet_times(rihist, cfg))
 
 
 def plateau_of(rihist: dict, mrc: np.ndarray) -> int | None:

@@ -2,8 +2,12 @@
 
 The port's copy of ``pluss.obs``: one substrate (counters / gauges /
 spans / events → an append-only JSONL sink,
-:mod:`pluss_torch.obs.telemetry`), optional ``torch.profiler`` sessions
-and annotations (:mod:`pluss_torch.obs.xprof`, ``PLUSS_XPROF=dir``), the
+:mod:`pluss_torch.obs.telemetry`; while a ``torch.profiler`` records,
+each span is also a ``record_function`` range of its name on the
+profiler's timeline, and work repeated inside a span, such as a
+dispatch's windows, is a ``tally_span``: a range per call, one record
+per enclosing span), optional ``torch.profiler`` sessions
+(:mod:`pluss_torch.obs.xprof`, ``PLUSS_XPROF=dir``), the
 ``stats`` aggregator (:mod:`pluss_torch.obs.stats`), and the serving
 layer's request trace context (:mod:`pluss_torch.obs.tracectx`), SLO
 burn monitor (:mod:`pluss_torch.obs.slo`) and crash flight recorder
@@ -35,5 +39,6 @@ from pluss_torch.obs.telemetry import (  # noqa: F401
     render_prom,
     shutdown,
     span,
+    tally_span,
     trace_event,
 )

@@ -29,6 +29,21 @@ and counters are host wall clocks: none of them synchronizes the CUDA
 device, so a span that does not end at a copy back to the host measures
 the launches, not the device's work.
 
+While a ``torch.profiler`` is recording, every span also opens a
+``torch.profiler.record_function`` range of its own name (:func:`_range`),
+so the profiler's timeline, and a device trace read off it, shows the
+program's spans on the profiler's own clock.  The check reads ``torch``
+from ``sys.modules``: this module imports no torch, and a process that
+never imported it runs no profiler.  The JSONL record is the same either
+way.
+
+Work that repeats many times inside one span, such as the windows of a
+dispatch, opens :func:`tally_span` instead: a profiler range per call, but
+one record per name for each enclosing span, with the summed seconds and
+the number of calls.  The stream then grows with the number of
+operations, not of windows, and a sink's per-record write does not land
+inside the loop it observes.
+
 Inside a serve request's context (:mod:`pluss_torch.obs.tracectx`) spans
 and events carry a ``trace`` stamp naming the request, and
 :func:`trace_event` emits; outside one it emits nothing and records carry
@@ -77,9 +92,46 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+def _range(name: str):
+    """An open ``record_function`` range named ``name`` while a
+    ``torch.profiler`` records, else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _Tally:
+    """A span of work that repeats inside its enclosing span (one window
+    of a dispatch): every call opens its own profiler range, but its
+    record is kept by the enclosing span, one per name, with the calls'
+    summed seconds and their number (attribute ``calls``).  So the stream
+    holds as many records for a run of a hundred windows as of one."""
+
+    __slots__ = ("_tel", "name", "_start", "_rf")
+
+    def __init__(self, tel: "Telemetry", name: str):
+        self._tel = tel
+        self.name = name
+
+    def __enter__(self):
+        self._rf = _range(self.name)
+        self._start = time.monotonic()
+        return self
+
+    def __exit__(self, etype, evalue, tb):
+        dur = time.monotonic() - self._start
+        if self._rf is not None:
+            self._rf.__exit__(etype, evalue, tb)
+        self._tel._tally(self.name, self._start, dur)
+        return False
+
+
 class _Span:
     __slots__ = ("_tel", "name", "attrs", "_start", "_id", "_parent",
-                 "_trace")
+                 "_trace", "_rf", "_tallies", "_outer")
 
     def __init__(self, tel: "Telemetry", name: str, attrs: dict):
         self._tel = tel
@@ -96,6 +148,11 @@ class _Span:
         # under (a batch dispatch re-binding per member still attributes
         # the enclosing span to the lead request it entered with)
         self._trace = tracectx.current()
+        # the tallied spans that close inside this one, by name
+        self._tallies = {}
+        self._outer = getattr(tel._tls, "tallies", None)
+        tel._tls.tallies = self._tallies
+        self._rf = _range(self.name)
         self._start = time.monotonic()
         return self
 
@@ -106,29 +163,21 @@ class _Span:
 
     def __exit__(self, etype, evalue, tb):
         dur = time.monotonic() - self._start
+        if self._rf is not None:
+            self._rf.__exit__(etype, evalue, tb)
         tel = self._tel
         stack = tel._span_stack()
         if stack and stack[-1] == self._id:
             stack.pop()
-        rec = {
-            "ev": "span",
-            "id": self._id,
-            "name": self.name,
-            "t": round(self._start - tel._t0, 6),
-            "dur": round(dur, 6),
-        }
-        if self._parent is not None:
-            rec["parent"] = self._parent
-        if self._trace is not None:
-            rec["trace"] = self._trace
-        if self.attrs:
-            rec["attrs"] = self.attrs
-        if etype is not None:
-            rec["error"] = etype.__name__
-        th = threading.current_thread().name
-        if th != "MainThread":
-            rec["thread"] = th
-        tel._emit(rec)
+        if getattr(tel._tls, "tallies", None) is self._tallies:
+            tel._tls.tallies = self._outer
+        # children record before their parent, as nested spans do
+        for name, (start, total, calls) in self._tallies.items():
+            tel._emit_span(tel._new_id(), name, start, total, self._id,
+                           self._trace, {"calls": calls})
+        tel._emit_span(self._id, self.name, self._start, dur, self._parent,
+                       self._trace, self.attrs,
+                       etype.__name__ if etype is not None else None)
         return False
 
 
@@ -179,6 +228,39 @@ class Telemetry:
         with self._lock:
             self._id += 1
             return self._id
+
+    def _emit_span(self, sid: int, name: str, start: float, dur: float,
+                   parent, trace, attrs: dict, error: str | None = None
+                   ) -> None:
+        rec = {"ev": "span", "id": sid, "name": name,
+               "t": round(start - self._t0, 6), "dur": round(dur, 6)}
+        if parent is not None:
+            rec["parent"] = parent
+        if trace is not None:
+            rec["trace"] = trace
+        if attrs:
+            rec["attrs"] = attrs
+        if error is not None:
+            rec["error"] = error
+        th = threading.current_thread().name
+        if th != "MainThread":
+            rec["thread"] = th
+        self._emit(rec)
+
+    def _tally(self, name: str, start: float, dur: float) -> None:
+        """Add one call of a tallied span to the innermost open span of
+        this thread, or, with none open, record it on its own."""
+        tallies = getattr(self._tls, "tallies", None)
+        if tallies is None:
+            self._emit_span(self._new_id(), name, start, dur, None,
+                            tracectx.current(), {"calls": 1})
+            return
+        got = tallies.get(name)
+        if got is None:
+            tallies[name] = [start, dur, 1]
+        else:
+            got[1] += dur
+            got[2] += 1
 
     def _emit(self, rec: dict) -> None:
         for tap in self._taps:
@@ -257,6 +339,9 @@ class Telemetry:
 
     def span(self, name: str, **attrs) -> _Span:
         return _Span(self, name, attrs)
+
+    def tally_span(self, name: str) -> _Tally:
+        return _Tally(self, name)
 
     # -- snapshots / export -------------------------------------------------
 
@@ -527,6 +612,16 @@ def span(name: str, **attrs):
     if t is None:
         return NOOP_SPAN
     return t.span(name, **attrs)
+
+
+def tally_span(name: str):
+    """A span of work repeated inside an enclosing span (a window of a
+    dispatch), recorded once per name per enclosing span (:class:`_Tally`),
+    or the shared no-op when disabled."""
+    t = _active if _bootstrapped else active()
+    if t is None:
+        return NOOP_SPAN
+    return t.tally_span(name)
 
 
 def counters() -> dict[str, float]:

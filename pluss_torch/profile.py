@@ -48,21 +48,36 @@ from pluss_torch.obs import xprof
 PORT_KERNELS = ("carried_event_hist", "masked_hist", "d24v_")
 
 
+def device_ops(events) -> list[tuple[str, float, int]]:
+    """``(name, device seconds, count)`` of every device operation among
+    the profiler's ``events`` (kernels, copies and memsets), the longest
+    first.  The device-side image of a ``record_function`` range (every
+    telemetry span while a profiler records) is not an operation: its
+    time covers the operations inside it, and is left out."""
+    by: dict[str, list] = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            got = by.setdefault(e.name, [0.0, 0])
+            got[0] += (e.time_range.end - e.time_range.start) / 1e6
+            got[1] += 1
+    ops = [(k, s, c) for k, (s, c) in by.items() if s > 0]
+    ops.sort(key=lambda o: -o[1])
+    return ops
+
+
 def profiled(fn, top: int):
     """``fn()`` under ``torch.profiler``, ending in a device sync: its
     result, wall seconds, device busy seconds (None when the profiler saw
-    no device time), top device operations and the port's kernels among
-    all of them (device seconds and launches by symbol prefix)."""
+    no device time), top device operations (:func:`device_ops`) and the
+    port's kernels among all of them (device seconds and launches by
+    symbol prefix)."""
     with xprof.profiler() as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops = [(e.key, e.self_device_time_total / 1e6, e.count)
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    ops.sort(key=lambda o: -o[1])
+    ops = device_ops(prof.events())
     busy = sum(o[1] for o in ops) if ops else None
     kernels = {}
     for k, s, c in ops:

@@ -30,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from pluss_torch import cri, engine, mrc
+from pluss_torch import cri, engine, mrc, obs
 from pluss_torch.config import DEFAULT, NBINS, SamplerConfig
 from pluss_torch.engine import (SamplerResult, _NestTensors, _sort_window,
                                 merge_share_windows, resolve_device,
@@ -138,73 +138,82 @@ def sampled_run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
         raise ValueError(f"sampling rate must be in (0, 1], got {rate}")
     if mode not in ("uniform", "prefix"):
         raise ValueError(f"unknown sampling mode {mode!r}")
-    dev = resolve_device(device)
-    T = cfg.thread_num
-    rng = np.random.default_rng(seed)
-    hist = np.zeros((T, NBINS), np.float64)
-    share_raw: list[dict] = [dict() for _ in range(T)]
-    pl = _plan_cached(spec, cfg, window_accesses)
-    walked = 0.0
-    for ni in range(len(spec.nests)):
-        np_ = pl.nests[ni]
-        NW = np_.n_windows
-        walker = _Walker(pl, ni, dev, _event_hist)
-        if mode == "prefix":
-            m = min(NW - 1, max(0, round(rate * NW) - 1))
-            last_pos = walker.fresh()
-            outs = [walker.walk(w, last_pos) for w in range(m + 1)]
-            dh = torch.stack([o[0] for o in outs], dim=1).cpu().numpy()
-            walked += float(dh.sum())
-            hist += dh[:, :m].sum(axis=1) + dh[:, m] * (NW - m)
-            for lo, hi, scale in ((0, m, 1.0), (m, m + 1, float(NW - m))):
-                part = merge_share_windows([o[1][0] for o in outs[lo:hi]],
-                                           [o[1][1] for o in outs[lo:hi]], T)
-                walked += _add_share(share_raw, part, scale)
-            continue
-        warm_k = _auto_context(np_, cfg) if context_windows is None \
-            else min(context_windows, NW - 1)
-        nsel = max(1, round(rate * NW))
-        # the JAX package walks T x nsel context-warmed windows at once;
-        # its guard holds here too
-        est = sort_window_bytes(np_, cfg, pl.pos_dtype,
-                                pl.spec.total_lines(cfg)) * T * nsel
-        limit = sort_budget(dev)
-        if est > limit:
-            raise RuntimeError(
-                f"sampling nest {ni}: {nsel} windows x {T} threads need "
-                f"~{est / 2**30:.2f} GiB at once (incl. sort workspace), "
-                f"beyond the {limit / 2**30:.2f} GiB device budget.  Lower "
-                "the rate or shrink window_accesses.")
-        sel = np.sort(rng.choice(NW, nsel, replace=False))
-        scale = NW / nsel
-        dh = torch.zeros((T, NBINS), dtype=torch.int64, device=dev)
-        keys, cnts = [], []
-        for w in sel.tolist():
-            last_pos = walker.fresh()
-            # only the real context windows: the JAX package re-walks
-            # window 0 for the clamped ones, which changes no tail
-            for wc in range(max(0, w - warm_k), w):
-                walker.walk(wc, last_pos, counted=False)
-            h, (k, c) = walker.walk(w, last_pos)
-            dh += h
-            keys.append(k)
-            cnts.append(c)
-        dh = dh.cpu().numpy()
-        hist += dh * scale
-        # every counted access lands in exactly one bucket (event, cold or
-        # share), so the unscaled masses measure the counted fraction ...
-        walked += float(dh.sum())
-        walked += _add_share(share_raw, merge_share_windows(keys, cnts, T),
-                             scale)
-        # ... and the context walks are walked work too
-        if warm_k:
-            counts = _window_counts(np_, cfg, spec.nests[ni])
+    with obs.span("sampling.run"):
+        dev = resolve_device(device)
+        T = cfg.thread_num
+        rng = np.random.default_rng(seed)
+        hist = np.zeros((T, NBINS), np.float64)
+        share_raw: list[dict] = [dict() for _ in range(T)]
+        pl = _plan_cached(spec, cfg, window_accesses)
+        walked = 0.0
+        for ni in range(len(spec.nests)):
+            np_ = pl.nests[ni]
+            NW = np_.n_windows
+            walker = _Walker(pl, ni, dev, _event_hist)
+            if mode == "prefix":
+                m = min(NW - 1, max(0, round(rate * NW) - 1))
+                last_pos = walker.fresh()
+                outs = [walker.walk(w, last_pos) for w in range(m + 1)]
+                dh = torch.stack([o[0] for o in outs],
+                                 dim=1).cpu().numpy()
+                walked += float(dh.sum())
+                hist += dh[:, :m].sum(axis=1) + dh[:, m] * (NW - m)
+                for lo, hi, scale in ((0, m, 1.0),
+                                      (m, m + 1, float(NW - m))):
+                    part = merge_share_windows(
+                        [o[1][0] for o in outs[lo:hi]],
+                        [o[1][1] for o in outs[lo:hi]], T)
+                    walked += _add_share(share_raw, part, scale)
+                continue
+            warm_k = _auto_context(np_, cfg) if context_windows is None \
+                else min(context_windows, NW - 1)
+            nsel = max(1, round(rate * NW))
+            # the JAX package walks T x nsel context-warmed windows at
+            # once; its guard holds here too
+            est = sort_window_bytes(np_, cfg, pl.pos_dtype,
+                                    pl.spec.total_lines(cfg)) * T * nsel
+            limit = sort_budget(dev)
+            if est > limit:
+                raise RuntimeError(
+                    f"sampling nest {ni}: {nsel} windows x {T} threads "
+                    f"need ~{est / 2**30:.2f} GiB at once (incl. sort "
+                    f"workspace), beyond the {limit / 2**30:.2f} GiB device "
+                    "budget.  Lower the rate or shrink window_accesses.")
+            sel = np.sort(rng.choice(NW, nsel, replace=False))
+            scale = NW / nsel
+            dh = torch.zeros((T, NBINS), dtype=torch.int64, device=dev)
+            keys, cnts = [], []
             for w in sel.tolist():
-                walked += float(counts[:, max(0, w - warm_k):w].sum())
-    return SamplerResult(
-        noshare_dense=hist, share_raw=share_raw, share_ratio=T - 1,
-        max_iteration_count=pl.total_count,
-        sampled_fraction=walked / pl.total_count if pl.total_count else 0.0)
+                last_pos = walker.fresh()
+                # only the real context windows: the JAX package re-walks
+                # window 0 for the clamped ones, which changes no tail
+                ctx = range(max(0, w - warm_k), w)
+                if ctx:
+                    with obs.tally_span("sampling.context"):
+                        for wc in ctx:
+                            walker.walk(wc, last_pos, counted=False)
+                h, (k, c) = walker.walk(w, last_pos)
+                dh += h
+                keys.append(k)
+                cnts.append(c)
+            dh = dh.cpu().numpy()
+            hist += dh * scale
+            # every counted access lands in exactly one bucket (event, cold
+            # or share), so the unscaled masses measure the counted
+            # fraction ...
+            walked += float(dh.sum())
+            walked += _add_share(share_raw,
+                                 merge_share_windows(keys, cnts, T), scale)
+            # ... and the context walks are walked work too
+            if warm_k:
+                counts = _window_counts(np_, cfg, spec.nests[ni])
+                for w in sel.tolist():
+                    walked += float(counts[:, max(0, w - warm_k):w].sum())
+        return SamplerResult(
+            noshare_dense=hist, share_raw=share_raw, share_ratio=T - 1,
+            max_iteration_count=pl.total_count,
+            sampled_fraction=walked / pl.total_count if pl.total_count
+            else 0.0)
 
 
 def mrc_l2_error(a: np.ndarray, b: np.ndarray) -> float:

@@ -1041,7 +1041,6 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
     # the int32 ids the kernels read per staged batch (the wire-vs-device
     # byte ratio of `stats` reads off it; a counter only, not in timing)
     device_bytes = 0
-    obs_on = obs.enabled()
     cuda = dev.type == "cuda"
     main = torch.cuda.current_stream(dev) if cuda else None
     side = torch.cuda.Stream(dev) if cuda else None
@@ -1075,9 +1074,12 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
         ids.record_stream(main)
         return ids, ready, n_lines_b, snap_b, nbytes
 
-    with obs.span("trace.replay_file", refs=n, window=window,
-                  batch_windows=bw, resume_batch=b0, feed_workers=workers,
-                  wire=wirefmt) as sp, xprof.session(), src as it:
+    with xprof.session(), obs.span(
+            "trace.replay_file", refs=n, window=window, batch_windows=bw,
+            resume_batch=b0, feed_workers=workers, wire=wirefmt) as sp, \
+            src as it:
+        # read inside the session: a profiled replay arms one
+        obs_on = obs.enabled()
         stream = iter(it)
         pending: deque = deque()
         exhausted = False
@@ -1138,7 +1140,7 @@ def replay_file(path: str, fmt: str = "u64", cls: int = 64,
                         obs.counter_add("residency.fallback")
                     else:
                         acc[b].view(batch, 3).copy_(_u24_bytes(ids_dev))
-                with xprof.annotate("pluss.trace.batch"):
+                with obs.tally_span("trace.batch"):
                     batch_fn(last_pos, hist, b * batch, ids_dev, n, pdt,
                              _kernels.histogram)
                 del ids_dev
@@ -1754,8 +1756,7 @@ def replay_staged(resident: torch.Tensor, n_lines: int, n_run: int,
     batch_fn = _batch_fn(segmented, window)
     dev = resident.device
     t0 = time.perf_counter()
-    with obs.span("trace.replay_staged", refs=n_run), xprof.session(), \
-            xprof.annotate("pluss.trace.replay_staged"):
+    with xprof.session(), obs.span("trace.replay_staged", refs=n_run):
         last_pos = torch.full((n_lines + 1,), -1, dtype=pdt, device=dev)
         hist = torch.zeros(NBINS, dtype=torch.int64, device=dev)
         for b in range(n_batches):

@@ -8,9 +8,11 @@ In order of importance:
 3. streams: a port stream passes both packages' ``stats --check``, the
    port's ``stats`` prints byte for byte what ``pluss.cli stats`` prints on
    streams of either package, and ``--check`` rejects what JAX's rejects;
-4. parity: the same run through both packages records the same counter,
-   gauge and span names (apart from the JAX-only compile counters listed
-   below) and the same counts where the counts are deterministic.
+4. parity: the same run through both packages records the same counter
+   and gauge names (apart from the JAX-only compile counters listed
+   below), every span the JAX package records (and the port-only spans
+   listed below), and the same counts where the counts are
+   deterministic.
 
 Sizes are small: n <= 16, traces of at most 2^16 refs.
 """
@@ -27,14 +29,18 @@ import pytest
 import torch
 
 from pluss import cli as jax_cli
+from pluss import cri as jax_cri
 from pluss import engine as jax_engine
 from pluss import models as jax_models
+from pluss import mrc as jax_mrc
 from pluss import obs as jax_obs
 from pluss import residency as jax_residency
+from pluss import sampling as jax_sampling
 from pluss import trace as jax_trace
 from pluss.config import SamplerConfig as JaxConfig
 from pluss.obs import stats as jax_stats
-from pluss_torch import cli, engine, obs, residency, trace
+from pluss_torch import cli, cri, engine, mrc, obs, residency, sampling, \
+    trace
 from pluss_torch.config import SamplerConfig
 from pluss_torch.obs import stats as stats_mod
 from pluss_torch.obs import telemetry as tel
@@ -51,6 +57,15 @@ KW = {"cls": 8}
 #: compile registry's in-flight gauge have no torch counterpart (the
 #: port's kernels build once per process, outside any run)
 JAX_ONLY = {"engine.compiles", "engine.compile_s", "engine.compile_inflight"}
+
+#: spans only the port records: the window kinds, the plan's template
+#: build, the sampler's walks, the MRC and the replay's batches.  They
+#: exist to name the port's work on the profiler's timeline and in its
+#: benchmark's per-layer metrics, which the JAX package has no use for
+PORT_ONLY_SPANS = {"engine.plan.template", "engine.sort_window",
+                   "engine.template_window", "engine.share_unique",
+                   "sampling.run", "sampling.context", "mrc.aet_mrc",
+                   "trace.batch"}
 
 
 @pytest.fixture(autouse=True)
@@ -111,19 +126,243 @@ def test_xprof_disabled_is_noop(monkeypatch):
     monkeypatch.delenv("PLUSS_XPROF", raising=False)
     assert not xprof.enabled()
     with xprof.session():
-        with xprof.annotate("pluss.test"):
-            pass
+        assert not torch.autograd._profiler_enabled()
+        assert not obs.enabled()
 
 
 def test_xprof_writes_a_chrome_trace(tmp_path, monkeypatch):
+    """``PLUSS_XPROF`` arms a memory-only telemetry session for the
+    profiled dispatch, so the trace names it by its span; the session
+    closes with the profiler."""
     monkeypatch.setenv("PLUSS_XPROF", str(tmp_path / "prof"))
     res = engine.run(carried("gemm", 8), SamplerConfig(**KW), device="cpu")
     assert res.max_iteration_count > 0
+    assert not obs.enabled()
     out = os.listdir(tmp_path / "prof")
     assert len(out) == 1 and out[0].endswith(".json")
     with open(tmp_path / "prof" / out[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "pluss.engine.gemm8" in names
+    assert {"engine.dispatch", "engine.share_unique"} <= names
+
+
+# ---------------------------------------------------------------------------
+# the spans on the profiler's timeline
+
+#: the port's own spans, each a profiler range while one records
+PROGRAM_RANGES = {"engine.dispatch", "engine.finalize", "engine.plan",
+                  "engine.plan.template", "engine.sort_window",
+                  "engine.template_window", "engine.share_unique",
+                  "cri.distribute", "mrc.aet_mrc", "sampling.run",
+                  "sampling.context"}
+
+
+def _profiled_prediction(spec, cfg, sampled=False):
+    """One prediction (plan, walk, CRI, MRC) on the CPU under a CPU
+    ``torch.profiler``: its histograms, MRC and the profiler's events.
+    ``sampled``: every window of a 200-access window split, each after
+    its context."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine._plan_cached.cache_clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = sampling.sampled_run(spec, cfg, 1.0, 3, 200, device="cpu") \
+            if sampled else engine.run(spec, cfg, device="cpu")
+        curve = mrc.aet_mrc(cri.distribute(
+            res.noshare_list(), res.share_list(), cfg.thread_num), cfg)
+    return res, curve, prof.events()
+
+
+def _under(e):
+    """Names of the ranges and operators around profiler event ``e``."""
+    out, h = set(), e.cpu_parent
+    while h is not None:
+        out.add(h.name)
+        h = h.cpu_parent
+    return out
+
+
+@pytest.mark.parametrize("model,ranges,host", [
+    ("cholesky", {"engine.sort_window"}, set()),
+    ("gemm", {"engine.template_window"}, {"engine.plan.template"})])
+def test_spans_are_profiler_ranges_around_their_ops(tmp_path, model,
+                                                    ranges, host):
+    """With telemetry on, a profiled prediction shows the window kinds'
+    spans as ranges around the operators they launch; with it off, no
+    program range.  Histograms and MRC are the same either way."""
+    spec, cfg = carried(model, 16), SamplerConfig(**KW)
+    plain = engine.run(spec, cfg, device="cpu")
+    off, curve_off, ev_off = _profiled_prediction(spec, cfg)
+    assert obs.span("engine.sort_window") is NOOP_SPAN
+    assert not {e.name for e in ev_off} & PROGRAM_RANGES
+    obs.configure(str(tmp_path / "ev.jsonl"))
+    on, curve_on, ev_on = _profiled_prediction(spec, cfg)
+    obs.shutdown()
+    for res in (off, on):
+        np.testing.assert_array_equal(plain.noshare_dense, res.noshare_dense)
+        assert plain.share_raw == res.share_raw
+    np.testing.assert_array_equal(curve_off, curve_on)
+    want = ranges | host | {"engine.plan", "engine.dispatch",
+                            "engine.share_unique", "engine.finalize",
+                            "cri.distribute", "mrc.aet_mrc"}
+    assert want <= {e.name for e in ev_on}
+    for r in ranges | {"engine.share_unique"}:
+        assert any(e.name.startswith("aten::") and r in _under(e)
+                   for e in ev_on), r
+    # every sort and gather of the window sort lies inside its range
+    sorts = [e for e in ev_on if e.name in ("aten::sort", "aten::gather")
+             and "aten::_unique2" not in _under(e)]
+    if model == "cholesky":
+        assert sorts and all("engine.sort_window" in _under(e)
+                             for e in sorts)
+    # the JSONL stream records each window kind once per enclosing span,
+    # with as many calls as the profiler saw ranges
+    recs = [r for r in _events(str(tmp_path / "ev.jsonl"))
+            if r.get("ev") == "span"]
+    assert {r["name"] for r in recs} == want
+    for kind in ranges | {"engine.share_unique"}:
+        mine = [r for r in recs if r["name"] == kind]
+        assert len({r["parent"] for r in mine}) == len(mine)
+        assert sum(r["attrs"]["calls"] for r in mine) == sum(
+            e.name == kind for e in ev_on) >= len(mine)
+
+
+@pytest.mark.parametrize("model", ["cholesky", "gemm"])
+def test_window_spans_record_once_per_dispatch(tmp_path, model):
+    """The stream of a prediction holds as many records with four
+    windows as with one: each window kind is one record under its dispatch, with
+    its calls counted and its seconds summed."""
+    cfg = SamplerConfig(**KW)
+
+    def records(wa):
+        engine._plan_cached.cache_clear()
+        ev = str(tmp_path / f"ev{wa}.jsonl")
+        obs.configure(ev)
+        engine.run(carried(model, 64), cfg, device="cpu",
+                   window_accesses=wa)
+        obs.shutdown()
+        return [r for r in _events(ev) if r.get("ev") == "span"]
+
+    small, large = records(None), records(200)   # one window, four
+    assert [r["name"] for r in small] == [r["name"] for r in large]
+    disp = {r["id"]: r for r in large if r["name"] == "engine.dispatch"}
+    tallied = [r for r in large if r["name"] in
+               ("engine.sort_window", "engine.template_window",
+                "engine.share_unique")]
+    assert tallied and all(r["parent"] in disp for r in tallied)
+
+    def calls(recs):
+        return sum(r["attrs"]["calls"] for r in recs
+                   if r["name"] == "engine.share_unique")
+    assert calls(large) >= 4 > calls(small) > 0
+    for r in tallied:
+        assert 0 <= r["dur"] <= disp[r["parent"]]["dur"] + 1e-6
+
+
+def test_tally_span_outside_a_span_records_itself(tmp_path):
+    """A tallied span with no enclosing span is a record of its own; one
+    inside a span that is itself inside another goes to the innermost."""
+    obs.configure(str(tmp_path / "ev.jsonl"))
+    assert tel.tally_span("w") is not NOOP_SPAN
+    with obs.tally_span("w"):
+        pass
+    with obs.span("outer"):
+        with obs.tally_span("w"):
+            pass
+        with obs.span("inner"):
+            for _ in range(3):
+                with obs.tally_span("w"):
+                    pass
+        with obs.tally_span("w"):
+            pass
+    obs.shutdown()
+    recs = [r for r in _events(str(tmp_path / "ev.jsonl"))
+            if r.get("ev") == "span"]
+    ids = {r["name"]: r["id"] for r in recs if r["name"] != "w"}
+    got = {r["attrs"]["calls"]: r.get("parent")
+           for r in recs if r["name"] == "w"}
+    assert got == {1: None, 3: ids["inner"], 2: ids["outer"]}
+    assert obs.tally_span("w") is NOOP_SPAN
+
+
+def test_sampler_spans_name_its_walks(tmp_path):
+    """The sampler's context walks are sort windows inside
+    ``sampling.context``, its counted walks sort windows outside it, all
+    inside ``sampling.run``."""
+    spec, cfg = carried("cholesky", 24), SamplerConfig(**KW)
+    off, curve_off, _ = _profiled_prediction(spec, cfg, sampled=True)
+    obs.configure(str(tmp_path / "ev.jsonl"))
+    on, curve_on, ev = _profiled_prediction(spec, cfg, sampled=True)
+    obs.shutdown()
+    np.testing.assert_array_equal(off.noshare_dense, on.noshare_dense)
+    assert off.share_raw == on.share_raw
+    np.testing.assert_array_equal(curve_off, curve_on)
+    ctx = [e for e in ev if e.name == "engine.sort_window"
+           and "sampling.context" in _under(e)]
+    counted = [e for e in ev if e.name == "engine.sort_window"
+               and "sampling.context" not in _under(e)]
+    assert ctx and counted
+    assert all("sampling.run" in _under(e) for e in ctx + counted)
+
+
+def test_cli_profile_writes_program_ranges(tmp_path):
+    """``--profile DIR`` arms a memory-only session for the timed run:
+    its Chrome trace holds the program's spans, and telemetry is off
+    again afterwards."""
+    prof = tmp_path / "prof"
+    rc, _ = _cli_out(cli.main, ["acc", "--cpu", "--backends", "vmap",
+                                "--model", "cholesky", "--n", "16",
+                                "--profile", str(prof)])
+    assert rc == 0 and not obs.enabled()
+    (trace_file,) = prof.iterdir()
+    names = {e.get("name")
+             for e in json.loads(trace_file.read_text())["traceEvents"]}
+    assert {"engine.dispatch", "engine.sort_window", "engine.share_unique",
+            "engine.finalize", "cri.distribute"} <= names
+
+
+def test_a_profiler_that_fails_to_start_leaves_no_session(tmp_path,
+                                                          monkeypatch):
+    """A profiler that cannot start leaves no armed session behind, and
+    the region runs all the same."""
+    def broken():
+        raise RuntimeError("no profiler here")
+    monkeypatch.setattr(xprof, "profiler", broken)
+    ran = []
+    with xprof.chrome_trace(str(tmp_path / "prof")):
+        ran.append(obs.enabled())
+    assert ran == [False] and not obs.enabled()
+
+
+def test_an_armed_session_leaves_a_configured_one_alone(tmp_path):
+    obs.configure(str(tmp_path / "ev.jsonl"))
+    t = tel.active()
+    with xprof.chrome_trace(str(tmp_path / "prof")):
+        with obs.span("outer"):
+            pass
+    assert tel.active() is t
+    obs.shutdown()
+    assert "outer" in {r.get("name")
+                       for r in _events(str(tmp_path / "ev.jsonl"))}
+
+
+def test_profile_busy_leaves_out_range_images():
+    """``profile.device_ops`` sums kernels, copies and memsets; the
+    device image of a ``record_function`` range is not one."""
+    from types import SimpleNamespace as NS
+
+    from pluss_torch.profile import device_ops
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(name, dev, us, user=False):
+        return NS(name=name, device_type=dev, is_user_annotation=user,
+                  time_range=NS(start=0, end=us))
+    events = [ev("engine.sort_window", cuda, 9000, user=True),
+              ev("engine.sort_window", cpu, 9500),
+              ev("radixSort", cuda, 3000), ev("radixSort", cuda, 1000),
+              ev("Memset (Device)", cuda, 500), ev("aten::sort", cpu, 4000)]
+    assert device_ops(events) == [("radixSort", 0.004, 2),
+                                  ("Memset (Device)", 0.0005, 1)]
 
 
 # ---------------------------------------------------------------------------
@@ -347,8 +586,9 @@ def test_trace_and_follow_views_match_jax(tmp_path):
 def streams(tmp_path_factory):
     """One run of the same work through each package, each with its own
     telemetry stream: GEMM-16 planned through a disk plan cache (a miss,
-    then a hit), a trace replay, a pack and a resident stage-through
-    followed by a warm hit."""
+    then a hit), its CRI and MRC, a sampled cholesky-24 (every window of
+    a 200-access split, each after its context), a trace replay, a pack
+    and a resident stage-through followed by a warm hit."""
     out = {}
     saved = {k: os.environ.get(k) for k in ("PLUSS_NO_PLAN_CACHE",
                                            "PLUSS_PLAN_CACHE_DIR")}
@@ -366,17 +606,28 @@ def streams(tmp_path_factory):
                 spec, cfg, dk = jax_models.REGISTRY["gemm"](16), \
                     JaxConfig(**KW), {}
                 clear = jax_engine.compiled.cache_clear
+                ri_mod, mrc_mod = jax_cri, jax_mrc
+                sampled = lambda: jax_sampling.sampled_run(
+                    jax_models.REGISTRY["cholesky"](24), cfg, 1.0, 3,
+                    window_accesses=200)
             else:
                 o, eng, tr, res_mod = obs, engine, trace, residency
                 spec, cfg, dk = carried("gemm", 16), SamplerConfig(**KW), \
                     {"device": "cpu"}
                 clear = engine._plan_cached.cache_clear
+                ri_mod, mrc_mod = cri, mrc
+                sampled = lambda: sampling.sampled_run(
+                    carried("cholesky", 24), cfg, 1.0, 3,
+                    window_accesses=200, device="cpu")
             o.configure(ev)
             try:
                 clear()
                 r1 = eng.run(spec, cfg, **dk)
                 clear()
                 eng.run(spec, cfg, **dk)
+                curve = mrc_mod.aet_mrc(ri_mod.distribute(
+                    r1.noshare_list(), r1.share_list(), cfg.thread_num), cfg)
+                est = sampled()
                 rep = tr.replay_file(tf, **tk, **dk)
                 tr.pack_file(tf, tf + ".pack", **tk)
                 res_mod.reset()
@@ -388,7 +639,8 @@ def streams(tmp_path_factory):
                 o.shutdown()
                 clear()
             out[name] = {"ev": ev, "counters": c, "gauges": g,
-                         "result": r1, "replay": rep}
+                         "result": r1, "replay": rep, "curve": curve,
+                         "sampled": est}
     finally:
         for k, v in saved.items():
             os.environ.pop(k, None)
@@ -402,6 +654,9 @@ def test_results_of_the_parity_run_agree(streams):
     np.testing.assert_array_equal(p["result"].noshare_dense,
                                   j["result"].noshare_dense)
     np.testing.assert_array_equal(p["replay"].hist, j["replay"].hist)
+    np.testing.assert_array_equal(p["curve"], j["curve"])
+    np.testing.assert_array_equal(p["sampled"].noshare_dense,
+                                  j["sampled"].noshare_dense)
 
 
 def test_counter_gauge_and_span_names_match_jax(streams):
@@ -414,10 +669,11 @@ def test_counter_gauge_and_span_names_match_jax(streams):
     def spans(ev):
         return {r["name"] for r in _events(ev) if r.get("ev") == "span"}
 
-    assert spans(p["ev"]) == spans(j["ev"])
+    assert spans(p["ev"]) >= spans(j["ev"])
+    assert spans(p["ev"]) - spans(j["ev"]) == PORT_ONLY_SPANS
     assert {"engine.plan", "engine.dispatch", "engine.finalize",
-            "trace.replay_file", "trace.pack_file", "trace.replay_staged"} \
-        <= spans(p["ev"])
+            "trace.replay_file", "trace.pack_file", "trace.replay_staged",
+            "cri.distribute"} <= spans(j["ev"])
 
 
 def test_deterministic_counts_match_jax(streams):
