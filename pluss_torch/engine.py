@@ -39,7 +39,8 @@ Each window takes one of two paths:
 
 The chunk->thread map is data (the owned-chunk matrix): static
 round-robin, an explicit (dynamic FIFO) assignment, or the
-``setStartPoint`` resume.  The host plan is numpy, memoized per process
+``setStartPoint`` resume.  The host plan is numpy (its window template one
+native walk, ``csrc/window_template.cpp``), memoized per process
 (:func:`_plan_cached`) and, for templates and overlays, on disk
 (``PLUSS_PLAN_CACHE_DIR``).  :func:`run` places the device part on CUDA
 unless the caller asks for the CPU; a run whose concurrent sort windows
@@ -60,7 +61,7 @@ import uuid
 import numpy as np
 import torch
 
-from pluss_torch import obs, plancache, rowpriv, sweepgroup
+from pluss_torch import native, obs, plancache, rowpriv, sweepgroup
 from pluss_torch.config import DEFAULT, NBINS, SHARE_CAP, SamplerConfig
 from pluss_torch.obs import xprof
 from pluss_torch.ops import build
@@ -96,8 +97,8 @@ from pluss_torch.spec import (
 #: default accesses per window (per simulated thread)
 WINDOW_TARGET = 1 << 23
 
-#: largest window the plan-time template analysis will host-lexsort; bigger
-#: windows take the device sort path
+#: largest window the plan-time template analysis will walk on the host;
+#: bigger windows take the device sort path
 MAX_TEMPLATE_WINDOW = 1 << 29
 
 #: sort-window memory budget when the run is on the CPU (the JAX package's
@@ -113,7 +114,8 @@ def _plan_cache_salt() -> str:
     or overlay logic invalidates every cached artifact."""
     h = hashlib.sha256()
     for name in ("engine.py", "overlay.py", "spec.py", "sched.py",
-                 "config.py", os.path.join("ops", "reuse.py")):
+                 "config.py", os.path.join("ops", "reuse.py"),
+                 os.path.join("csrc", "window_template.cpp")):
         with open(os.path.join(_HERE, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -351,33 +353,6 @@ def _owned_matrix(sched: ChunkSchedule, T: int,
     return out
 
 
-def _np_ref_window(fr: FlatRef, np_rounds: int, cfg: SamplerConfig, sched,
-                   owned_row: np.ndarray, r0: int, line_base: int):
-    """Host (numpy) enumeration of one ref over rounds [r0, r0+np_rounds) of
-    one thread — the template's input.  Omits the nest_base offset: a
-    constant shift of every pos cannot change a lexsort."""
-    CS = cfg.chunk_size
-    shape = (np_rounds, CS) + fr.trips[1:]
-    nd = len(shape)
-
-    def iota(axis):
-        return np.arange(shape[axis], dtype=np.int64).reshape(
-            (1,) * axis + (-1,) + (1,) * (nd - axis - 1))
-
-    r, p = iota(0), iota(1)
-    g = owned_row[r0 + r] * CS + p
-    pos = ((r0 + r) * CS + p) * fr.pos_strides[0] + fr.offset
-    addr = fr.ref.addr_base + fr.addr_coefs[0] * (sched.start + g * sched.step)
-    for l in range(1, len(fr.trips)):
-        idx = iota(l + 1)
-        pos = pos + idx * fr.pos_strides[l]
-        if fr.addr_coefs[l]:
-            addr = addr + fr.addr_coefs[l] * (fr.starts[l] + idx * fr.steps[l])
-    line = line_base + addr * cfg.ds // cfg.cls
-    line, pos = np.broadcast_to(line, shape), np.broadcast_to(pos, shape)
-    return line.reshape(-1), pos.reshape(-1)
-
-
 def _split_ref_groups(refs, sched, cfg: SamplerConfig):
     """Partition refs BY ARRAY into (template-eligible, sort-path) groups.
 
@@ -407,57 +382,28 @@ def _clean_windows(owned: np.ndarray, W: int, NW: int, CS: int,
 
 
 def _build_template(refs, W, cfg, sched, owned, clean, bases, array_index,
-                    body: int) -> WindowTemplate | None:
-    """Analyze the first clean window on the host; None if none is clean."""
+                    body: int, sp=obs.NOOP_SPAN) -> WindowTemplate | None:
+    """Analyze the first clean window on the host; None if none is clean.
+
+    One native pass over the window's positions
+    (``csrc/window_template.cpp``): every access has a position of its
+    own, so the walk in position order with a per-line last-position table
+    gives each line's accesses in order with no sort.  ``sp`` takes the
+    accesses walked (``entries``), the threads that walked them
+    (``threads``) and the head count (``heads``)."""
     t_w = np.argwhere(clean)
     if len(t_w) == 0:
         return None
     t0, w0 = int(t_w[0, 0]), int(t_w[0, 1])
-    lines, poss, spans, dlines = [], [], [], []
-    for fr in refs:
-        line, pos = _np_ref_window(fr, W, cfg, sched, owned[t0], w0 * W,
-                                   bases[array_index(fr.ref.array)])
-        # line shift per unit chunk offset; integral by _split_ref_groups
-        d = fr.addr_coefs[0] * sched.step * cfg.chunk_size * cfg.ds
-        lines.append(line)
-        poss.append(pos)
-        spans.append(np.full(line.shape, fr.ref.share_span or 0, np.int32))
-        dlines.append(np.full(line.shape, d // cfg.cls, np.int32))
-    line, pos = np.concatenate(lines), np.concatenate(poss)
-    span, dline = np.concatenate(spans), np.concatenate(dlines)
-    order = np.lexsort((pos, line))
-    line, pos, span, dline = line[order], pos[order], span[order], dline[order]
-
-    same = line[1:] == line[:-1]
-    local = np.concatenate([[False], same])          # has an in-window prev
-    headm = ~local
-    tailm = ~np.concatenate([same, [False]])
-    prev = np.concatenate([[0], pos[:-1]])
-    reuse = np.where(local, pos - prev, 0)
-    share = local & share_mask(reuse, span)
-    evt = local & ~share
-    # slot 1+e for reuse in [2^e, 2^{e+1}): frexp's exponent is exactly 1+e
-    slots = np.frexp(reuse[evt].astype(np.float64))[1].astype(np.int64)
-    local_hist = np.bincount(slots, minlength=NBINS).astype(np.int64)
-    share_vals, share_cnts = np.unique(reuse[share], return_counts=True)
-    head_span = span[headm]
-    return WindowTemplate(
-        t0=t0,
-        w0=w0,
-        unit_w=W * cfg.thread_num,
-        pos_shift=W * cfg.chunk_size * body,
-        local_hist=local_hist,
-        share_vals=share_vals.astype(np.int64),
-        share_cnts=share_cnts.astype(np.int64),
-        head_line=line[headm].astype(np.int32),
-        head_pos=pos[headm],
-        head_span=head_span,
-        head_dline=dline[headm],
-        hs_idx=np.nonzero(head_span > 0)[0].astype(np.int32),
-        tail_line=line[tailm].astype(np.int32),
-        tail_pos=pos[tailm],
-        tail_dline=dline[tailm],
-    )
+    # line shift per unit chunk offset; integral by _split_ref_groups
+    dlines = [fr.addr_coefs[0] * sched.step * cfg.chunk_size * cfg.ds
+              // cfg.cls for fr in refs]
+    arrays, entries, threads = native.template_builder()(
+        refs, [bases[array_index(fr.ref.array)] for fr in refs], dlines,
+        owned[t0], w0 * W, W, sched, cfg, NBINS)
+    sp.set(entries=entries, threads=threads, heads=len(arrays["head_line"]))
+    return WindowTemplate(t0=t0, w0=w0, unit_w=W * cfg.thread_num,
+                          pos_shift=W * cfg.chunk_size * body, **arrays)
 
 
 def _tri_buckets(refs, owned: np.ndarray, sched, cfg: SamplerConfig,
@@ -712,7 +658,7 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
         if build_templates and asg is None and not tri \
                 and not nest_has_varying_start(nest) \
                 and W * cfg.chunk_size * body <= MAX_TEMPLATE_WINDOW:
-            with obs.span("engine.plan.template"):
+            with obs.span("engine.plan.template") as sp:
                 clean = _clean_windows(owned, W, NW, cfg.chunk_size,
                                        sched.trip)
                 if start_point is None:
@@ -723,7 +669,7 @@ def plan(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
                     tpl = cached["tpl"] if cached is not None else \
                         _build_template(tpl_refs, W, cfg, sched, owned,
                                         clean, spec.line_bases(cfg),
-                                        spec.array_index, body)
+                                        spec.array_index, body, sp)
                     if tpl is not None:
                         var_refs = split_var
         overlays: tuple = ()

@@ -1,5 +1,5 @@
-"""The port's native host code: the C++ sampler runtime and the trace feed's
-line mapper, bound with ctypes.
+"""The port's native host code: the C++ sampler runtime, the trace feed's
+line mapper and the plan's window template, bound with ctypes.
 
 The runtime (``pluss_torch/cpp``: ``pluss_rt.hpp``, ``pluss_rt.cpp``,
 ``capi.cpp``, ``main.cpp``) is an independent sampler on the host: it
@@ -15,8 +15,9 @@ compiler into ``pluss_torch/_build/`` (:mod:`pluss_torch.ops.build`);
 build raises; this is a host oracle, not a device path, so nothing here
 runs on the card.
 
-The line mapper (:func:`line_mapper`) is ``csrc/map_lines.cpp``, a library
-of its own.
+The line mapper (:func:`line_mapper`) is ``csrc/map_lines.cpp`` and the
+window template (:func:`template_builder`, the plan's analysis of a clean
+window) ``csrc/window_template.cpp``, each a library of its own.
 """
 
 from __future__ import annotations
@@ -131,6 +132,100 @@ def line_mapper():
         return out if ok else None
 
     return map_lines
+
+
+#: the window template's arrays: name -> dtype, in the emit call's order
+TEMPLATE_ARRAYS = (("local_hist", np.int64), ("share_vals", np.int64),
+                   ("share_cnts", np.int64), ("head_line", np.int32),
+                   ("head_pos", np.int64), ("head_span", np.int32),
+                   ("head_dline", np.int32), ("hs_idx", np.int32),
+                   ("tail_line", np.int32), ("tail_pos", np.int64),
+                   ("tail_dline", np.int32))
+
+
+#: most threads one template build walks with: on an 8-core H100 host 4
+#: threads take GEMM-1024's builds from 0.26 s to 0.10-0.11 s a schedule
+#: and 8 only to 0.09 s, and four planners at once plan no faster at 8
+#: than at 4 (PERF.md), so a cold plan leaves half of such a host to the
+#: device loop and to other planners beside it
+TEMPLATE_THREADS = 4
+
+
+@functools.cache
+def template_builder():
+    """``build(refs, line_bases, dlines, owned_row, r0, W, sched, cfg,
+    nbins) -> (arrays, entries, threads)``: the window template of one
+    thread's window of rounds ``[r0, r0 + W)``
+    (``csrc/window_template.cpp``).
+
+    ``refs`` are the template's :class:`~pluss_torch.spec.FlatRef`\\ s of a
+    rectangular nest, ``line_bases`` and ``dlines`` their arrays' line
+    bases and line shifts per unit, ``owned_row`` the thread's row of
+    chunk ids.  ``arrays`` maps each name of :data:`TEMPLATE_ARRAYS` to its
+    array; ``entries`` counts the accesses walked and ``threads`` the
+    threads that walked them, at most :data:`TEMPLATE_THREADS` and the
+    cores this process may run on; the template is the same whatever their
+    number.  Positions omit the nest's base clock.  Raises ``RuntimeError``
+    when two accesses share a position.  Builds the library on the first
+    call and raises ``RuntimeError`` if that fails.
+    """
+    lib = _ops.load("window_template")
+    fn = lib.pluss_torch_window_template
+    fn.restype = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_void_p] * 5 \
+        + [ctypes.c_longlong] * 9 + [ctypes.c_void_p, ctypes.c_char_p]
+    emit = lib.pluss_torch_window_template_emit
+    emit.restype = None
+    emit.argtypes = [ctypes.c_void_p] * (1 + len(TEMPLATE_ARRAYS))
+    free = lib.pluss_torch_window_template_free
+    free.restype = None
+    free.argtypes = [ctypes.c_void_p]
+
+    def build(refs, line_bases, dlines, owned_row: np.ndarray, r0: int,
+              W: int, sched, cfg: SamplerConfig, nbins: int):
+        if not len(refs) == len(line_bases) == len(dlines):
+            raise ValueError(f"{len(refs)} refs, {len(line_bases)} line "
+                             f"bases, {len(dlines)} line shifts")
+        meta, levels = [], []
+        for fr, lb in zip(refs, line_bases):
+            rows = (fr.trips, fr.pos_strides, fr.addr_coefs, fr.starts,
+                    fr.steps)
+            if len({len(r) for r in rows}) != 1:
+                raise ValueError(f"ref {fr.ref.name}: levels of unequal "
+                                 f"length {[len(r) for r in rows]}")
+            meta += [len(fr.trips), fr.offset, fr.ref.addr_base, lb]
+            for row in zip(*rows):
+                levels += row
+        meta = np.array(meta, np.int64)
+        levels = np.array(levels or [0], np.int64)
+        span = np.array([fr.ref.share_span or 0 for fr in refs], np.int32)
+        dline = np.array(dlines, np.int32)
+        chunks = np.ascontiguousarray(owned_row[r0:r0 + W], dtype=np.int64)
+        if chunks.shape != (W,):
+            raise ValueError(f"rounds [{r0}, {r0 + W}) outside the owned "
+                             f"row of {len(owned_row)}")
+        sizes = np.zeros(5, np.int64)
+        err = ctypes.create_string_buffer(256)
+        h = fn(len(refs), meta.ctypes.data, levels.ctypes.data,
+               span.ctypes.data, dline.ctypes.data, chunks.ctypes.data, W,
+               r0, cfg.chunk_size, cfg.ds, cfg.cls, sched.start, sched.step,
+               nbins, min(TEMPLATE_THREADS, len(os.sched_getaffinity(0))),
+               sizes.ctypes.data, err)
+        if not h:
+            raise RuntimeError(f"window template: {err.value.decode()}")
+        try:
+            entries, n_heads, n_share, n_hs, threads = (int(x)
+                                                        for x in sizes)
+            size = {"local_hist": nbins, "share_vals": n_share,
+                    "share_cnts": n_share, "hs_idx": n_hs}
+            arrays = {name: np.empty(size.get(name, n_heads), dt)
+                      for name, dt in TEMPLATE_ARRAYS}
+            emit(h, *(a.ctypes.data for a in arrays.values()))
+        finally:
+            free(h)
+        return arrays, entries, threads
+
+    return build
 
 
 def spec_tokens(spec: LoopNestSpec) -> np.ndarray:

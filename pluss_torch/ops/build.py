@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ``ctypes``: a file
 that does not include PyTorch's headers builds in seconds, where a PyTorch
 extension takes minutes.  Each ``csrc/<name>.cpp`` (host code: the trace
-feed's line mapper) compiles the same way with the host C++ compiler.  The
+feed's line mapper, the plan's window template) compiles the same way with
+the host C++ compiler.  The
 native runtime (``cpp/``, :mod:`pluss_torch.native`) has two targets of
 several sources each, built with OpenMP (:data:`HOST_TARGETS`): the
 ``pluss_rt`` library and the standalone ``pluss_cpp`` binary.

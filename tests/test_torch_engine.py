@@ -28,7 +28,7 @@ from pluss import models as jax_models
 from pluss import mrc as jax_mrc
 from pluss.config import SamplerConfig as JaxConfig
 from pluss.spec_codec import spec_to_json as jax_spec_to_json
-from pluss_torch import cri, engine, mrc
+from pluss_torch import cri, engine, mrc, native
 from pluss_torch.config import SamplerConfig
 from pluss_torch.models import REGISTRY
 from pluss_torch.spec_codec import spec_from_json, spec_to_json
@@ -94,6 +94,116 @@ def test_plan_matches_jax(model, n, kw, win):
                                               getattr(b.tpl, f), err_msg=f)
         np.testing.assert_array_equal(a.ultra_windows(), b.ultra_windows())
     assert engine.plan_path(tp) == jax_engine.plan_path(jp)
+
+
+#: the window template's fields, each array with its dtype
+TEMPLATE_FIELDS = ("local_hist", "share_vals", "share_cnts", "head_line",
+                   "head_pos", "head_span", "head_dline", "hs_idx",
+                   "tail_line", "tail_pos", "tail_dline")
+
+#: (model, n, config, window accesses, threads the walk takes): every
+#: thread count and chunk size, sort-path holes, an overlay array beside the
+#: template, a line of 8 bytes, one thread; one-round windows of 1, 2 and 3
+#: parallel iterations walked by as many threads, and the registry's other
+#: rectangular nests
+TEMPLATE_CASES = [("gemm", 48, {"thread_num": t, "chunk_size": c}, None, None)
+                  for t in (1, 4, 8) for c in (1, 3, 16)] + [
+    ("gemm", 48, {"thread_num": 4, "chunk_size": 3}, 1, 3),  # many windows
+    ("mvt", 64, {}, None, None),     # sort-path holes in the template
+    ("syrk", 16, {}, None, None),    # an overlay array beside the template
+    ("atax", 16, {"cls": 8}, None, None),
+    ("bicg", 16, {"thread_num": 1}, None, None),
+    ("gemm", 48, {"thread_num": 1, "chunk_size": 1}, 1, 1),
+    ("gemm", 48, {"thread_num": 1, "chunk_size": 2}, 1, 2),
+    ("gemm", 48, {"thread_num": 2, "chunk_size": 3}, 1, 3),
+    ("mvt", 64, {"thread_num": 2, "chunk_size": 3}, 1, None),
+    ("2mm", 16, {"thread_num": 2, "chunk_size": 3}, 1, None),
+    ("3mm", 16, {"thread_num": 1, "chunk_size": 2}, 1, None),
+    ("conv2d", 16, {"thread_num": 4, "chunk_size": 1}, None, None),
+    ("correlation", 16, {"thread_num": 2, "chunk_size": 3}, 1, None),
+    ("doitgen", 16, {"thread_num": 4, "chunk_size": 1}, None, None),
+    ("fdtd2d", 16, {"thread_num": 4, "chunk_size": 1}, None, None),
+    ("heat3d", 16, {"thread_num": 1, "chunk_size": 2}, 1, None),
+    ("jacobi2d", 16, {"thread_num": 2, "chunk_size": 3}, 1, None),
+    ("seidel2d", 16, {"thread_num": 4, "chunk_size": 1}, None, None),
+    ("stencil3d", 16, {"thread_num": 2, "chunk_size": 3}, 1, None),
+    ("syr2k", 16, {"thread_num": 1, "chunk_size": 2}, 1, None),
+]
+
+
+def template_inputs(pkg, spec, cfg, win=None):
+    """``pkg``'s arguments of ``_build_template`` for each nest with a
+    template-eligible array, and whether sort-path arrays sit beside it."""
+    out = []
+    for sched, refs, body, _, owned, W, NW in pkg._nest_geometry(
+            spec, cfg, None, None, win or pkg.WINDOW_TARGET):
+        clean = pkg._clean_windows(owned, W, NW, cfg.chunk_size, sched.trip)
+        tpl_refs, var = pkg._split_ref_groups(refs, sched, cfg)
+        if tpl_refs:
+            out.append(((tpl_refs, W, cfg, sched, owned, clean,
+                         spec.line_bases(cfg), spec.array_index, body),
+                        bool(var)))
+    return out
+
+
+def assert_same_template(a, b):
+    assert (a is None) == (b is None)
+    if a is None:
+        return
+    for f in ("t0", "w0", "unit_w", "pos_shift"):
+        assert getattr(a, f) == getattr(b, f), f
+    for f in TEMPLATE_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype, (f, x.dtype, y.dtype)
+        np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+class SpanAttrs(dict):
+    """What a build sets on its span."""
+
+    def set(self, **attrs):
+        self.update(attrs)
+
+
+@pytest.mark.parametrize("model,n,kw,win,threads", TEMPLATE_CASES)
+def test_template_matches_jax(model, n, kw, win, threads):
+    """The native window walk builds JAX's template bit for bit, dtypes
+    included, however many threads split its parallel iterations; its
+    span counts the accesses walked and the threads that walked them."""
+    mine = template_inputs(engine, carried(model, n), SamplerConfig(**kw),
+                           win)
+    theirs = template_inputs(jax_engine, jax_models.REGISTRY[model](n),
+                             JaxConfig(**kw), win)
+    assert len(mine) == len(theirs) > 0
+    cores = min(native.TEMPLATE_THREADS, len(os.sched_getaffinity(0)))
+    built = 0
+    for (args, var), (jargs, _) in zip(mine, theirs):
+        refs, W, cfg = args[:3]
+        sp = SpanAttrs()
+        tpl = engine._build_template(*args, sp)
+        assert_same_template(tpl, jax_engine._build_template(*jargs))
+        if tpl is None:
+            continue
+        built += 1
+        assert sp["heads"] == len(tpl.head_line)
+        assert sp["entries"] == W * cfg.chunk_size * sum(
+            int(np.prod(fr.trips[1:])) for fr in refs)
+        assert 1 <= sp["threads"] <= min(cores, W * cfg.chunk_size)
+        if threads is not None:
+            assert sp["threads"] == min(threads, cores)
+        if model == "mvt":
+            assert var
+    assert built
+
+
+def test_template_raises_on_a_position_written_twice():
+    """Two accesses at one position break the walk's premise: the build
+    raises and nothing falls back."""
+    (args, _), = template_inputs(engine, carried("gemm", 16),
+                                 SamplerConfig())
+    refs = args[0]
+    with pytest.raises(RuntimeError, match="written twice"):
+        engine._build_template(refs + refs[-1:], *args[1:])
 
 
 def test_plan_cases_cover_both_window_paths():

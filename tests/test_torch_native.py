@@ -1,5 +1,5 @@
 """The port's native line mapper vs the numpy compactor and the JAX
-package's mapper, exactly.
+package's mapper, exactly; the build of the host libraries.
 
 ``pluss_torch.trace._Compactor.map_raw`` (over ``csrc/map_lines.cpp``,
 built at first use into ``pluss_torch/_build/``) must assign the ids
@@ -8,7 +8,8 @@ cluster, including addresses with bit 63 set (the arithmetic shift of the
 signed value) and precompacted line ids (shift 0); a chunk that leaves the
 cluster, and any table of two clusters, return None.  Where the JAX
 package's native library builds, its ``map_raw`` gives the same ids.  A
-failed build raises.  Addresses come from numpy seeds.
+failed build of either host library (the mapper, the plan's window
+template) raises.  Addresses come from numpy seeds.
 """
 
 import os
@@ -18,7 +19,9 @@ import pytest
 
 from pluss import native as jax_native
 from pluss import trace as jt
-from pluss_torch import native, trace as tt
+from pluss_torch import engine, native, trace as tt
+from pluss_torch.config import SamplerConfig
+from pluss_torch.models import REGISTRY
 from pluss_torch.ops import build
 
 SHIFT = 6
@@ -136,12 +139,37 @@ def test_compact_stage_matches_jax_over_a_stream():
         assert got[1:] == want[1:]
 
 
-def test_mapper_library_is_built_by_hash_into_the_build_dir():
-    path = build.library_path("map_lines")
+#: each host library of ``csrc/``, its loader (built at its first call)
+#: and a use of it that has to build it
+HOST_LIBS = {
+    "map_lines": (native.line_mapper,
+                  lambda: one_cluster(np.arange(100)).map_raw(
+                      np.arange(100, dtype=np.uint64), 0)),
+    "window_template": (native.template_builder,
+                        lambda: engine.plan(REGISTRY["gemm"](16),
+                                            SamplerConfig())),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HOST_LIBS))
+def test_mapper_library_is_built_by_hash_into_the_build_dir(
+        tmp_path, monkeypatch, name):
+    """Each host library lands in the build directory under a name that
+    carries the hash of its source: an edited source is another file."""
+    path = build.library_path(name)
     assert os.path.dirname(path) == build.BUILD_DIR
-    assert os.path.basename(path).startswith("libmap_lines-")
-    native.line_mapper()
+    assert os.path.basename(path).startswith(f"lib{name}-")
+    HOST_LIBS[name][0]()
     assert os.path.exists(path)
+    src = os.path.join(build.CSRC, f"{name}.cpp")
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    with open(src) as f:
+        (csrc / f"{name}.cpp").write_text(f.read() + "// edited\n")
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    edited = build.library_path(name)
+    assert edited != path
+    assert os.path.basename(edited).startswith(f"lib{name}-")
 
 
 def test_mapper_validates_its_arguments():
@@ -152,26 +180,27 @@ def test_mapper_validates_its_arguments():
         m(np.zeros(4, np.uint64), 64, 0, 10, 0)
 
 
+@pytest.mark.parametrize("name", sorted(HOST_LIBS))
 @pytest.mark.parametrize("fault", ["no compiler", "compile error"])
-def test_failed_build_raises(tmp_path, monkeypatch, fault):
+def test_failed_build_raises(tmp_path, monkeypatch, fault, name):
     """Nothing falls back to numpy: a missing compiler and a source that
-    does not compile both raise from the mapper's first use."""
+    does not compile both raise from the library's first use."""
+    loader, use = HOST_LIBS[name]
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
     if fault == "no compiler":
         monkeypatch.setattr(build, "cxx", lambda: str(tmp_path / "no-c++"))
     else:
         csrc = tmp_path / "csrc"
         csrc.mkdir()
-        (csrc / "map_lines.cpp").write_text("this is not C++\n")
+        (csrc / f"{name}.cpp").write_text("this is not C++\n")
         monkeypatch.setattr(build, "CSRC", str(csrc))
-    native.line_mapper.cache_clear()
+    loader.cache_clear()
     build.load.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="native build failed"):
-            native.line_mapper()
-        comp = one_cluster(np.arange(100))
+            loader()
         with pytest.raises(RuntimeError, match="native build failed"):
-            comp.map_raw(np.arange(100, dtype=np.uint64), 0)
+            use()
     finally:
-        native.line_mapper.cache_clear()
+        loader.cache_clear()
         build.load.cache_clear()

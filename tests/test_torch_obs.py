@@ -39,8 +39,8 @@ from pluss import sampling as jax_sampling
 from pluss import trace as jax_trace
 from pluss.config import SamplerConfig as JaxConfig
 from pluss.obs import stats as jax_stats
-from pluss_torch import cli, cri, engine, mrc, obs, residency, sampling, \
-    trace
+from pluss_torch import cli, cri, engine, mrc, native, obs, residency, \
+    sampling, trace
 from pluss_torch.config import SamplerConfig
 from pluss_torch.obs import stats as stats_mod
 from pluss_torch.obs import telemetry as tel
@@ -256,6 +256,32 @@ def test_window_spans_record_once_per_dispatch(tmp_path, model):
     assert calls(large) >= 4 > calls(small) > 0
     for r in tallied:
         assert 0 <= r["dur"] <= disp[r["parent"]]["dur"] + 1e-6
+
+
+def test_plan_template_span_counts_its_work(tmp_path, monkeypatch):
+    """The template build's span carries the accesses its walk took, the
+    threads that took them and the heads it found; a template read from
+    the disk cache walks none."""
+    monkeypatch.delenv("PLUSS_NO_PLAN_CACHE", raising=False)
+    monkeypatch.setenv("PLUSS_PLAN_CACHE_DIR", str(tmp_path / "plans"))
+    spec, cfg = carried("gemm", 16), SamplerConfig(**KW)
+
+    def span_attrs(name):
+        ev = str(tmp_path / f"{name}.jsonl")
+        obs.configure(ev)
+        pl = engine.plan(spec, cfg)
+        obs.shutdown()
+        (rec,) = [r for r in _events(ev) if r.get("ev") == "span"
+                  and r["name"] == "engine.plan.template"]
+        return pl.nests[0], rec.get("attrs", {})
+
+    np_, cold = span_attrs("cold")
+    assert cold["heads"] == len(np_.tpl.head_line) > 0
+    assert cold["entries"] == np_.window_rounds * cfg.chunk_size * sum(
+        int(np.prod(fr.trips[1:])) for fr in np_.refs)
+    assert 1 <= cold["threads"] <= native.TEMPLATE_THREADS
+    _, warm = span_attrs("warm")
+    assert not {"entries", "threads", "heads"} & set(warm)
 
 
 def test_tally_span_outside_a_span_records_itself(tmp_path):
