@@ -4,9 +4,17 @@ Three numbers, each over every checked prediction, each with its limit:
 
 - ``counts_off``: the entries that differ between the program's and the
   reference's per-thread noshare histograms and share dicts, plus 1 when
-  the access counts (``max_iteration_count``) differ.  Exact: limit 0.
+  the access counts (``max_iteration_count``) differ; for a trace replay,
+  the entries of the dense reuse histogram that differ, plus 1 when the
+  ref counts differ and 1 when the program's line table holds fewer slots
+  than there are distinct lines.  Slot 0, the cold refs, is the number of
+  distinct lines, so it is the exact check of them; the program's
+  ``n_lines`` is its compactor's id slots (the distinct lines plus each
+  memory region's slack), which only a table too small can give away.
+  Exact: limit 0.
 - ``cri_gap``: the largest relative gap ``|program - reference| /
-  |reference|`` over the keys of the CRI reuse histogram; 1 when the key
+  |reference|`` over the keys of the CRI reuse histogram (a trace's reuse
+  histogram itself: a replay has one clock, so no CRI); 1 when the key
   sets differ.
 - ``mrc_gap``: the largest absolute gap between the two miss-ratio curves;
   1 when their lengths differ.
@@ -32,6 +40,15 @@ def counts_off(noshare: list, share: list, accesses: int, ref) -> int:
         for k in set(mine) | set(theirs):
             off += int(mine.get(k) != theirs.get(k))
     return off
+
+
+def trace_counts_off(hist: np.ndarray, total_count: int, n_lines: int,
+                     ref) -> int:
+    off = int(total_count != ref.total_count) + int(n_lines < ref.n_lines)
+    mine, theirs = np.asarray(hist), np.asarray(ref.hist)
+    if mine.shape != theirs.shape:
+        return off + 1 + max(mine.size, theirs.size)
+    return off + int(np.count_nonzero(mine != theirs))
 
 
 def cri_gap(rihist: dict, ref: dict) -> float:

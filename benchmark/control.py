@@ -3,11 +3,12 @@
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3
 
 Puts the reference in the program's place with its CRI and MRC computed
-in float32, the precision below the configuration's float64, and prints,
-for each seed, the numbers ``correct`` compares (against the float64
-reference) for the predictions a run with that seed would check.  A
-sound limit lies below every one of them.  The benchmark's runs never run
-this; it needs the card.
+in float32, the precision below the configuration's float64 (a trace: its
+reuse histogram and MRC), and prints, for each seed, the numbers
+``correct`` compares (against the float64 reference) for the predictions a
+run with that seed would check, on the input a run with that seed makes.
+A sound limit lies below every one of them.  The benchmark's runs never
+run this; it needs the card.
 """
 
 import json
@@ -20,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import numpy as np  # noqa: E402
 
 from benchmark import compare, harness, traffic  # noqa: E402
-from benchmark.reference import curve  # noqa: E402
+from benchmark.reference import curve, trace  # noqa: E402
 
 
 def readings(root: str, workload: str, seeds: list, device: str,
@@ -29,24 +30,30 @@ def readings(root: str, workload: str, seeds: list, device: str,
     (drawn as a run draws them, from the first ``window`` predictions)."""
     bench = harness.load_bench(root)
     _, config, mix = harness.cell_of(bench, workload, root)
+    is_trace = harness.is_trace(config)
     memo, out = {}, []
     for seed in seeds:
         gen = traffic.predictions(mix, config, seed)
         preds = [next(gen) for _ in range(window)]
         nums = {"counts_off": 0, "cri_gap": 0.0, "mrc_gap": 0.0}
-        for key in traffic.checked([p.key for p in preds], mix, seed):
-            p = next(q for q in preds if q.key == key)
-            if key not in memo:
-                h, rih, crv = harness.reference(config, mix, p, device)
-                crih = curve.distribute(h.noshare, h.share, p.thread_num,
-                                        np.float32)
-                memo[key] = (rih, crv, crih, curve.aet_mrc(
-                    crih, config["cache_kb"], np.float32))
-            rih, crv, crih, ccrv = memo[key]
-            nums["cri_gap"] = max(nums["cri_gap"],
-                                  compare.cri_gap(crih, rih))
-            nums["mrc_gap"] = max(nums["mrc_gap"],
-                                  compare.mrc_gap(ccrv, crv))
+        if is_trace:   # a trace is the seed's own input
+            memo.clear()
+        with harness.inputs(config, seed, device) as data:
+            for key in traffic.checked([p.key for p in preds], mix, seed):
+                p = next(q for q in preds if q.key == key)
+                if key not in memo:
+                    h, rih, crv = harness.reference(config, mix, p, device,
+                                                    data)
+                    crih = trace.histogram(h, np.float32) if is_trace \
+                        else curve.distribute(h.noshare, h.share,
+                                              p.thread_num, np.float32)
+                    memo[key] = (rih, crv, crih, curve.aet_mrc(
+                        crih, config["cache_kb"], np.float32))
+                rih, crv, crih, ccrv = memo[key]
+                nums["cri_gap"] = max(nums["cri_gap"],
+                                      compare.cri_gap(crih, rih))
+                nums["mrc_gap"] = max(nums["mrc_gap"],
+                                      compare.mrc_gap(ccrv, crv))
         out.append({"workload": workload, "seed": seed, **nums,
                     "correct": compare.judge(nums)})
     return out

@@ -18,6 +18,7 @@ names.
 from __future__ import annotations
 
 import contextlib
+import sys
 
 import torch
 
@@ -67,6 +68,7 @@ class Tracer:
     def _stop(self) -> None:
         self.rf.__exit__(None, None, None)
         traced_s = self.clock() - self.t0
+        t_read = self.clock()
         self.prof.__exit__(None, None, None)
         events = self.prof.events()
         self.prof = None
@@ -82,6 +84,8 @@ class Tracer:
             self.preds = []
         else:
             self.traced_s = traced_s
+        print(f"benchmark: read back {traced_s:.3f} s of device trace in "
+              f"{self.clock() - t_read:.3f} s", file=sys.stderr)
 
     def close(self) -> None:
         if self.prof is not None:

@@ -5,9 +5,12 @@
 is made of is data, found by name:
 
 - the cell in ``BENCHMARK.json`` (``workloads``), its configuration's file
-  (``configs[].file``: the spec document, the schedule, the machine
-  numbers) and its mix, ``benchmark/traffic/<traffic>.json``
-  (:mod:`benchmark.traffic`);
+  (``configs[].file``) and its mix, ``benchmark/traffic/<traffic>.json``
+  (:mod:`benchmark.traffic`).  A configuration is a loop nest (the spec
+  document, the schedule, the machine numbers; :class:`Cell`), or, with
+  ``"kind": "trace"``, a raw address trace (a loop nest's data references
+  in program order, written by :mod:`benchmark.tracedata` in set-up;
+  :class:`TraceCell`);
 - each per-layer metric, a reader ``benchmark/metrics/<name>.py`` with
   ``read(run) -> float | None`` over the traced window (:class:`Traced`).
 
@@ -27,6 +30,7 @@ and :mod:`benchmark.compare` decides ``correct``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import importlib.util
 import json
@@ -40,7 +44,7 @@ import time
 
 import numpy as np
 
-from benchmark import compare, devtrace, traffic
+from benchmark import compare, devtrace, tracedata, traffic
 
 #: top-level module names the process may not hold once the window closes
 FORBIDDEN = ("jax", "jaxlib", "flax", "pluss")
@@ -55,13 +59,14 @@ TRACE_S = 1.0
 class Traced:
     """What a per-layer metric's reader sees of the traced run.
 
-    The program's and the benchmark's spans cover the whole window; the
-    device trace covers its first predictions, at least ``TRACE_S``
-    seconds of them (``traced_preds``, ``traced_s``)."""
+    The program's and the benchmark's spans and the program's counters
+    cover the whole window; the device trace covers its first predictions,
+    at least ``TRACE_S`` seconds of them (``traced_preds``, ``traced_s``)."""
 
-    def __init__(self, n_preds, spans, tracer, plan, mix, config):
+    def __init__(self, n_preds, spans, counters, tracer, plan, mix, config):
         self.n_preds = n_preds        # predictions completed in the window
         self.spans = spans            # [(name, seconds)]: program + benchmark
+        self.counters = counters      # {name: increase over the window}
         self.ops = tracer.ops         # [(device op, seconds, launches)]
         self.launched = tracer.launched   # [(device op, seconds, host ops)]
         self.busy_s = tracer.busy_s   # device busy seconds, or None
@@ -74,6 +79,11 @@ class Traced:
         """Seconds of the named spans summed, or None when none ran."""
         got = [s for n, s in self.spans if n in names]
         return sum(got) if got else None
+
+    def counter(self, name: str) -> float | None:
+        """The increase of the program's counter ``name`` over the window,
+        or None when it never counted."""
+        return self.counters.get(name)
 
     def device_s(self, match) -> float | None:
         """Device seconds of the traced operations whose name ``match``
@@ -110,8 +120,41 @@ def cell_of(bench: dict, name: str, root: str) -> tuple[dict, dict, dict]:
     with open(os.path.join(root, "benchmark", "traffic",
                            cell["traffic"] + ".json")) as f:
         mix = json.load(f)
-    traffic.check_mix(mix)
+    traffic.check_mix(mix, config)
     return cell, config, mix
+
+
+def is_trace(config: dict) -> bool:
+    """Whether ``config`` is a raw address trace (else a loop nest)."""
+    return config.get("kind") == "trace"
+
+
+@contextlib.contextmanager
+def inputs(config: dict, seed: int, device: str = "cpu"):
+    """The run's input data, made from ``seed``: for a trace configuration
+    the path of its trace file, enumerated on ``device``, written under the
+    temporary directory and removed on every way out; for a loop nest None
+    (its input is the spec document).  The card's memory the writer took is
+    freed, and its peak forgotten, before the program starts."""
+    if not is_trace(config):
+        yield None
+        return
+    fd, path = tempfile.mkstemp(prefix="benchmark-trace-", suffix=".u64")
+    try:
+        t0 = time.monotonic()
+        with os.fdopen(fd, "wb") as f:
+            tracedata.write(f, config, traffic.trace_rng(seed), device)
+        if device == "cuda":
+            import torch
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        print(f"benchmark: wrote the {config['refs']}-ref trace in "
+              f"{time.monotonic() - t0:.3f} s", file=sys.stderr)
+        yield path
+    finally:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(path)
 
 
 def metrics_of(bench: dict, cell: dict, trace: bool) -> list[dict]:
@@ -165,6 +208,9 @@ class Cell:
         self.config, self.mix, self.device = config, mix, device
         self.spans: list = []
 
+    def close(self) -> None:
+        """Nothing outlives a loop-nest prediction but the plan caches."""
+
     def cfg(self, p: traffic.Prediction):
         c = self.config
         return self.SamplerConfig(thread_num=p.thread_num,
@@ -209,11 +255,70 @@ class Cell:
         return self.engine._plan_cached(self.spec, cfg, None, None, None)
 
 
+class TraceCell:
+    """A trace replay, driven as ``python -m pluss_torch.cli trace FILE``
+    drives it (with ``--resident-cache`` when the mix says so): the
+    resilient replay on the card, its ladder without the CPU rung, then
+    the MRC of its histogram.  ``path`` is the trace file set-up wrote."""
+
+    def __init__(self, config: dict, mix: dict, device: str, path: str):
+        from pluss_torch import mrc, residency
+        from pluss_torch.config import SamplerConfig
+        from pluss_torch.resilience import replay_file_resilient
+        from pluss_torch.resilience.ladder import TRACE_LADDER
+        self.mrc, self.residency = mrc, residency
+        self.replay_file = replay_file_resilient
+        self.rungs = tuple(r for r in TRACE_LADDER if r != "cpu_fallback")
+        self.cfg = SamplerConfig(cls=config["cls"],
+                                 cache_kb=config["cache_kb"])
+        self.config, self.mix, self.device, self.path = \
+            config, mix, device, path
+        self.spans: list = []
+
+    def close(self) -> None:
+        """Drop the resident copy the store holds."""
+        self.residency.store().clear()
+
+    def predict(self, p: traffic.Prediction, clock):
+        """One replay of the whole trace, to its MRC on the host."""
+        span = devtrace.span
+        with span("bench.predict", self.spans, clock):
+            with span("bench.replay", self.spans, clock):
+                rep = self.replay_file(
+                    self.path, self.config["fmt"], rungs=self.rungs,
+                    cls=self.cfg.cls,
+                    resident_cache=bool(self.mix.get("resident_cache")),
+                    device=self.device)
+            if rep.degradations:
+                print("benchmark: the replay degraded: "
+                      + ",".join(rep.degradations), file=sys.stderr)
+            with span("bench.mrc", self.spans, clock):
+                rihist = rep.histogram()
+                curve = self.mrc.aet_mrc(rihist, self.cfg)
+        return rep.hist, rep.total_count, rep.n_lines, rihist, curve
+
+    def plan(self):
+        return None
+
+
+def system(config: dict, mix: dict, device: str, data):
+    """The system under test for ``config``, on its input ``data``."""
+    if is_trace(config):
+        return TraceCell(config, mix, device, data)
+    return Cell(config, mix, device)
+
+
 def reference(config: dict, mix: dict, p: traffic.Prediction, device: str,
-              dtype=np.float64):
-    """The reference's answer to prediction ``p``: (noshare, share,
-    accesses, CRI histogram, MRC)."""
-    from benchmark.reference import curve, stream
+              data=None, dtype=np.float64):
+    """The reference's answer to prediction ``p`` on the input ``data``
+    (:func:`inputs`): its counts (a loop nest's per-thread histograms and
+    accesses, a trace's :class:`benchmark.reference.trace.Counts`), its CRI
+    histogram (a trace's reuse histogram itself) and its MRC."""
+    from benchmark.reference import curve, stream, trace
+    if is_trace(config):
+        h = trace.replay(data, config["cls"], device)
+        rihist = trace.histogram(h, dtype)
+        return h, rihist, curve.aet_mrc(rihist, config["cache_kb"], dtype)
     sch = stream.Schedule(p.thread_num, p.chunk_size, config["ds"],
                           config["cls"])
     if mix["run"] == "sampled":
@@ -226,17 +331,19 @@ def reference(config: dict, mix: dict, p: traffic.Prediction, device: str,
 
 
 def check(config: dict, mix: dict, answers: list, seed: int,
-          device: str) -> dict:
+          device: str, data=None) -> dict:
     """Hold every checked prediction's answer against the reference."""
     keys = [p.key for p, _ in answers]
     nums = {"counts_off": 0, "cri_gap": 0.0, "mrc_gap": 0.0}
+    counts_off = compare.trace_counts_off if is_trace(config) \
+        else compare.counts_off
     for key in traffic.checked(keys, mix, seed):
         p = next(p for p, _ in answers if p.key == key)
-        h, rihist, curve = reference(config, mix, p, device)
-        for q, (noshare, share, acc, rih, crv) in answers:
+        h, rihist, curve = reference(config, mix, p, device, data)
+        for q, (*counts, rih, crv) in answers:
             if q.key != key:
                 continue
-            nums["counts_off"] += compare.counts_off(noshare, share, acc, h)
+            nums["counts_off"] += counts_off(*counts, h)
             nums["cri_gap"] = max(nums["cri_gap"],
                                   compare.cri_gap(rih, rihist))
             nums["mrc_gap"] = max(nums["mrc_gap"],
@@ -254,14 +361,20 @@ def _card() -> str | None:
         return None
 
 
-def _port_spans(path: str) -> list:
-    out = []
+def _port_records(path: str) -> tuple[list, dict]:
+    """The program's telemetry over the window: ``(name, seconds)`` of each
+    span record, and each counter's increase by name.  Counter records are
+    cumulative from the session's start, which is the window's, so the
+    last one of a name is its increase."""
+    spans, counters = [], {}
     with open(path) as f:
         for line in f:
             rec = json.loads(line)
             if rec.get("ev") == "span":
-                out.append((rec["name"], rec["dur"]))
-    return out
+                spans.append((rec["name"], rec["dur"]))
+            elif rec.get("ev") == "counter":
+                counters[rec["name"]] = rec["value"]
+    return spans, counters
 
 
 def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
@@ -271,10 +384,18 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
     bench = load_bench(root)
     cell, config, mix = cell_of(bench, workload, root)
     _env(mix, root)
+    with inputs(config, seed, device) as data:
+        return _run(root, bench, cell, config, mix, data, seed, seconds,
+                    trace, t_start, device)
+
+
+def _run(root, bench, cell, config, mix, data, seed, seconds, trace,
+         t_start, device) -> dict:
+    workload = cell["name"]
     import torch
     cuda = device == "cuda"
     clock = time.monotonic
-    sut = Cell(config, mix, device)
+    sut = system(config, mix, device, data)
     sut.predict(traffic.warmup(mix, config, seed), clock)
     if cuda:
         torch.cuda.synchronize()
@@ -314,7 +435,8 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
     if trace:
         tracer.close()
         obs.shutdown()
-        traced = Traced(len(answers), _port_spans(tel) + sut.spans, tracer,
+        spans, counters = _port_records(tel)
+        traced = Traced(len(answers), spans + sut.spans, counters, tracer,
                         sut.plan(), mix, config)
         os.remove(tel)
     n = len(answers)
@@ -331,11 +453,12 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
                  "peak_gib": peak / 2**30}.get(quantity(m["name"]))
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    sut.close()
     del sut
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    nums = check(config, mix, answers, seed, device)
+    nums = check(config, mix, answers, seed, device, data)
     correct = n > 0 and failed == 0 and compare.judge(nums)
     checks = {k: {"value": v, "limit": compare.LIMITS[k]}
               for k, v in nums.items()}

@@ -3,9 +3,9 @@
 The yardstick for every ``<kernel>_roofline`` metric: the least time the
 card could take for a kernel's launches is the bytes the launches must move
 (each input read once, each output written once) over the card's peak
-bandwidth.  The shapes come from the plan's windows, never from anything
-the kernel reports, so the count stays the same whatever implements the
-kernel.
+bandwidth.  The shapes come from the plan's windows (a trace's: from its
+ref count), never from anything the kernel reports, so the count stays the
+same whatever implements the kernel.
 """
 
 from __future__ import annotations
@@ -40,6 +40,26 @@ def event_hist_need_bytes(rows: int, length: int, ghosts: int, real: int,
     :func:`event_hist_bytes`."""
     return rows * length + (real + rows * ghosts) * pos_bytes \
         + real * (4 + 4) + rows * NBINS * 8
+
+
+#: bool masks kernel 2 reads per entry: ``is_evt``, ``share``, ``cold``
+MASKS = 3
+
+
+def masked_hist_need_bytes(n: int, pos_bytes: int) -> int:
+    """Kernel 2 (``masked_hist``) over one batch of ``n`` entries: each
+    entry's reuse (``pos_bytes``) and its three mask bytes read once, the
+    ``[49]`` int64 histogram written once."""
+    return n * (pos_bytes + MASKS) + NBINS * 8
+
+
+def masked_hist_replay_bytes(refs: int) -> int:
+    """Kernel 2's need over one replay of a ``refs``-ref trace: each ref's
+    reuse and three masks read once (int32 reuses while every position
+    fits), one histogram written.  The padding of the last batch decides
+    nothing, and the histogram each further batch writes (392 bytes) is
+    left out, so the count needs no batch geometry of the program's."""
+    return masked_hist_need_bytes(refs, 4 if refs < 2**31 - 2 else 8)
 
 
 def least_ms(nbytes: int) -> float:

@@ -78,10 +78,13 @@ def total_lines(doc: dict, sch: Schedule) -> int:
 
 
 class _Ctx:
-    def __init__(self, doc, sch, device, spans):
+    def __init__(self, doc, sch, device, spans, byte_bases=None):
         self.sch, self.device = sch, device
         self.bases = line_bases(doc, sch)
         self.spans = spans   # share span -> one-byte code
+        # array -> first byte address: the accesses' int64 byte addresses
+        # (``byte_base + addr*ds``) take the place of their lines
+        self.byte_bases = byte_bases
 
 
 def _excl(x: torch.Tensor) -> torch.Tensor:
@@ -108,6 +111,9 @@ def _emit(item: dict, vals: list, idxs: list, ctx: _Ctx):
                           device=dev)
         for depth, coef in item["addr_terms"]:
             addr += coef * vals[depth]
+        if ctx.byte_bases is not None:
+            addr.mul_(ctx.sch.ds).add_(ctx.byte_bases[item["array"]])
+            return addr, None, None
         line = (addr * ctx.sch.ds).div_(ctx.sch.cls, rounding_mode="floor")
         line += ctx.bases[item["array"]]
         code = torch.full((n,), ctx.spans[item.get("share_span") or 0],
@@ -142,8 +148,9 @@ def _body(body: list, vals: list, idxs: list, ctx: _Ctx):
     cnt = torch.stack(cnts).sum(0)
     off = _excl(cnt)
     total = int(cnt.sum())
-    line = torch.empty(total, dtype=torch.int32, device=dev)
-    code = torch.empty(total, dtype=torch.uint8, device=dev)
+    line = torch.empty(total, dtype=outs[0][0].dtype, device=dev)
+    code = None if outs[0][1] is None else \
+        torch.empty(total, dtype=torch.uint8, device=dev)
     prefix = torch.zeros(n, dtype=torch.int64, device=dev)
     for (l, c, k), kk in zip(outs, cnts):
         if k is None:
@@ -153,7 +160,8 @@ def _body(body: list, vals: list, idxs: list, ctx: _Ctx):
             dest = torch.arange(row.shape[0], device=dev) \
                 - _excl(k)[row] + (off + prefix)[row]
         line[dest] = l
-        code[dest] = c
+        if code is not None:
+            code[dest] = c
         prefix += kk
     return line, code, cnt
 
@@ -247,6 +255,20 @@ def walk_block(line: torch.Tensor, code: torch.Tensor, pos0: int,
         counts.bins[1:] += torch.bincount(e.long() - 1, minlength=NBINS - 1)
         counts.add_share(reuse[share])
     table[sl[last]] = pos[last]
+
+
+def serial_addresses(doc: dict, ds: int, byte_bases: dict, device):
+    """The byte address of every access of the loop nests run by one
+    thread in program order (each array at its ``byte_bases`` entry, an
+    element ``ds`` bytes), in blocks of whole parallel iterations."""
+    sch = Schedule(1, 1, ds, 1)
+    ctx = _Ctx(doc, sch, device, {}, byte_bases)
+    for nest in doc["nests"]:
+        sizes = iteration_sizes(nest)
+        for run in _blocks(range(nest["trip"]), sizes, nest, 1):
+            addr, _, _ = enumerate_iterations(
+                nest, _iters_of(run, nest, 1, device), ctx)
+            yield addr
 
 
 def _chunk_iters(c: int, nest: dict, CS: int) -> tuple[int, int]:

@@ -23,6 +23,7 @@ import time
 T_START = time.monotonic()
 
 import os  # noqa: E402
+import signal  # noqa: E402
 import sys  # noqa: E402
 
 #: glibc malloc's thresholds, fixed (a fixed value also turns off their
@@ -45,4 +46,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from benchmark import harness  # noqa: E402
 
 if __name__ == "__main__":
+    # a run ended from outside still leaves through its clean-up (the
+    # trace file a trace cell writes)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     sys.exit(harness.main(t_start=T_START))

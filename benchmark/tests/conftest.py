@@ -22,6 +22,34 @@ def tiny_config(model: str, n: int, T: int = 4, CS: int = 4) -> dict:
             "spec": spec_to_json(REGISTRY[model](n))}
 
 
+def tiny_trace_config(n: int = 60) -> dict:
+    """``mvt-4000-trace`` at a test's size: mvt at ``n`` (28,800 refs at
+    60), its other numbers the configuration's; the batches shrink to
+    match (:func:`small_batches`)."""
+    from pluss_torch.models import REGISTRY
+    from pluss_torch.spec_codec import spec_to_json
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "mvt-4000-trace.json")) as f:
+        conf = json.load(f)
+    conf.update(name=f"mvt-{n}-trace", n=n,
+                spec=spec_to_json(REGISTRY[conf["model"]](n)),
+                refs=8 * n * n)
+    return conf
+
+
+@pytest.fixture
+def small_batches(monkeypatch):
+    """The port's default replay geometry at :func:`tiny_trace_config`'s:
+    windows of 2^10 refs, 4 to a batch."""
+    from pluss_torch import residency, trace
+    monkeypatch.setattr(trace, "TRACE_WINDOW", 1 << 10)
+    monkeypatch.setattr(trace, "WINDOWS_PER_BATCH", 4)
+    monkeypatch.delenv("PLUSS_BATCH_WINDOWS", raising=False)
+    residency.store().clear()
+    yield
+    residency.store().clear()
+
+
 @pytest.fixture
 def tiny_root(tmp_path):
     """A checkout-shaped directory holding the benchmark's traffic and

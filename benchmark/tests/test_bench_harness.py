@@ -171,7 +171,7 @@ def test_sort_ms_counts_the_window_sort_not_unique():
 def test_a_mix_key_the_generator_does_not_know_is_refused():
     with pytest.raises(ValueError, match="mode"):
         traffic.check_mix({"run": "sampled", "rate": 0.1,
-                           "mode": "prefix"})
+                           "mode": "prefix"}, tiny_config("gemm", 16))
 
 
 def _break(monkeypatch, fault):

@@ -16,17 +16,21 @@ import pytest
 
 from benchmark import devtrace, harness
 from benchmark.reference import stream
-from conftest import ROOT, tiny_config
+from conftest import ROOT, tiny_config, tiny_trace_config
 
 #: the metrics that read the program's spans (seconds) or the device time
 #: under its ranges
 PROGRAM_SPAN_METRICS = {
     "plan_template_s", "template_window_s.host", "share_unique_s.host",
     "sort_window_ms", "sampled_run_s", "sampler_context_ms", "cri_s",
-    "cri_s.host", "mrc_s", "mrc_s.host"}
+    "cri_s.host", "mrc_s", "mrc_s.host", "mrc_s.stream", "replay_s",
+    "replay_s.stream", "feed_stall_s.stream", "trace_batch_ms",
+    "trace_batch_ms.stream"}
 
 #: the tiny stand-in of each configuration the benchmark runs
-TINY = {"cholesky-2000": ("cholesky", 24), "gemm-1024": ("gemm", 32)}
+TINY = {"cholesky-2000": lambda: tiny_config("cholesky", 24),
+        "gemm-1024": lambda: tiny_config("gemm", 32),
+        "mvt-4000-trace": tiny_trace_config}
 
 
 def _bench() -> dict:
@@ -85,13 +89,14 @@ def _run(root, cell, seconds):
 
 @pytest.mark.parametrize("cell", [w["name"] for w in _bench()["workloads"]])
 def test_each_cell_reports_its_program_span_metrics(tiny_root, _cpu_device,
-                                                    _small_windows, cell):
+                                                    _small_windows,
+                                                    small_batches, cell):
     bench = _bench()
     w = next(w for w in bench["workloads"] if w["name"] == cell)
     want = {m["name"] for m in bench["per_layer"]
             if m["name"] in PROGRAM_SPAN_METRICS and cell in m["workloads"]}
     assert want
-    tiny = tiny_root.add(tiny_config(*TINY[w["config"]]), w["traffic"])
+    tiny = tiny_root.add(TINY[w["config"]](), w["traffic"])
     out = _run(tiny_root, tiny, 1.0)
     assert out["correct"], out["checks"]
     got = out["metrics"]

@@ -199,12 +199,14 @@ def _modules():
 
 def test_nothing_under_benchmark_imports_jax_or_pluss():
     """Whole top-level names: ``pluss_torch`` passes, ``pluss`` fails;
-    the reference also refuses ``pluss_torch``."""
+    the reference and the trace writer also refuse ``pluss_torch``."""
     mods = list(_modules())
     assert len(mods) > 10
+    assert os.path.join(BENCH, "reference", "trace.py") in mods
     for path in mods:
         refused = {"jax", "jaxlib", "flax", "pluss"}
-        if os.sep + "reference" + os.sep in path:
+        if os.sep + "reference" + os.sep in path or \
+                path == os.path.join(BENCH, "tracedata.py"):
             refused.add("pluss_torch")
         tops = {m.split(".")[0] for m in _imports(path)}
         assert not tops & refused, (path, tops & refused)

@@ -4,10 +4,15 @@ Every cell is a closed loop with one client: the next prediction starts
 when the previous one has ended.  A mix (``benchmark/traffic/<mix>.json``)
 says what each prediction runs:
 
-- ``"run"``: ``"full"`` (every access, ``engine.run``) or ``"sampled"``
-  (``sampling.sampled_run``'s uniform estimate at ``"rate"``, the one the
-  reference implements, with a new sampling seed for each prediction,
-  drawn from ``--seed``);
+- ``"run"``: on a loop nest, ``"full"`` (every access, ``engine.run``) or
+  ``"sampled"`` (``sampling.sampled_run``'s uniform estimate at ``"rate"``,
+  the one the reference implements, with a new sampling seed for each
+  prediction, drawn from ``--seed``); on a trace configuration
+  (``"kind": "trace"``), ``"replay"`` (the trace file made in set-up from
+  ``--seed``, :func:`trace_rng`, replayed whole by every prediction);
+- ``"resident_cache"``: a replay's use of the program's residency store
+  (default false): set-up's warm-up stages the trace into it, and every
+  window prediction replays the resident copy;
 - ``"schedules"``: optional ``[[thread_num, chunk_size], ...]``; each
   prediction takes the next one, from the head of the list, so every seed
   runs the same schedules (a schedule's plan cost grows with its chunk, so
@@ -19,7 +24,8 @@ says what each prediction runs:
   the reference checks (default 1).
 
 The set-up warms one prediction of the cell's own shape: the
-configuration's schedule, and a sampling seed no window prediction gets.
+configuration's schedule, and a sampling seed no window prediction gets
+(a replay: the same trace).
 """
 
 from __future__ import annotations
@@ -28,14 +34,15 @@ import dataclasses
 
 import numpy as np
 
-RUNS = ("full", "sampled")
-KEYS = {"run", "rate", "schedules", "plan_cache", "check"}
+RUNS = ("full", "sampled", "replay")
+KEYS = {"run", "rate", "schedules", "plan_cache", "check", "resident_cache"}
 
 
 @dataclasses.dataclass(frozen=True)
 class Prediction:
     """One prediction's input: the schedule, and for a sampled run its
-    sampling seed (the mix gives the rate)."""
+    sampling seed (the mix gives the rate).  A replay's input is the trace
+    alone: every replay prediction is ``Prediction(0, 0)``."""
 
     thread_num: int
     chunk_size: int
@@ -46,14 +53,22 @@ class Prediction:
         return (self.thread_num, self.chunk_size, self.sample_seed)
 
 
-def check_mix(mix: dict) -> None:
-    """Refuse a mix the generator cannot run, before any set-up."""
+def check_mix(mix: dict, config: dict) -> None:
+    """Refuse a mix the generator cannot run on ``config``, before any
+    set-up."""
     if set(mix) - KEYS:
         raise ValueError(f"unknown traffic keys {sorted(set(mix) - KEYS)}; "
                          f"known: {sorted(KEYS)}")
     if mix.get("run") not in RUNS:
         raise ValueError(f"traffic 'run' must be one of {RUNS}, got "
                          f"{mix.get('run')!r}")
+    trace = config.get("kind") == "trace"
+    if (mix["run"] == "replay") != trace:
+        raise ValueError(f"a {mix['run']!r} mix cannot run on a "
+                         f"{'trace' if trace else 'loop-nest'} configuration")
+    if "resident_cache" in mix and (mix["run"] != "replay" or not
+                                    isinstance(mix["resident_cache"], bool)):
+        raise ValueError("'resident_cache' is a replay's, true or false")
     if mix["run"] == "sampled" and not 0 < float(mix.get("rate", 0)) <= 1:
         raise ValueError("a sampled mix needs a 'rate' in (0, 1]")
     for s in mix.get("schedules") or ():
@@ -66,7 +81,14 @@ def _seq(seed: int, stream: int) -> np.random.Generator:
         np.random.SeedSequence([seed % (1 << 64), stream]))
 
 
+def trace_rng(seed: int) -> np.random.Generator:
+    """The generator a trace configuration's file is written from."""
+    return _seq(seed, 3)
+
+
 def warmup(mix: dict, config: dict, seed: int) -> Prediction:
+    if mix["run"] == "replay":
+        return Prediction(0, 0)
     s = _seq(seed, 1).integers(0, 1 << 31) if mix["run"] == "sampled" \
         else None
     return Prediction(config["thread_num"], config["chunk_size"],
@@ -79,6 +101,9 @@ def predictions(mix: dict, config: dict, seed: int):
     draw = _seq(seed, 0)
     i = 0
     while True:
+        if mix["run"] == "replay":
+            yield Prediction(0, 0)
+            continue
         if scheds:
             T, CS = scheds[i % len(scheds)]
         else:
