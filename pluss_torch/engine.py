@@ -1497,7 +1497,9 @@ class _Walk:
 
     def window(self, ni: int, si: int, w: int, rows: slice) -> None:
         """Window ``w`` of segment ``si`` of nest ``ni`` for thread
-        ``rows``: every update lands in place in those rows."""
+        ``rows``: every update lands in place in those rows.  Each
+        overlaid array's window is an ``engine.overlay_window`` tally and
+        one count of ``engine.overlay_windows``."""
         nt = self.nests[ni]
         np_, cfg, spec, pdt = nt.np_, self.cfg, self.spec, self.pdt
         is_ultra, _, brefs = nt.segments[si]
@@ -1516,7 +1518,10 @@ class _Walk:
                 hist += dh
                 cand.append((ev["reuse"], ev["share"]))
             for dov in nt.dovl:
-                dh, plus, sub = device_window(dov, cfg, w, tids, nb, last_pos)
+                with obs.tally_span("engine.overlay_window"):
+                    dh, plus, sub = device_window(dov, cfg, w, tids, nb,
+                                                  last_pos)
+                obs.counter_add("engine.overlay_windows")
                 hist += dh
                 cand.append(plus)
                 minus.append(sub)

@@ -71,7 +71,8 @@ def syrk(n: int = 128) -> LoopNestSpec:
 
     ``A1 = A[j][k]`` is the cross-thread reference.  ``A`` mixes two
     parallel-dim coefficients (``A[i][k]`` and ``A[j][k]``), so the port
-    runs it on the device sort path in every window.
+    runs it through the interleave overlay (:mod:`pluss_torch.overlay`)
+    in the clean windows and on the device sort path in the others.
     """
     span = share_span_formula(n)
     c = lambda nm, w=False: Ref(nm, "C", addr_terms=((0, n), (1, 1)),
