@@ -19,7 +19,7 @@ results are held against — and holds every kernel of
 those paths against its plain torch version.  Each phase prints one JSON line; any failed check
 raises, so the script exits non-zero and prints no result line.  Phases:
 
-1. build: compile the three kernels from ``pluss_torch/csrc`` with one
+1. build: compile the four kernels from ``pluss_torch/csrc`` with one
    ``nvcc`` each, all at once; report each one's seconds and ptxas lines;
 2. kernel: the carried-event histogram kernel vs its plain version on
    random ghost-merged sorted windows at the main paths' shapes
@@ -56,7 +56,11 @@ raises, so the script exits non-zero and prints no result line.  Phases:
     take the O(lines) closed form, kernel 1 only in the ragged last
     one), the plan timed cold and then warm from a disk plan cache in a
     temp dir; held bit for bit against the same plan built without
-    overlays, whose overlaid arrays sort in every window;
+    overlays, whose overlaid arrays sort in every window, and against
+    the same plan with the overlay window's plain version in place of its
+    kernel (one launch per overlaid array and overlay window, then none);
+    the kernel against the plain version on two real windows, element for
+    element, and timed beside its bound;
 13. sliced: cholesky-2000 in thread batches of 2 and 1, equal to phase
     8's full run (kernel 1 once per window per batch); trmm-1000 with the
     device budget set to a quarter of its need, which the auto-dispatch
@@ -605,9 +609,11 @@ def counted(fn):
     it; return its result and the counts read just after it."""
     from pluss_torch.ops.decode import decode_d24v
     from pluss_torch.ops.event_hist import event_histogram, masked_histogram
+    from pluss_torch.ops.overlay_window import overlay_window
 
     wrappers = {"carried_event_hist": event_histogram,
-                "masked_hist": masked_histogram, "d24v_decode": decode_d24v}
+                "masked_hist": masked_histogram, "d24v_decode": decode_d24v,
+                "overlay_window": overlay_window}
     for w in wrappers.values():
         w.launches = 0
     out = fn()
@@ -644,7 +650,7 @@ def main() -> int:
     by_path: dict[str, dict[str, int]] = {}
 
     # 1. build ---------------------------------------------------------------
-    names = ("event_hist", "masked_hist", "d24v_decode")
+    names = ("event_hist", "masked_hist", "d24v_decode", "overlay_window")
     t0 = time.perf_counter()
     built = build.build(*names)
     emit({"phase": "build", "kernels": built,
@@ -902,8 +908,11 @@ def main() -> int:
                                                  "PLUSS_PLAN_CACHE_DIR")}
     os.environ["PLUSS_PLAN_CACHE_DIR"] = cache_dir
     try:
-        for spec in (syrk(1000), syr2k(1000)):
-            overlay_phase(spec, cfg, dev, by_path, sort_windows, conserved)
+        # the kernels line times the overlay window on syrk-1000's plan
+        ovk = overlay_phase(syrk(1000), cfg, dev, by_path, sort_windows,
+                            conserved)
+        overlay_phase(syr2k(1000), cfg, dev, by_path, sort_windows,
+                      conserved)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
         for k, v in saved.items():
@@ -1024,7 +1033,10 @@ def main() -> int:
         row("masked_hist", "pluss_torch/csrc/masked_hist.cu",
             "pluss/ops/pallas_events.py:263", mh, mh_err),
         row("d24v_decode", "pluss_torch/csrc/d24v_decode.cu",
-            "pluss/ops/pallas_decode.py:130", dec, dec_err)]})
+            "pluss/ops/pallas_decode.py:130", dec, dec_err),
+        row("overlay_window", "pluss_torch/csrc/overlay_window.cu",
+            "none: pluss/overlay.py:device_window is jnp that XLA fuses",
+            ovk, ovk["max_abs_err"], syrk1000_window=ovk)]})
     print(card_line(), flush=True)
     for line in serve_lines:
         print(line, flush=True)
@@ -1825,15 +1837,80 @@ def same_result(a, b) -> bool:
         and a.max_iteration_count == b.max_iteration_count
 
 
-def overlay_phase(spec, cfg, dev, by_path, sort_windows, conserved) -> None:
-    """Phases 11-12: ``engine.run`` of syrk/syr2k-1000 with interleave
-    overlays (plan timed cold, then warm from the disk cache the caller
-    armed), held bit for bit against the same plan built without overlays
-    on the card, whose overlaid arrays sort in every window."""
+def overlay_kernel_times(pl, cfg, dev) -> dict:
+    """The overlay-window kernel against its plain version on the card, on
+    nest 0's first overlay at the plan's first two overlay windows, from a
+    cold carried table and then from the one the first left: the
+    histogram, both ``plus`` and both ``minus`` tensors and the rewritten
+    table, element for element, and the largest absolute difference of
+    any of them (``max_abs_err``).  Then, at the second window, the wrapper's
+    time (CUDA events over 20 calls), the kernel's device time
+    (``torch.profiler``; with its memset), the plain version's time and the
+    bound: bytes over 3.35 TB/s."""
     import numpy as np
     import torch
 
-    from pluss_torch import engine
+    from pluss_torch import engine, overlay
+    from pluss_torch.config import NBINS
+    from pluss_torch.ops.overlay_window import widths
+
+    np_ = pl.nests[0]
+    ov = np_.overlays[0]
+    dov = overlay.DeviceOverlay(ov, dev)
+    T = cfg.thread_num
+    pdt = torch.int32 if pl.pos_dtype == np.int32 else torch.int64
+    last_pos = torch.full((T, pl.spec.total_lines(cfg)), -1, dtype=pdt,
+                          device=dev)
+    tids = torch.arange(T, dtype=torch.int64, device=dev)
+    nb = torch.as_tensor(pl.nest_base[0], device=dev)
+    ws = [w for ultra, w_list, _ in engine._segments_of(np_) if ultra
+          for w in w_list][:2]
+    err = 0
+    for w in ws:
+        lp = last_pos.clone()
+        want = overlay.device_window_plain(dov, cfg, w, tids, nb, lp)
+        got = overlay.device_window(dov, cfg, w, tids, nb, last_pos)
+        torch.cuda.synchronize()
+        pairs = [(got[0], want[0]), (last_pos, lp)] + [
+            (x, y) for g, wt in zip(got[1:], want[1:]) for x, y in zip(g, wt)]
+        check(all(x.shape == y.shape for x, y in pairs),
+              f"{pl.spec.name}: overlay_window's shapes != plain's")
+        err = max([err] + [int((x.long() - y.long()).abs().max())
+                           for x, y in pairs if x.numel()])
+        check(all(torch.equal(x, y) for x, y in pairs),
+              f"{pl.spec.name}: overlay_window != plain at window {w}")
+    w = ws[-1]
+    n_plus, n_minus = widths(ov, cfg)
+    # each row: its table slice read and written, plus and minus written
+    # (9 B an entry), the histogram; first0 and last0 once
+    need = T * (2 * ov.n_lines * last_pos.element_size()
+                + 9 * (n_plus + n_minus) + 8 * NBINS) + 16 * ov.n_lines
+    dev_ms, all_ms = device_ms(
+        lambda: overlay.device_window(dov, cfg, w, tids, nb, last_pos), 20,
+        "overlay_window")
+    return {"windows_checked": ws, "max_abs_err": err, "rows": T,
+            "lines": ov.n_lines,
+            "plus": n_plus, "minus": n_minus,
+            "ms": cuda_ms(lambda: overlay.device_window(
+                dov, cfg, w, tids, nb, last_pos), 20),
+            "device_ms": dev_ms, "device_all_ms": all_ms,
+            "plain_ms": cuda_ms(lambda: overlay.device_window_plain(
+                dov, cfg, w, tids, nb, last_pos), 3),
+            "bound_bytes": need, "bound_ms": need / HBM_BYTES_PER_S * 1e3}
+
+
+def overlay_phase(spec, cfg, dev, by_path, sort_windows, conserved) -> dict:
+    """Phases 11-12: ``engine.run`` of syrk/syr2k-1000 with interleave
+    overlays (plan timed cold, then warm from the disk cache the caller
+    armed), held bit for bit against the same plan built without overlays
+    on the card, whose overlaid arrays sort in every window, and against
+    the same plan run with the overlay window's plain version in place of
+    its kernel (one kernel launch per overlaid array and overlay window,
+    none then).  Returns :func:`overlay_kernel_times`."""
+    import numpy as np
+    import torch
+
+    from pluss_torch import engine, overlay
 
     label = f"{spec.name}"
     t0 = time.perf_counter()
@@ -1855,7 +1932,23 @@ def overlay_phase(spec, cfg, dev, by_path, sort_windows, conserved) -> None:
     check(counts["carried_event_hist"] == sort_windows(pl),
           f"{label}: {counts['carried_event_hist']} launches, "
           f"{sort_windows(pl)} sort windows")
+    n_ovl = sum(len(np_.overlays) * int(np_.ultra_windows().sum())
+                for np_ in pl.nests)
+    check(counts["overlay_window"] == n_ovl,
+          f"{label}: {counts['overlay_window']} overlay-kernel launches, "
+          f"{n_ovl} overlay windows")
     check(conserved(res), f"{label}: accesses not conserved")
+    saved = engine.device_window
+    engine.device_window = overlay.device_window_plain
+    try:
+        t0 = time.perf_counter()
+        res_plain, counts_plain = counted(lambda: engine._execute(pl, dev))
+        plain_s = time.perf_counter() - t0
+    finally:
+        engine.device_window = saved
+    check(same_result(res, res_plain) and counts_plain["overlay_window"] == 0,
+          f"{label}: overlay kernel run != plain overlay run")
+    times = overlay_kernel_times(pl, cfg, dev)
     curve = curve_of(res, cfg)
     check(curve[0] == 1.0 and bool((curve[1:] <= curve[:-1]).all())
           and bool(np.isfinite(curve).all()), f"{label}: MRC")
@@ -1877,12 +1970,15 @@ def overlay_phase(spec, cfg, dev, by_path, sort_windows, conserved) -> None:
           "plan_cold_s": plan_cold, "plan_warm_s": plan_warm,
           "engine_s": engine_s, "refs_per_s": res.max_iteration_count
           / engine_s, "event_kernel_launches": counts["carried_event_hist"],
-          "peak_device_gib": peak / 2**30,
+          "overlay_kernel_launches": counts["overlay_window"],
+          "plain_overlay": {"device_s": plain_s, "match": True},
+          "overlay_window": times, "peak_device_gib": peak / 2**30,
           "sort_path": {"path": engine.plan_path(off), "plan_s": off_plan,
                         "device_s": off_s, "engine_s": off_plan + off_s,
                         "event_kernel_launches":
                         counts_off["carried_event_hist"]},
           "match": True, "conserved": True, "ok": True})
+    return times
 
 
 def sliced_phase(cfg, by_path, chol_full, trmm_full, sort_windows) -> None:
@@ -2312,7 +2408,7 @@ def telemetry_phase(tmp: str, cfg, by_path: dict, res_off, counts_off: dict,
     n = rep_off.total_count
     n_batches = n // (trace.WINDOWS_PER_BATCH * trace.TRACE_WINDOW)
     trace_counts_off = {"carried_event_hist": 0, "masked_hist": n_batches,
-                        "d24v_decode": n_batches}
+                        "d24v_decode": n_batches, "overlay_window": 0}
     spec = mvt(4000)
     # an off run first: the plan memo may have dropped mvt-4000's plan
     # since phase 7, and the walls below compare runs, not plans
@@ -2643,7 +2739,7 @@ def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
               f"{label}: prediction != card engine ({detail})")
         want = {"carried_event_hist": sort_windows(
             engine.plan(REGISTRY[model](n), SamplerConfig())),
-            "masked_hist": 0, "d24v_decode": 0}
+            "masked_hist": 0, "d24v_decode": 0, "overlay_window": 0}
         check(counts == want and dispatches <= 1,
               f"{label}: launches {counts}, the plan's {want}; "
               f"{dispatches} dispatches")
@@ -3025,7 +3121,8 @@ def autotune_phase(by_path: dict, big_path: str, part_a) -> None:
             g = p["geometry"]
             n_batches = -(-n_refs // (g["batch_windows"] * g["window"]))
             want = {"carried_event_hist": 0, "masked_hist": 2 * n_batches,
-                    "d24v_decode": 2 * n_batches * (g["wire"] == "d24v")}
+                    "d24v_decode": 2 * n_batches * (g["wire"] == "d24v"),
+                    "overlay_window": 0}
             check(p["launches"] == want,
                   f"autotune point {g}: launches {p['launches']} != {want}")
         by_path["autotune"] = {
@@ -3303,7 +3400,7 @@ def serve_phase(tmp: str, cfg, by_path: dict, trace_rep, resm,
             by_path["serve_a"] = counts
             check(engine.DEVICE_DISPATCHES - d0 == 1
                   and counts == {"carried_event_hist": 4, "masked_hist": 0,
-                                 "d24v_decode": 0},
+                                 "d24v_decode": 0, "overlay_window": 0},
                   f"serve (a): {engine.DEVICE_DISPATCHES - d0} dispatches, "
                   f"launches {counts}")
             for o, r in zip(objs, rs):
@@ -3337,9 +3434,10 @@ def serve_phase(tmp: str, cfg, by_path: dict, trace_rep, resm,
             for label, want_counts in (
                     ("c_stage_through", {"carried_event_hist": 0,
                                          "masked_hist": 16,
-                                         "d24v_decode": 16}),
+                                         "d24v_decode": 16,
+                                         "overlay_window": 0}),
                     ("c_hit", {"carried_event_hist": 0, "masked_hist": 16,
-                               "d24v_decode": 0})):
+                               "d24v_decode": 0, "overlay_window": 0})):
                 r, counts = counted(lambda: c.request(
                     {"id": label, "trace": trace_path,
                      "output": "histogram"}))

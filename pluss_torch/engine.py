@@ -1289,12 +1289,17 @@ def shard_plan_cached(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
 
 
 def _build_kernels(pl: StreamPlan, dev: torch.device) -> None:
-    """Build the kernels a run of ``pl`` on ``dev`` launches (the
-    event-histogram kernel, when a window sorts and the device is CUDA):
-    the ``engine.compile`` fault site, once per run attempt."""
+    """Build the kernels a run of ``pl`` on ``dev`` launches when the
+    device is CUDA (the event-histogram kernel when a window sorts, the
+    overlay-window kernel when a nest has overlays): the
+    ``engine.compile`` fault site, once per run attempt."""
     faults.check("engine.compile")
-    if dev.type == "cuda" and any(np_.refs for np_ in pl.nests):
+    if dev.type != "cuda":
+        return
+    if any(np_.refs for np_ in pl.nests):
         build.load("event_hist")
+    if any(np_.overlays for np_ in pl.nests):
+        build.load("overlay_window")
 
 
 #: (spec, cfg, window_accesses) of default runs warmed in this process

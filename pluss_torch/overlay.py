@@ -23,9 +23,12 @@ Exactness is checked, not argued: :func:`verify_overlay` replays the
 correction algebra in numpy (:func:`arrival_corrections`,
 :func:`np_window_prediction`) against a brute-force lexsort of real
 windows at plan time, and a mismatch leaves the array on the sort path.
-:func:`device_window` is the same algebra in torch, batched over the
-simulated threads (the JAX package's ``vmap`` axis as the leading
-dimension); the engine's tests hold it against ``pluss.engine.run``.
+:func:`device_window_plain` is the same algebra in torch, batched over
+the simulated threads (the JAX package's ``vmap`` axis as the leading
+dimension); the engine's tests hold it against ``pluss.engine.run``.  On
+the card, :func:`device_window` runs it as one CUDA kernel
+(``csrc/overlay_window.cu``), held element for element to the plain
+version.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from pluss_torch.config import NBINS, SamplerConfig
+from pluss_torch.ops.overlay_window import check_inputs, overlay_window
 from pluss_torch.ops.reuse import bin_histogram, log2_bin, share_mask
 from pluss_torch.spec import FlatRef
 
@@ -630,6 +634,26 @@ def _bump(reuse, cold, share, wgt) -> torch.Tensor:
 def device_window(dov: DeviceOverlay, cfg: SamplerConfig, w: int,
                   tids: torch.Tensor, nb: torch.Tensor,
                   last_pos: torch.Tensor):
+    """One overlay window for thread rows ``tids`` ([Tb] int64), in place:
+    the arguments and results of :func:`device_window_plain`.
+
+    Inputs are checked (``ops.overlay_window.check_inputs``).  CPU tensors
+    take :func:`device_window_plain`; CUDA tensors launch the kernel
+    (``ops.overlay_window.overlay_window``, one launch for all rows,
+    counted in ``overlay_window.launches`` and the telemetry counter
+    ``kernel.launches.overlay_window``).  Nothing falls back."""
+    check_inputs(dov, tids, nb, last_pos)
+    if last_pos.device.type == "cpu":
+        return device_window_plain(dov, cfg, w, tids, nb, last_pos)
+    if last_pos.device.type != "cuda":
+        raise ValueError(f"no overlay-window kernel for device "
+                         f"{last_pos.device}")
+    return overlay_window(dov, cfg, w, tids, nb, last_pos)
+
+
+def device_window_plain(dov: DeviceOverlay, cfg: SamplerConfig, w: int,
+                        tids: torch.Tensor, nb: torch.Tensor,
+                        last_pos: torch.Tensor):
     """One overlay window for thread rows ``tids`` ([Tb] int64), in place.
 
     ``nb``: the rows' [Tb] nest bases; ``last_pos``: their [Tb, lines]

@@ -45,7 +45,8 @@ from pluss_torch.models import REGISTRY
 from pluss_torch.obs import xprof
 
 #: symbol prefixes of the port's CUDA kernels (pluss_torch/csrc/*.cu)
-PORT_KERNELS = ("carried_event_hist", "masked_hist", "d24v_")
+PORT_KERNELS = ("carried_event_hist", "masked_hist", "d24v_",
+                "overlay_window")
 
 
 def device_ops(events) -> list[tuple[str, float, int]]:

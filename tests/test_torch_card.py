@@ -478,6 +478,234 @@ def test_overlays_on_the_card_match_the_cpu(cuda_device, model, n, cls):
     assert off.share_raw == want.share_raw
 
 
+#: tests/test_torch_overlay.py's overlay grid: (n, threads, chunk, line size)
+OVERLAY_GRID = [(16, 4, 4, 8), (24, 3, 4, 8), (32, 2, 8, 16), (48, 4, 2, 8),
+                (64, 8, 2, 64), (40, 5, 4, 8)]
+
+
+def overlay_windows(pl, thread_batches: int = 1) -> int:
+    """Overlay-kernel launches of a plan: one per overlaid array and ultra
+    window, per thread batch."""
+    return thread_batches * sum(len(np_.overlays) * int(
+        np_.ultra_windows().sum()) for np_ in pl.nests)
+
+
+def compared_overlay_run(monkeypatch, run):
+    """``run()`` with every overlay window taken by the kernel and by the
+    plain version on a copy of its inputs, held element for element: the
+    histogram, both ``plus`` and both ``minus`` tensors, and the rewritten
+    carried table.  Returns the run's result and a tally of the windows
+    and of what their carried states held (cold lines, carried lines, and
+    head-broken substitutions of carried lines)."""
+    from pluss_torch import engine, overlay
+    from pluss_torch.ops.overlay_window import overlay_window
+
+    seen = {"windows": 0, "cold": 0, "carried": 0, "broken": 0}
+
+    def both(dov, cfg, w, tids, nb, last_pos):
+        ov = dov.ov
+        mine = last_pos[:, ov.line_base:ov.line_base + ov.n_lines]
+        seen["cold"] += int((mine < 0).sum())
+        seen["carried"] += int((mine >= 0).sum())
+        lp = last_pos.clone()
+        want = overlay.device_window_plain(dov, cfg, w, tids, nb, lp)
+        before = overlay_window.launches
+        got = overlay.device_window(dov, cfg, w, tids, nb, last_pos)
+        assert overlay_window.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        for pair, want_pair in zip(got[1:], want[1:]):
+            for x, y in zip(pair, want_pair):
+                assert x.dtype == y.dtype and x.shape == y.shape
+                assert torch.equal(x, y)
+        assert torch.equal(last_pos, lp)
+        na = ov.SL * ov.SL * ov.s_ref.trips[-1]
+        seen["broken"] += int((want[2][0][:, na:] != 0).sum())
+        seen["windows"] += 1
+        return got
+
+    monkeypatch.setattr(engine, "device_window", both)
+    res = run()
+    monkeypatch.undo()
+    return res, seen
+
+
+def same_run(got, want) -> None:
+    assert got.max_iteration_count == want.max_iteration_count
+    np.testing.assert_array_equal(got.noshare_dense, want.noshare_dense)
+    assert got.share_raw == want.share_raw
+
+
+@pytest.mark.parametrize("wa", [1, None])
+@pytest.mark.parametrize("pdt", [np.int32, np.int64])
+@pytest.mark.parametrize("n,T,CS,cls", OVERLAY_GRID)
+def test_overlay_kernel_matches_plain_on_the_grid(cuda_device, monkeypatch,
+                                                  n, T, CS, cls, pdt, wa):
+    """Single-round windows (``wa`` 1), so every window after the first
+    reads the carried state the earlier ones left, and the default
+    windows, of 1 to 6 rounds (W) each."""
+    import dataclasses
+
+    from pluss_torch import engine
+    from pluss_torch.config import SamplerConfig
+    from pluss_torch.models import REGISTRY
+
+    cfg = SamplerConfig(thread_num=T, chunk_size=CS, cls=cls)
+    pl = dataclasses.replace(
+        engine.plan(REGISTRY["syrk"](n), cfg, window_accesses=wa),
+        pos_dtype=np.dtype(pdt))
+    if wa is None:
+        assert max(ov.W for ov in pl.nests[0].overlays) > 1 or n == 16
+    got, seen = compared_overlay_run(
+        monkeypatch, lambda: engine._execute(pl, cuda_device))
+    assert seen["windows"] == overlay_windows(pl) > 0 and seen["cold"] > 0
+    if seen["windows"] > 1:
+        assert seen["carried"] > 0 and seen["broken"] > 0
+    same_run(got, engine._execute(pl, torch.device("cpu")))
+
+
+@pytest.mark.parametrize("model,n,kw,tb", [
+    ("syrk", 48, {"cls": 8}, 1),
+    ("syrk", 64, {"chunk_size": 2}, 2),
+    ("syr2k", 32, {}, None),
+    ("syr2k", 32, {"cls": 8}, 2),
+])
+def test_overlay_kernel_matches_plain_on_row_slices_and_syr2k(
+        cuda_device, monkeypatch, model, n, kw, tb):
+    """Rows of 1 or 2 threads (``run_sliced``), and syr2k's two overlays."""
+    from pluss_torch import engine
+    from pluss_torch.config import SamplerConfig
+    from pluss_torch.models import REGISTRY
+
+    spec, cfg = REGISTRY[model](n), SamplerConfig(**kw)
+    pl = engine.plan(spec, cfg, window_accesses=1)
+    got, seen = compared_overlay_run(monkeypatch, lambda: engine.run_sliced(
+        spec, cfg, device=cuda_device, window_accesses=1, thread_batch=tb))
+    batches = 1 if tb is None else -(-cfg.thread_num // tb)
+    assert seen["windows"] == overlay_windows(pl, batches)
+    assert seen["carried"] > 0 and seen["broken"] > 0
+    same_run(got, engine.run(spec, cfg, device="cpu", window_accesses=1))
+
+
+#: windows of several rounds (W > 1), several windows a run, so both the
+#: rounds inside a launch and the state carried between launches are
+#: read: (model, n, config, window accesses, thread batch)
+MULTI_ROUND = [
+    ("syrk", 48, {"thread_num": 4, "chunk_size": 2, "cls": 8}, 1 << 15,
+     None),
+    ("syrk", 64, {"thread_num": 2, "chunk_size": 2, "cls": 8}, 1 << 16,
+     None),
+    ("syrk", 64, {"thread_num": 2, "chunk_size": 2, "cls": 8}, 1 << 17,
+     None),
+    ("syrk", 64, {"thread_num": 2, "chunk_size": 2, "cls": 8}, 1 << 18,
+     1),
+    ("syrk", 96, {}, 1 << 18, 2),
+    ("syrk", 256, {}, None, None),
+    ("syr2k", 96, {}, 1 << 18, None),
+    ("syr2k", 64, {"cls": 8}, 1 << 17, 2),
+]
+
+
+@pytest.mark.parametrize("model,n,kw,wa,tb,pdt", [
+    (*case, pdt) for case in MULTI_ROUND
+    # a sliced run plans its own positions; a whole plan takes either
+    for pdt in ((np.int32, np.int64) if case[-1] is None else (np.int32,))])
+def test_overlay_kernel_matches_plain_on_multi_round_windows(
+        cuda_device, monkeypatch, model, n, kw, wa, tb, pdt):
+    import dataclasses
+
+    from pluss_torch import engine
+    from pluss_torch.config import SamplerConfig
+    from pluss_torch.models import REGISTRY
+
+    spec, cfg = REGISTRY[model](n), SamplerConfig(**kw)
+    pl = dataclasses.replace(engine.plan(spec, cfg, window_accesses=wa),
+                             pos_dtype=np.dtype(pdt))
+    assert min(ov.W for np_ in pl.nests for ov in np_.overlays) > 1
+    assert overlay_windows(pl) > len(pl.nests[0].overlays)
+    if tb is None:
+        got, seen = compared_overlay_run(
+            monkeypatch, lambda: engine._execute(pl, cuda_device))
+        batches = 1
+    else:
+        got, seen = compared_overlay_run(
+            monkeypatch, lambda: engine.run_sliced(
+                spec, cfg, device=cuda_device, window_accesses=wa,
+                thread_batch=tb))
+        batches = -(-cfg.thread_num // tb)
+    assert seen["windows"] == overlay_windows(pl, batches)
+    assert seen["cold"] > 0 and seen["carried"] > 0 and seen["broken"] > 0
+    same_run(got, engine._execute(pl, torch.device("cpu")))
+
+
+def two_nest_spec(n: int):
+    """tests/test_torch_overlay.py's two-nest carry, in the port's own
+    types: two nests over ``A``, the second re-touching the lines the
+    first left, so its windows read carried positions through the nest
+    base ``nb``."""
+    from pluss_torch.spec import Loop, LoopNestSpec, Ref, share_span_formula
+
+    span = share_span_formula(n)
+
+    def a_nest():
+        inner = Loop(trip=n, body=(
+            Ref("A0", "A", addr_terms=((0, n), (2, 1))),
+            Ref("A1", "A", addr_terms=((1, n), (2, 1)), share_span=span),
+        ))
+        return Loop(trip=n, body=(Loop(trip=n, body=(inner,)),))
+
+    return LoopNestSpec(name="twice", arrays=(("A", n * n),),
+                        nests=(a_nest(), a_nest()))
+
+
+@pytest.mark.parametrize("n,kw,wa", [
+    (16, {"cls": 8}, None),
+    (32, {"cls": 8}, 1),
+    (32, {"thread_num": 2, "chunk_size": 2, "cls": 8}, 1 << 14),
+    (48, {"thread_num": 2, "chunk_size": 2, "cls": 8}, 1 << 14),
+    (64, {"cls": 8}, 1 << 16),
+    (32, {"thread_num": 2, "chunk_size": 2, "cls": 8}, None),
+])
+def test_overlay_kernel_matches_plain_on_the_two_nest_carry(
+        cuda_device, monkeypatch, n, kw, wa):
+    from pluss_torch import engine
+    from pluss_torch.config import SamplerConfig
+
+    cfg = SamplerConfig(**kw)
+    pl = engine.plan(two_nest_spec(n), cfg, window_accesses=wa)
+    assert [len(np_.overlays) for np_ in pl.nests] == [1, 1]
+    assert (np.asarray(pl.nest_base[1]) > 0).all()
+    got, seen = compared_overlay_run(
+        monkeypatch, lambda: engine._execute(pl, cuda_device))
+    assert seen["windows"] == overlay_windows(pl)
+    assert seen["cold"] > 0 and seen["carried"] > 0
+    same_run(got, engine._execute(pl, torch.device("cpu")))
+
+
+def test_overlay_kernel_on_syrk_1024(cuda_device, monkeypatch, tmp_path):
+    """The benchmark's syrk-1024: every one of its 64 windows equal to the
+    plain version's, then a run under telemetry whose kernel launches
+    equal its overlay windows, 64."""
+    from pluss_torch import engine, obs
+    from pluss_torch.models import REGISTRY
+
+    spec = REGISTRY["syrk"](1024)
+    pl = engine.plan(spec)
+    assert overlay_windows(pl) == 64
+    got, seen = compared_overlay_run(
+        monkeypatch, lambda: engine._execute(pl, cuda_device))
+    assert seen["windows"] == 64 and seen["carried"] > 0
+    obs.configure(str(tmp_path / "t.jsonl"))
+    try:
+        res = engine.run(spec, device=cuda_device)
+        counters = obs.counters()
+    finally:
+        obs.shutdown()
+    assert counters["kernel.launches.overlay_window"] \
+        == counters["engine.overlay_windows"] == 64
+    same_run(res, got)
+
+
 @pytest.mark.parametrize("tb", [1, 2, 3])
 def test_sliced_runs_on_the_card_match_the_full_run(cuda_device, tb):
     from pluss_torch import engine
