@@ -748,8 +748,7 @@ def describe_path(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
     nothing after a run."""
     pl = _plan_cached(spec, cfg, None, None, window_accesses)
     label = plan_path(pl)
-    if not os.environ.get("PLUSS_NO_AUTO_DISPATCH") and _auto_dispatch(
-            pl, cfg, None, sort_budget(resolve_device(device))) is not None:
+    if _dispatch(pl, cfg, None, sort_budget(resolve_device(device)))[1]:
         label = "sliced:" + label
     if degradations:
         from pluss_torch.resilience.ladder import degradation_label
@@ -861,35 +860,24 @@ def _ref_window(fr: FlatRef, np_: NestPlan, cfg: SamplerConfig,
             flat(valid, torch.bool))
 
 
-def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
-                 nb: torch.Tensor, pdt, last_pos: torch.Tensor,
-                 win_shift: int, event_hist,
-                 clock: torch.Tensor | None = None,
+def _sort_window(dn: DeviceNest, refs, ranges, w: int, rows,
+                 last_pos: torch.Tensor, event_hist,
                  with_sorted: bool = False):
-    """One sort-path window over ``refs`` for the rows of ``owned``,
-    ghost-merged with the carry.
+    """One sort-path window of nest ``dn`` over ``refs`` for thread
+    ``rows``, ghost-merged with the carry.
 
-    The carried ``last_pos`` slices of the covered arrays enter the sort as
-    ghost entries, so every access's predecessor is its sorted left
-    neighbour; the segment tails are written back into ``last_pos`` in
-    place.  Returns ``(hist, ev)``: the window's ``[rows, NBINS]`` event
-    histogram from ``event_hist`` and its event dict (for the share
-    extraction).  ``event_hist=None`` is a warm walk: only the tails
-    update, nothing is binned or launched, and both are None.
+    The carried ``last_pos`` slices of the covered arrays (``ranges``)
+    enter the sort as ghost entries, so every access's predecessor is its
+    sorted left neighbour; the segment tails are written back into
+    ``last_pos`` in place.  Returns ``(hist, ev)``: the window's ``[rows,
+    NBINS]`` event histogram from ``event_hist`` and its event dict (for
+    the share extraction).  ``event_hist=None`` is a warm walk: only the
+    tails update, nothing is binned or launched, and both are None.
     ``with_sorted`` adds a third item, the sorted ``(key_s, pos_s,
     span_s)`` (the sharded window captures its heads from them).
     """
     with obs.tally_span("engine.sort_window"):
-        r0 = w * np_.window_rounds
-        bases = spec.line_bases(cfg)
-        # the sort carries a one-byte code per entry, an index into the
-        # window's share spans (ghosts: span 0), and looks the spans up
-        # after
-        spans = sorted({0, *(fr.ref.share_span or 0 for fr in refs)})
-        parts = [_ref_window(fr, np_, cfg, owned, r0, nb,
-                             bases[spec.array_index(fr.ref.array)], pdt,
-                             spans.index(fr.ref.share_span or 0), clock)
-                 for fr in refs]
+        parts, span_of = dn.stream(refs, w, rows)
         for b, c in ranges:
             line, pos, _, valid = ghost_entries(last_pos[:, b:b + c], b)
             parts.append((line, pos,
@@ -897,8 +885,7 @@ def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
         cols = [torch.cat([p[i] for p in parts], dim=1) for i in range(4)]
         del parts   # the per-ref blocks are not held through the sort
         key_s, pos_s, code_s, valid_s = sort_columns(cols)   # empties cols
-        span_s = torch.tensor(spans, dtype=torch.int32,
-                              device=code_s.device)[code_s.long()]
+        span_s = span_of(code_s)
         del code_s
         tails = extract_tails(key_s, pos_s, valid_s,
                               sum(c for _, c in ranges))
@@ -908,12 +895,14 @@ def _sort_window(np_: NestPlan, refs, ranges, spec, cfg, owned, w: int,
             off += c
         if event_hist is None:
             return None, None
-        if clock is None:
-            win_start = (nb + w * win_shift).to(pdt)
+        nb = dn.nb[rows]
+        if dn.clock is None:
+            win_start = (nb + w * dn.win_shift).to(dn.pdt)
         else:
             # bounded nest: the window's smallest position is the clock at
             # its first stream slot
-            win_start = (nb + clock[:, r0 * cfg.chunk_size]).to(pdt)
+            slot = w * dn.np_.window_rounds * dn.cfg.chunk_size
+            win_start = (nb + dn.clock[rows][:, slot]).to(dn.pdt)
         out = (event_hist(key_s, pos_s, span_s, valid_s, win_start),
                carried_events(key_s, pos_s, span_s, valid_s, win_start))
         return out + ((key_s, pos_s, span_s),) if with_sorted else out
@@ -937,17 +926,17 @@ class _DeviceTemplate:
         self.hs_idx = as_t(tpl.hs_idx, torch.int64)
 
 
-def _template_window(dt: _DeviceTemplate, w: int, tids: torch.Tensor,
-                     nb: torch.Tensor, pdt, last_pos: torch.Tensor,
-                     hist: torch.Tensor):
-    """The static-template part of an ultra window for every thread:
+def _template_window(dn: DeviceNest, w: int, rows,
+                     last_pos: torch.Tensor, hist: torch.Tensor):
+    """The static-template part of ultra window ``w`` for thread ``rows``:
     resolve the head lines against the carried table, add the local
     histogram, write the tail positions back (``hist`` and ``last_pos`` in
     place).  Returns the share-capable heads' ``(reuse, share)``."""
+    dt = dn.dtpl
     tpl = dt.tpl
     with obs.tally_span("engine.template_window"):
-        units = (w - tpl.w0) * tpl.unit_w + (tids - tpl.t0)        # [T]
-        dpos = ((w - tpl.w0) * tpl.pos_shift + nb).to(pdt)
+        units = (w - tpl.w0) * tpl.unit_w + (dn.tids[rows] - tpl.t0)  # [T]
+        dpos = ((w - tpl.w0) * tpl.pos_shift + dn.nb[rows]).to(dn.pdt)
         carried = last_pos.gather(1, dt.hline + dt.hdl * units[:, None])
         cold = carried < 0
         reuse = (dt.hpos + dpos[:, None]) - carried
@@ -958,6 +947,60 @@ def _template_window(dt: _DeviceTemplate, w: int, tids: torch.Tensor,
         last_pos.scatter_(1, dt.tline + dt.tdl * units[:, None],
                           dt.tpos + dpos[:, None])
         return reuse[:, dt.hs_idx], share[:, dt.hs_idx]
+
+
+class DeviceNest:
+    """One nest of a plan on one device, for every thread row: the tables
+    that every window walker reads (:class:`_Walk`, the subset sampler,
+    the sharded backend's chunk functions), and the window bodies bound to
+    them.  ``rows`` is always a slice of the thread rows."""
+
+    def __init__(self, pl: StreamPlan, ni: int, device: torch.device):
+        np_, cfg, spec = pl.nests[ni], pl.cfg, pl.spec
+        as_dev = lambda a: None if a is None else \
+            torch.as_tensor(a, device=device)
+        self.np_, self.cfg, self.spec, self.device = np_, cfg, spec, device
+        self.pdt = torch.int32 if pl.pos_dtype == np.int32 else torch.int64
+        self.n_lines = spec.total_lines(cfg)
+        self.tids = torch.arange(cfg.thread_num, dtype=torch.int64,
+                                 device=device)
+        self.nb = torch.as_tensor(pl.nest_base[ni], device=device)
+        self.owned = torch.as_tensor(np_.owned, device=device) \
+            .to(torch.int64)
+        self.clock = as_dev(np_.clock)
+        self.rpg = as_dev(np_.rpg_hist)
+        self.win_shift = np_.window_rounds * cfg.chunk_size * np_.body
+        self.all_ranges = _array_ranges(np_.refs, spec, cfg)
+        self.var_ranges = _array_ranges(np_.var_refs_novl, spec, cfg)
+        self.dtpl = None if np_.tpl is None else \
+            _DeviceTemplate(np_.tpl, self.pdt, device)
+        self.dovl = [DeviceOverlay(ov, device) for ov in np_.overlays]
+        self.segments = _segments_of(np_)
+        #: each window's ``(is_ultra, bucket refs)``, from its segment
+        self.path = {w: (u, brefs) for u, ws, brefs in self.segments
+                     for w in ws}
+
+    def stream(self, refs, w: int, rows):
+        """Window ``w`` over ``refs`` for thread ``rows``: the per-ref
+        ``[rows, n]`` (line, pos, code, valid) blocks of
+        :func:`_ref_window` in program order, and ``span_of``, which maps
+        a code column to its int32 share spans (code 0 is span 0, the
+        ghosts'): a sort carries one byte where the span takes four."""
+        cfg, spec = self.cfg, self.spec
+        bases = spec.line_bases(cfg)
+        r0 = w * self.np_.window_rounds
+        owned, nb = self.owned[rows], self.nb[rows]
+        clock = None if self.clock is None else self.clock[rows]
+        spans = sorted({0, *(fr.ref.share_span or 0 for fr in refs)})
+        parts = [_ref_window(fr, self.np_, cfg, owned, r0, nb,
+                             bases[spec.array_index(fr.ref.array)], self.pdt,
+                             spans.index(fr.ref.share_span or 0), clock)
+                 for fr in refs]
+        return parts, lambda code: torch.tensor(
+            spans, dtype=torch.int32, device=code.device)[code.long()]
+
+    sort_window = _sort_window
+    template_window = _template_window
 
 
 @dataclasses.dataclass
@@ -1230,6 +1273,23 @@ def _auto_dispatch(pl: StreamPlan, cfg: SamplerConfig,
     return _normalize_thread_batch(conc, cfg), "; ".join(reasons)
 
 
+def _dispatch(pl: StreamPlan, cfg: SamplerConfig, thread_batch: int | None,
+              limit: int) -> tuple:
+    """How a default run of ``pl`` within ``limit`` device bytes goes:
+    ``(thread_batch, dispatch_entries, reason)``.  One dispatch keeps
+    ``thread_batch`` and has None for the other two; a plan
+    :func:`_auto_dispatch` reroutes gets its thread batch,
+    :func:`_dispatch_entry_budget` and the reason.
+    ``PLUSS_NO_AUTO_DISPATCH=1`` keeps every plan on one dispatch; this is
+    its only reader.  The caller reads :func:`sort_budget` once for this
+    and its budget check (a read takes ~0.65 ms on an H100)."""
+    if not os.environ.get("PLUSS_NO_AUTO_DISPATCH"):
+        decision = _auto_dispatch(pl, cfg, thread_batch, limit)
+        if decision is not None:
+            return decision[0], _dispatch_entry_budget(), decision[1]
+    return thread_batch, None, None
+
+
 def _freeze(assignment):
     """Per-nest assignments as hashable tuples (the plan memo's key)."""
     if assignment is None:
@@ -1348,16 +1408,14 @@ def run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *, device=None,
     pl = _plan_cached(spec, cfg, assignment, start_point, window_accesses)
     limit = sort_budget(dev)
     budget = None
-    if backend == "vmap" and not os.environ.get("PLUSS_NO_AUTO_DISPATCH"):
-        decision = _auto_dispatch(pl, cfg, tb, limit)
-        if decision is not None:
-            tb, reason = decision
+    if backend == "vmap":
+        tb, budget, reason = _dispatch(pl, cfg, tb, limit)
+        if reason is not None:
             print(f"engine: auto-sliced dispatch (thread_batch="
                   f"{tb or cfg.thread_num}): {reason}", file=sys.stderr)
             obs.counter_add("engine.auto_dispatch_reroutes")
             obs.event("engine.auto_dispatch", model=spec.name,
                       thread_batch=tb or cfg.thread_num, reason=reason)
-            budget = _dispatch_entry_budget()
     check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, limit, tb)
     _build_kernels(pl, dev)
     if assignment is None and start_point is None:
@@ -1417,10 +1475,8 @@ def precompile(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
             _build_kernels(pl, dev)
             if assignment is None and start_point is None:
                 _warm_keys.add((spec, plan_cfg(cfg), window_accesses))
-            if os.environ.get("PLUSS_NO_AUTO_DISPATCH") or \
-                    _auto_dispatch(pl, cfg, tb, sort_budget(dev)) is None:
-                return "full"
-            return "sliced"
+            return "sliced" if _dispatch(pl, cfg, tb,
+                                         sort_budget(dev))[1] else "full"
 
     # single-flight: a serve --warm entry racing the daemon's background
     # compile of the same key warms once; both get its answer (or error)
@@ -1439,13 +1495,9 @@ def warm_run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT, *,
     auto-dispatch ladder applies as in :func:`run`, silently."""
     dev = resolve_device(device)
     pl = _plan_cached(spec, cfg, None, None, window_accesses)
-    tb = budget = None
-    if not os.environ.get("PLUSS_NO_AUTO_DISPATCH"):
-        decision = _auto_dispatch(pl, cfg, tb, sort_budget(dev))
-        if decision is not None:
-            tb, budget = decision[0], _dispatch_entry_budget()
-    check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, sort_budget(dev),
-                      tb)
+    limit = sort_budget(dev)
+    tb, budget, _ = _dispatch(pl, cfg, None, limit)
+    check_sort_budget(pl.nests, spec, cfg, pl.pos_dtype, limit, tb)
     _execute(pl, dev, thread_batch=tb, dispatch_entries=budget)
 
 
@@ -1458,44 +1510,20 @@ def is_warm(spec: LoopNestSpec, cfg: SamplerConfig,
     return (spec, plan_cfg(cfg), window_accesses) in _warm_keys
 
 
-class _NestTensors:
-    """One nest's plan arrays on the device, for every thread row."""
-
-    def __init__(self, np_: NestPlan, spec, cfg, pdt, device):
-        as_dev = lambda a: None if a is None else \
-            torch.as_tensor(a, device=device)
-        self.np_ = np_
-        self.owned = torch.as_tensor(np_.owned, device=device) \
-            .to(torch.int64)
-        self.clock = as_dev(np_.clock)
-        self.rpg = as_dev(np_.rpg_hist)
-        self.win_shift = np_.window_rounds * cfg.chunk_size * np_.body
-        self.all_ranges = _array_ranges(np_.refs, spec, cfg)
-        self.var_ranges = _array_ranges(np_.var_refs_novl, spec, cfg)
-        self.dtpl = None if np_.tpl is None else \
-            _DeviceTemplate(np_.tpl, pdt, device)
-        self.dovl = [DeviceOverlay(ov, device) for ov in np_.overlays]
-        self.segments = _segments_of(np_)
-
-
 class _Walk:
     """The device state of one run: the carried ``last_pos [T, lines]``
     table, the ``[T, NBINS]`` histogram and the share uniques, which
     :meth:`window` advances for any contiguous range of thread rows."""
 
     def __init__(self, pl: StreamPlan, device: torch.device, event_hist):
-        cfg, spec = pl.cfg, pl.spec
-        T = cfg.thread_num
-        self.pl, self.cfg, self.spec = pl, cfg, spec
+        T = pl.cfg.thread_num
         self.event_hist = event_hist
-        self.pdt = torch.int32 if pl.pos_dtype == np.int32 else torch.int64
-        self.last_pos = torch.full((T, spec.total_lines(cfg)), -1,
-                                   dtype=self.pdt, device=device)
+        pdt = torch.int32 if pl.pos_dtype == np.int32 else torch.int64
+        self.last_pos = torch.full((T, pl.spec.total_lines(pl.cfg)), -1,
+                                   dtype=pdt, device=device)
         self.hist = torch.zeros((T, NBINS), dtype=torch.int64, device=device)
-        self.tids = torch.arange(T, dtype=torch.int64, device=device)
-        self.nest_base = torch.as_tensor(pl.nest_base, device=device)
-        self.nests = [_NestTensors(np_, spec, cfg, self.pdt, device)
-                      for np_ in pl.nests]
+        self.nests = [DeviceNest(pl, ni, device)
+                      for ni in range(len(pl.nests))]
         # share uniques to add, and the overlays' to subtract
         self.plus: list[tuple[torch.Tensor, torch.Tensor]] = []
         self.minus: list[tuple[torch.Tensor, torch.Tensor]] = []
@@ -1505,45 +1533,40 @@ class _Walk:
         ``rows``: every update lands in place in those rows.  Each
         overlaid array's window is an ``engine.overlay_window`` tally and
         one count of ``engine.overlay_windows``."""
-        nt = self.nests[ni]
-        np_, cfg, spec, pdt = nt.np_, self.cfg, self.spec, self.pdt
-        is_ultra, _, brefs = nt.segments[si]
+        dn = self.nests[ni]
+        np_ = dn.np_
+        is_ultra, _, brefs = dn.segments[si]
         last_pos, hist = self.last_pos[rows], self.hist[rows]
-        tids, nb, owned = self.tids[rows], self.nest_base[ni, rows], \
-            nt.owned[rows]
+        tids = dn.tids[rows]
         cand, minus = [], []
         if is_ultra:
             # template-ineligible arrays without an overlay sort inside the
             # clean window too; the arrays' line ranges are disjoint, so
             # the parts update the carried table independently
             if np_.var_refs_novl:
-                dh, ev = _sort_window(np_, np_.var_refs_novl, nt.var_ranges,
-                                      spec, cfg, owned, w, nb, pdt, last_pos,
-                                      nt.win_shift, self.event_hist)
+                dh, ev = dn.sort_window(np_.var_refs_novl, dn.var_ranges, w,
+                                        rows, last_pos, self.event_hist)
                 hist += dh
                 cand.append((ev["reuse"], ev["share"]))
-            for dov in nt.dovl:
+            for dov in dn.dovl:
                 with obs.tally_span("engine.overlay_window"):
-                    dh, plus, sub = device_window(dov, cfg, w, tids, nb,
-                                                  last_pos)
+                    dh, plus, sub = device_window(dov, dn.cfg, w, tids,
+                                                  dn.nb[rows], last_pos)
                 obs.counter_add("engine.overlay_windows")
                 hist += dh
                 cand.append(plus)
                 minus.append(sub)
-            if nt.dtpl is not None:
-                cand.append(_template_window(nt.dtpl, w, tids, nb, pdt,
-                                             last_pos, hist))
+            if dn.dtpl is not None:
+                cand.append(dn.template_window(w, rows, last_pos, hist))
         elif np_.refs:
             # a window whose arrays are all closed-form sorts nothing and
             # launches nothing
-            clock = None if nt.clock is None else nt.clock[rows]
-            dh, ev = _sort_window(np_, brefs or np_.refs, nt.all_ranges,
-                                  spec, cfg, owned, w, nb, pdt, last_pos,
-                                  nt.win_shift, self.event_hist, clock)
+            dh, ev = dn.sort_window(brefs or np_.refs, dn.all_ranges, w,
+                                    rows, last_pos, self.event_hist)
             hist += dh
             cand.append((ev["reuse"], ev["share"]))
-        if nt.rpg is not None:
-            hist += nt.rpg[rows, w]
+        if dn.rpg is not None:
+            hist += dn.rpg[rows, w]
         if not (cand or minus):
             return
         # torch.unique sizes its output from the device's data, so the

@@ -38,8 +38,8 @@ A device list may name one device more than once: each entry is a worker
 their own CUDA stream).  Windows run through the segmented kernel
 (:func:`pluss_torch.ops.reuse.batch_events`, one thread's window per call,
 kernel 2 for its histogram) by default; ``segmented=False`` takes the
-legacy ghost-merged window (:func:`pluss_torch.engine._sort_window`, all
-threads at once, kernel 1), bit-identical.
+legacy ghost-merged window (:meth:`pluss_torch.engine.DeviceNest.sort_window`,
+all threads at once, kernel 1), bit-identical.
 
 Departures from the JAX package, by design:
 
@@ -64,9 +64,9 @@ import torch
 
 from pluss_torch import engine, obs
 from pluss_torch.config import DEFAULT, NBINS, SamplerConfig
-from pluss_torch.engine import (SamplerResult, StreamPlan, add_static_share,
-                                merge_share_windows, natural_n_windows,
-                                shard_plan_cached)
+from pluss_torch.engine import (DeviceNest, SamplerResult, StreamPlan,
+                                add_static_share, merge_share_windows,
+                                natural_n_windows, shard_plan_cached)
 from pluss_torch.ops.event_hist import event_histogram as carried_histogram
 from pluss_torch.ops.reuse import (batch_events, bin_histogram,
                                    event_histogram, log2_bin, share_keys,
@@ -186,38 +186,13 @@ def _shard_geometry(spec: LoopNestSpec, cfg: SamplerConfig, D: int,
 # the window body, shared by both modes
 
 
-class _NestDevice:
-    """One nest's plan arrays on one device, for every thread row."""
-
-    def __init__(self, pl: StreamPlan, ni: int, device: torch.device):
-        np_, cfg, spec = pl.nests[ni], pl.cfg, pl.spec
-        self.np_, self.cfg, self.spec = np_, cfg, spec
-        self.device = device
-        self.pdt = torch.int32 if pl.pos_dtype == np.int32 else torch.int64
-        self.n_lines = spec.total_lines(cfg)
-        self.owned = torch.as_tensor(np_.owned, device=device).to(torch.int64)
-        self.clock = None if np_.clock is None else \
-            torch.as_tensor(np_.clock, device=device)
-        self.nb = torch.as_tensor(pl.nest_base[ni], device=device)
-        self.tids = torch.arange(cfg.thread_num, device=device)
-        self.win_shift = np_.window_rounds * cfg.chunk_size * np_.body
-        self.all_ranges = engine._array_ranges(np_.refs, spec, cfg)
-        self.var_ranges = engine._array_ranges(np_.var_refs, spec, cfg)
-        self.dtpl = None if np_.tpl is None else \
-            engine._DeviceTemplate(np_.tpl, self.pdt, device)
-        self.ultra = np_.ultra_windows()
-        # bounded nests: each window's refs with the bucket's own trips
-        self.brefs = {w: brefs for ws, brefs in (np_.tri_buckets or ())
-                      for w in ws}
-
-
 class _Scope:
     """The carried state of one scope (a segment or a chunk): ``last_pos``
     (ends as the scope's tails), the histogram, the captured heads and
     their share spans, each line table with a dump slot at ``n_lines``;
     and the window share keys gathered so far."""
 
-    def __init__(self, nd: _NestDevice):
+    def __init__(self, nd: DeviceNest):
         T, L, dev = nd.cfg.thread_num, nd.n_lines, nd.device
         self.last_pos = torch.full((T, L + 1), -1, dtype=nd.pdt, device=dev)
         self.hist = torch.zeros((T, NBINS), dtype=torch.int64, device=dev)
@@ -235,29 +210,17 @@ class _Scope:
         self.head_span[rows].scatter_(-1, idx, span_s.to(torch.int32))
 
 
-def _row_stream(nd: _NestDevice, refs, w: int, t: int, with_clock: bool):
+def _row_stream(nd: DeviceNest, refs, w: int, t: int):
     """``(line, pos, span, valid)`` of thread ``t``'s window ``w`` over
     ``refs``, in program order (refs concatenated), 1-D."""
-    np_, cfg, spec = nd.np_, nd.cfg, nd.spec
-    bases = spec.line_bases(cfg)
-    r0 = w * np_.window_rounds
-    rows = slice(t, t + 1)
-    clock = nd.clock[rows] if with_clock and nd.clock is not None else None
-    spans = sorted({0, *(fr.ref.share_span or 0 for fr in refs)})
-    parts = [engine._ref_window(fr, np_, cfg, nd.owned[rows], r0, nd.nb[rows],
-                                bases[spec.array_index(fr.ref.array)],
-                                nd.pdt, spans.index(fr.ref.share_span or 0),
-                                clock)
-             for fr in refs]
+    parts, span_of = nd.stream(refs, w, slice(t, t + 1))
     line, pos, code, valid = (torch.cat([p[i][0] for p in parts])
                               for i in range(4))
-    span = torch.tensor(spans, dtype=torch.int32,
-                        device=nd.device)[code.long()]
-    return line, pos, span, valid
+    return line, pos, span_of(code), valid
 
 
-def _sort_part(nd: _NestDevice, st: _Scope, refs, ranges, w: int,
-               with_clock: bool, segmented: bool) -> None:
+def _sort_part(nd: DeviceNest, st: _Scope, refs, ranges, w: int,
+               segmented: bool) -> None:
     """The sort-path part of window ``w`` over ``refs`` for every thread:
     events binned (no colds: those are heads), heads captured, tails
     carried, share keys kept."""
@@ -266,7 +229,7 @@ def _sort_part(nd: _NestDevice, st: _Scope, refs, ranges, w: int,
         # one thread's window per call: one sort, one carried gather, one
         # tail scatter; kernel 2 bins it
         for t in range(nd.cfg.thread_num):
-            line, pos, span, valid = _row_stream(nd, refs, w, t, with_clock)
+            line, pos, span, valid = _row_stream(nd, refs, w, t)
             ev = batch_events(line, pos, valid, st.last_pos[t], span=span,
                               pos_sorted=False)
             del line, pos, span, valid
@@ -277,10 +240,8 @@ def _sort_part(nd: _NestDevice, st: _Scope, refs, ranges, w: int,
         return
     # legacy: every thread's ghost-merged window at once; kernel 1 bins
     # it, colds included in slot 0, which come off again
-    clock = nd.clock if with_clock else None
-    dh, ev, (key_s, pos_s, span_s) = engine._sort_window(
-        nd.np_, refs, ranges, nd.spec, nd.cfg, nd.owned, w, nd.nb, nd.pdt,
-        st.last_pos[:, :L], nd.win_shift, carried_histogram, clock,
+    dh, ev, (key_s, pos_s, span_s) = nd.sort_window(
+        refs, ranges, w, slice(None), st.last_pos[:, :L], carried_histogram,
         with_sorted=True)
     st.hist += dh
     st.hist[:, 0] -= ev["cold"].sum(dim=1)
@@ -288,7 +249,7 @@ def _sort_part(nd: _NestDevice, st: _Scope, refs, ranges, w: int,
     st.keys.append(share_keys(ev["reuse"], ev["share"], nd.tids))
 
 
-def _template_part(nd: _NestDevice, st: _Scope, w: int) -> None:
+def _template_part(nd: DeviceNest, st: _Scope, w: int) -> None:
     """The static-template part of ultra window ``w`` for every thread:
     its head lines resolve against the scope's carry (a line the scope
     has not seen is a head to capture), the local histogram adds, the
@@ -316,7 +277,7 @@ def _template_part(nd: _NestDevice, st: _Scope, w: int) -> None:
                               nd.tids))
 
 
-def _nest_results(nd: _NestDevice, w_ids, segmented: bool):
+def _nest_results(nd: DeviceNest, w_ids, segmented: bool):
     """One scope's results over windows ``w_ids`` of one nest, from a
     fresh carry: ``(hist [T, NBINS], share (keys, counts) or None,
     head_pos, head_span, tail_pos [T, n_lines])`` on the nest's device.
@@ -327,14 +288,14 @@ def _nest_results(nd: _NestDevice, w_ids, segmented: bool):
     np_, L = nd.np_, nd.n_lines
     st = _Scope(nd)
     for w in w_ids:
-        if nd.ultra[w]:
+        is_ultra, brefs = nd.path[w]
+        if is_ultra:
             if np_.var_refs:
-                _sort_part(nd, st, np_.var_refs, nd.var_ranges, w, False,
-                           segmented)
+                _sort_part(nd, st, np_.var_refs, nd.var_ranges, w, segmented)
             _template_part(nd, st, w)
         else:
-            _sort_part(nd, st, nd.brefs.get(w, np_.refs), nd.all_ranges, w,
-                       True, segmented)
+            _sort_part(nd, st, brefs or np_.refs, nd.all_ranges, w,
+                       segmented)
     share = share_unique(torch.cat(st.keys)) if st.keys else None
     return (st.hist, share, st.head_pos[:, :L], st.head_span[:, :L],
             st.last_pos[:, :L])
@@ -349,7 +310,7 @@ def _chunk_fn(pl: StreamPlan, ni: int, segmented: bool, device):
     key = (ni, segmented, str(device))
     fn = cache.get(key)
     if fn is None:
-        nd = _NestDevice(pl, ni, device)
+        nd = DeviceNest(pl, ni, device)
         fn = cache[key] = lambda w_ids: _nest_results(nd, w_ids, segmented)
     return fn
 

@@ -32,7 +32,7 @@ import torch
 
 from pluss_torch import cri, engine, mrc, obs
 from pluss_torch.config import DEFAULT, NBINS, SamplerConfig
-from pluss_torch.engine import (SamplerResult, _NestTensors, _sort_window,
+from pluss_torch.engine import (DeviceNest, SamplerResult,
                                 merge_share_windows, resolve_device,
                                 sort_budget, sort_window_bytes)
 from pluss_torch.ops.event_hist import event_histogram
@@ -49,14 +49,13 @@ def _plan_cached(spec: LoopNestSpec, cfg: SamplerConfig,
                        build_templates=False, build_rowpriv=False)
 
 
-def _auto_context(np_, cfg: SamplerConfig) -> int:
+def _auto_context(dn: DeviceNest) -> int:
     """Context windows needed so context plus window span the nest's
     largest share span (the dominant carried-reuse length); at least 1 so
     ordinary cross-window reuses resolve too."""
-    span = max((fr.ref.share_span or 0 for fr in np_.refs), default=0)
-    win_span = np_.window_rounds * cfg.chunk_size * np_.body
-    k = max(1, -(-span // win_span)) if win_span else 1
-    return min(k, np_.n_windows - 1)
+    span = max((fr.ref.share_span or 0 for fr in dn.np_.refs), default=0)
+    k = max(1, -(-span // dn.win_shift)) if dn.win_shift else 1
+    return min(k, dn.np_.n_windows - 1)
 
 
 def _window_counts(np_, cfg: SamplerConfig, nest) -> np.ndarray:
@@ -67,36 +66,16 @@ def _window_counts(np_, cfg: SamplerConfig, nest) -> np.ndarray:
     return slot.reshape(T, np_.n_windows, -1).sum(axis=2)
 
 
-class _Walker:
-    """Sort-path walks of one nest's windows for all thread rows."""
-
-    def __init__(self, pl, ni: int, device, event_hist):
-        self.pl, self.ni = pl, ni
-        self.np_ = pl.nests[ni]
-        self.pdt = torch.int32 if pl.pos_dtype == np.int32 else torch.int64
-        self.nt = _NestTensors(self.np_, pl.spec, pl.cfg, self.pdt, device)
-        self.nb = torch.as_tensor(pl.nest_base[ni], device=device)
-        self.device = device
-        self.event_hist = event_hist
-
-    def fresh(self) -> torch.Tensor:
-        cfg = self.pl.cfg
-        return torch.full((cfg.thread_num, self.pl.spec.total_lines(cfg)), -1,
-                          dtype=self.pdt, device=self.device)
-
-    def walk(self, w: int, last_pos: torch.Tensor, counted: bool = True):
-        """Walk window ``w`` against ``last_pos`` (advanced in place).  A
-        counted walk returns its ``[T, NBINS]`` histogram and share
-        uniques; an uncounted (context) walk bins nothing and returns
-        None."""
-        nt, pl = self.nt, self.pl
-        dh, ev = _sort_window(self.np_, self.np_.refs, nt.all_ranges,
-                              pl.spec, pl.cfg, nt.owned, w, self.nb, self.pdt,
-                              last_pos, nt.win_shift,
-                              self.event_hist if counted else None, nt.clock)
-        if dh is None:
-            return None
-        return dh, share_unique(share_keys(ev["reuse"], ev["share"]))
+def _walk(dn: DeviceNest, w: int, last_pos: torch.Tensor, event_hist):
+    """Walk window ``w`` of nest ``dn`` for every thread row against
+    ``last_pos`` (advanced in place).  A counted walk returns its ``[T,
+    NBINS]`` histogram and share uniques; ``event_hist=None`` (a context
+    walk) bins nothing and returns None."""
+    dh, ev = dn.sort_window(dn.np_.refs, dn.all_ranges, w, slice(None),
+                            last_pos, event_hist)
+    if dh is None:
+        return None
+    return dh, share_unique(share_keys(ev["reuse"], ev["share"]))
 
 
 def _add_share(share_raw, part, scale: float) -> int:
@@ -147,13 +126,14 @@ def sampled_run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
         pl = _plan_cached(spec, cfg, window_accesses)
         walked = 0.0
         for ni in range(len(spec.nests)):
-            np_ = pl.nests[ni]
-            NW = np_.n_windows
-            walker = _Walker(pl, ni, dev, _event_hist)
+            dn = DeviceNest(pl, ni, dev)
+            NW = dn.np_.n_windows
+            carried = (T, dn.n_lines)   # an empty carried table's shape
             if mode == "prefix":
                 m = min(NW - 1, max(0, round(rate * NW) - 1))
-                last_pos = walker.fresh()
-                outs = [walker.walk(w, last_pos) for w in range(m + 1)]
+                last_pos = torch.full(carried, -1, dtype=dn.pdt, device=dev)
+                outs = [_walk(dn, w, last_pos, _event_hist)
+                        for w in range(m + 1)]
                 dh = torch.stack([o[0] for o in outs],
                                  dim=1).cpu().numpy()
                 walked += float(dh.sum())
@@ -165,13 +145,13 @@ def sampled_run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
                         [o[1][1] for o in outs[lo:hi]], T)
                     walked += _add_share(share_raw, part, scale)
                 continue
-            warm_k = _auto_context(np_, cfg) if context_windows is None \
+            warm_k = _auto_context(dn) if context_windows is None \
                 else min(context_windows, NW - 1)
             nsel = max(1, round(rate * NW))
             # the JAX package walks T x nsel context-warmed windows at
             # once; its guard holds here too
-            est = sort_window_bytes(np_, cfg, pl.pos_dtype,
-                                    pl.spec.total_lines(cfg)) * T * nsel
+            est = sort_window_bytes(dn.np_, cfg, pl.pos_dtype,
+                                    dn.n_lines) * T * nsel
             limit = sort_budget(dev)
             if est > limit:
                 raise RuntimeError(
@@ -184,15 +164,15 @@ def sampled_run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
             dh = torch.zeros((T, NBINS), dtype=torch.int64, device=dev)
             keys, cnts = [], []
             for w in sel.tolist():
-                last_pos = walker.fresh()
+                last_pos = torch.full(carried, -1, dtype=dn.pdt, device=dev)
                 # only the real context windows: the JAX package re-walks
                 # window 0 for the clamped ones, which changes no tail
                 ctx = range(max(0, w - warm_k), w)
                 if ctx:
                     with obs.tally_span("sampling.context"):
                         for wc in ctx:
-                            walker.walk(wc, last_pos, counted=False)
-                h, (k, c) = walker.walk(w, last_pos)
+                            _walk(dn, wc, last_pos, None)
+                h, (k, c) = _walk(dn, w, last_pos, _event_hist)
                 dh += h
                 keys.append(k)
                 cnts.append(c)
@@ -206,7 +186,7 @@ def sampled_run(spec: LoopNestSpec, cfg: SamplerConfig = DEFAULT,
                                  merge_share_windows(keys, cnts, T), scale)
             # ... and the context walks are walked work too
             if warm_k:
-                counts = _window_counts(np_, cfg, spec.nests[ni])
+                counts = _window_counts(dn.np_, cfg, spec.nests[ni])
                 for w in sel.tolist():
                     walked += float(counts[:, max(0, w - warm_k):w].sum())
         return SamplerResult(

@@ -416,3 +416,62 @@ def test_port_imports_no_jax_and_no_pluss():
                 m = re.match(r'\s*#\s*include\s*"([^"]+)"', line)
                 if m:
                     assert m.group(1) in cpp, where
+
+
+def _port_modules():
+    """The port package's own modules (chip_smoke.py, a harness, aside)."""
+    return [p for p in _port_sources()
+            if os.path.relpath(p, REPO).startswith("pluss_torch" + os.sep)]
+
+
+#: the engine's device-table internals: a window walker outside engine.py
+#: reaches them through :class:`pluss_torch.engine.DeviceNest`
+ENGINE_PRIVATE = {"_NestTensors", "_sort_window", "_ref_window",
+                  "_array_ranges", "_DeviceTemplate", "_template_window"}
+
+
+def test_device_tables_are_reached_through_device_nest():
+    """No port module but engine.py names the engine's device-table
+    internals, as a name, an attribute or an import (docstrings aside);
+    the walkers that once did still reach DeviceNest."""
+    bad, users = [], set()
+    for path in _port_modules():
+        rel = os.path.relpath(path, REPO)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Name):
+                names = [node.id]
+            elif isinstance(node, ast.Attribute):
+                names = [node.attr]
+            elif isinstance(node, ast.ImportFrom):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            if "DeviceNest" in names:
+                users.add(rel)
+            if rel != os.path.join("pluss_torch", "engine.py"):
+                bad += [f"{rel}:{node.lineno}: {n}" for n in names
+                        if n in ENGINE_PRIVATE]
+    assert not bad, bad
+    assert {os.path.join("pluss_torch", f) for f in (
+        "engine.py", "sampling.py", os.path.join("parallel", "shard.py"))} \
+        <= users
+
+
+def test_auto_dispatch_switch_is_read_in_one_function():
+    """``PLUSS_NO_AUTO_DISPATCH`` appears as a value (not in a docstring)
+    in one function of the port: the dispatch decision every entry point
+    asks."""
+    readers = []
+    for path in _port_modules():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) and \
+                    any(isinstance(n, ast.Constant)
+                        and n.value == "PLUSS_NO_AUTO_DISPATCH"
+                        for n in ast.walk(fn)):
+                readers.append((os.path.relpath(path, REPO), fn.name))
+    assert readers == [(os.path.join("pluss_torch", "engine.py"),
+                        "_dispatch")]

@@ -165,6 +165,46 @@ def test_run_reroutes_an_over_budget_plan(monkeypatch, capsys, fresh_memo):
         engine.run(spec, device="cpu")
 
 
+@pytest.mark.parametrize("entry", ["precompile", "describe_path",
+                                   "warm_run", "run_sliced"])
+def test_no_auto_dispatch_holds_every_entry_point(entry, monkeypatch,
+                                                  fresh_memo):
+    """The over-budget cholesky-16 plan above, with
+    ``PLUSS_NO_AUTO_DISPATCH=1``: every entry point sees one dispatch, as
+    ``run`` does.  ``precompile`` says ``full``, ``describe_path`` has no
+    ``sliced:`` prefix, ``warm_run`` raises the budget error, and
+    ``run_sliced`` still slices, one thread at a time, equal to the JAX
+    package."""
+    js = jax_models.REGISTRY["cholesky"](16)
+    spec = carried(js)
+    pl = engine._plan_cached(spec, DEFAULT, None, None, None)
+    need = max(engine.sort_window_bytes(np_, DEFAULT, pl.pos_dtype,
+                                        spec.total_lines())
+               for np_ in pl.nests) * DEFAULT.thread_num
+    monkeypatch.setattr(engine, "sort_budget", lambda dev: need // 4)
+    assert engine.describe_path(spec, device="cpu") == "sliced:sort"
+    monkeypatch.setenv("PLUSS_NO_AUTO_DISPATCH", "1")
+    if entry == "precompile":
+        assert engine.precompile(spec, device="cpu") == "full"
+    elif entry == "describe_path":
+        assert engine.describe_path(spec, device="cpu") == "sort"
+    elif entry == "warm_run":
+        with pytest.raises(RuntimeError, match="device budget"):
+            engine.warm_run(spec, device="cpu")
+    else:
+        calls, execute = [], engine._execute
+
+        def spy(pl, dev, **kw):
+            calls.append(kw)
+            return execute(pl, dev, **kw)
+
+        monkeypatch.setattr(engine, "_execute", spy)
+        assert_same(engine.run_sliced(spec, device="cpu", thread_batch=1),
+                    jax_engine.run(js))
+        assert [(kw["thread_batch"], bool(kw["dispatch_entries"]))
+                for kw in calls] == [(1, True)]
+
+
 def test_run_thread_batch_matches_run(fresh_memo):
     spec = carried(jax_models.REGISTRY["syr2k"](16))
     want = engine.run(spec, SamplerConfig(cls=8), device="cpu")
