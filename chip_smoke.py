@@ -19,14 +19,21 @@ results are held against — and holds every kernel of
 those paths against its plain torch version.  Each phase prints one JSON line; any failed check
 raises, so the script exits non-zero and prints no result line.  Phases:
 
-1. build: compile the four kernels from ``pluss_torch/csrc`` with one
-   ``nvcc`` each, all at once; report each one's seconds and ptxas lines;
+1. build: compile the five kernel sources from ``pluss_torch/csrc`` with
+   one ``nvcc`` each, all at once; report each one's seconds and ptxas
+   lines;
 2. kernel: the carried-event histogram kernel vs its plain version on
    random ghost-merged sorted windows at the main paths' shapes
    (mvt-4000's sort window, T=4, int32 and int64 positions; cholesky-
    2000's largest window, int64 positions past 2^32), bit for bit; kernel,
    plain and ``torch.sort`` (at cholesky's shape the window's two-pass
-   stable ``sort_stream``) times beside the bound;
+   stable ``sort_stream``) times beside the bound; then the window sort
+   (``csrc/window_sort.cu``: pack, CUB's keys-only radix sort, unpack)
+   vs its plain version on random ghost-merged windows at cholesky-2000's
+   largest window (int64 positions past 2^32, the key the plan gives) and
+   a sampled GEMM-1024 window (int32), bit for bit and equal to
+   ``sort_stream`` on every valid entry; its times (CUDA events, and the
+   device time of its operations) beside its bound and ``sort_stream``'s;
 3. masked_hist: the masked event histogram kernel vs its plain version on
    one 2^24-entry trace batch of random events, int32 and int64 reuse,
    ``include_cold`` both ways, bit for bit; wrapper times (CUDA events),
@@ -46,8 +53,9 @@ raises, so the script exits non-zero and prints no result line.  Phases:
    with ragged windows, card vs CPU, exactly;
 8. cholesky2000: PolyBench LARGE cholesky (quad nest, 5,339,333,000
    refs, int64 positions, 125 sort windows in 4 size buckets, kernel 1
-   in every one); then again with the plain version in place of the
-   kernel (at n=1000 when the script's time would not allow n=2000);
+   in every one, and the window sort in every one); then again with the
+   plain version in place of the kernel (at n=1000 when the script's time
+   would not allow n=2000);
 9. trmm1000: varying starts, int32 positions, a sort in each of its 63
    windows;
 10. syrk_tri1000: every array on the row-private / sweep-group closed
@@ -458,6 +466,145 @@ def kernel1_times(args, pos_bytes: int, tag: str = "") -> dict:
     }
 
 
+def random_parts(T: int, n_real: int, n_lines: int, n_codes: int, seed: int,
+                 pos64: bool):
+    """A random sort window as the engine hands it to the window sort:
+    three ref blocks of ``[T, n]`` (line, pos, code, valid), ``n_real``
+    entries a row in all at distinct positions from ``win_start`` on over
+    ``n_lines`` lines (a few invalid), and the carried table (a third of
+    the lines never touched, -1; the rest an earlier position).  ``pos64``:
+    int64 positions shifted past 2^32."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    base = (1 << 26) + ((1 << 32) if pos64 else 0)
+    pdt = torch.int64 if pos64 else torch.int32
+    line = torch.randint(0, n_lines, (T, n_real), dtype=torch.int32, **kw)
+    pos = (base + torch.argsort(torch.rand((T, n_real), **kw), dim=1)) \
+        .to(pdt)
+    code = torch.randint(0, n_codes, (T, n_real), dtype=torch.uint8, **kw)
+    valid = torch.rand((T, n_real), **kw) < 0.999
+    last_pos = torch.randint(0, base, (T, n_lines), dtype=torch.int64, **kw)
+    last_pos = torch.where(torch.rand((T, n_lines), **kw) < 1 / 3, -1,
+                           last_pos).to(pdt)
+    cuts = [0, n_real // 3, 2 * n_real // 3, n_real]
+    parts = [tuple(t[:, a:b].contiguous() for t in (line, pos, code, valid))
+             for a, b in zip(cuts, cuts[1:])]
+    ws = torch.full((T,), base, dtype=pdt, device="cuda")
+    return parts, ws, last_pos
+
+
+def window_sort_bound_ms(lay, n_real: int, n_ghost: int,
+                         pos_bytes: int) -> tuple[int, float]:
+    """Radix passes and bytes bound of one window sort of ``n_real`` real
+    and ``n_ghost`` ghost entries (all rows) under the key ``lay``: pack
+    reads each real entry's line, pos, code and valid and writes every key
+    (8 B); CUB reads the keys once for its digit counts, then reads and
+    writes them once a pass of 8 bits; unpack reads each key and writes
+    key, pos, span and valid."""
+    passes = -(-lay.width // 8)
+    n = n_real + n_ghost
+    need = (n_real * (4 + pos_bytes + 2) + n * 8 + n * 8 * (1 + 2 * passes)
+            + n * (8 + 4 + pos_bytes + 4 + 1))
+    return passes, need / HBM_BYTES_PER_S * 1e3
+
+
+def window_sort_times(cfg, spec, plan_kw: dict, bucket: bool, seed: int,
+                      pos64: bool) -> dict:
+    """The window sort against its plain version at the largest window of
+    ``spec``'s plan (its last size bucket when ``bucket``), on random
+    entries with the key the plan gives that window: bit for bit, and
+    equal to ``sort_stream`` on every valid entry; timed beside its bound
+    and ``sort_stream``'s time on the same window."""
+    import dataclasses
+
+    import torch
+
+    from pluss_torch import engine
+    from pluss_torch.ops import window_sort as ws_mod
+    from pluss_torch.ops.reuse import sort_stream
+
+    pl = engine.plan(spec, cfg, **plan_kw)
+    dn = engine.DeviceNest(pl, 0, torch.device("cuda"))
+    np_ = dn.np_
+    refs = np_.tri_buckets[-1][1] if bucket else np_.refs
+    w = np_.tri_buckets[-1][0][-1] if bucket else np_.n_windows - 1
+    n_real = sum(dn.entries(fr) for fr in refs)
+    n_lines = sum(c for _, c in dn.all_ranges)
+    check(min(b for b, _ in dn.all_ranges) == 0
+          and max(b + c for b, c in dn.all_ranges) == n_lines,
+          "the covered lines are not one run from line 0")
+    T = cfg.thread_num
+    lay = ws_mod.key_layout(dn.all_ranges, max(dn.pos_span(w), n_real),
+                            len(dn.spans), T, n_real + n_lines)
+    check(lay is not None, "the window does not pack")
+    parts, ws, last_pos = random_parts(T, n_real, n_lines, len(dn.spans),
+                                       seed, pos64)
+    spans = dn.span_table
+    run = lambda: ws_mod.window_sort(iter(parts), n_real, dn.all_ranges, lay,
+                                     ws, last_pos, spans)
+    got = run()
+    want = ws_mod.window_sort_plain(iter(parts), n_real, dn.all_ranges, lay,
+                                    ws, last_pos, spans)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - x.long()).abs().max()) if g.shape == x.shape
+              else -1 for g, x in zip(got, want))
+    check(err == 0, f"window_sort != plain ({ws.dtype}): largest absolute "
+          f"difference {err} (-1: another shape)")
+    del want
+    rows = [torch.cat([p[i] if i != 2 else spans[p[2].long()]
+                       for p in parts], 1) for i in range(4)]
+    lines = torch.arange(n_lines, dtype=torch.int32, device="cuda")
+    rows = [torch.cat([rows[0], lines.expand(T, n_lines)], 1),
+            torch.cat([rows[1], last_pos], 1),
+            torch.cat([rows[2], torch.zeros_like(lines).expand(T, n_lines)],
+                      1),
+            torch.cat([rows[3], torch.ones((T, n_lines), dtype=torch.bool,
+                                           device="cuda")], 1)]
+    two = sort_stream(*rows)
+    nv = int(two[3].sum(1).min())
+    check(torch.equal(got[3].sum(1), two[3].sum(1)),
+          "window_sort's valid prefix != sort_stream's")
+    for g, x in zip(got, two):
+        check(torch.equal(g[:, :nv], x[:, :nv]),
+              f"window_sort != sort_stream on the valid entries "
+              f"({ws.dtype})")
+    del got, two
+    passes, bound = window_sort_bound_ms(lay, T * n_real, T * n_lines,
+                                         ws.element_size())
+    out = {"T": T, "L": n_real + n_lines, "pos": str(ws.dtype),
+           "key_bits": lay.width, "passes": passes,
+           "layout": dataclasses.asdict(lay), "max_abs_err": err,
+           "ms": cuda_ms(run, 10),
+           "device_ms": device_ms(run, 5, "")[1],
+           "plain_ms": cuda_ms(lambda: ws_mod.window_sort_plain(
+               iter(parts), n_real, dn.all_ranges, lay, ws, last_pos,
+               spans), 2),
+           "sort_stream_ms": cuda_ms(lambda: sort_stream(*rows), 3),
+           "bound_ms": bound}
+    out["of_bound"] = out["bound_ms"] / out["device_ms"] \
+        if out["device_ms"] else None
+    del rows, parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_sort_phase(cfg) -> dict:
+    """The window sort at cholesky-2000's largest window (int64) and at a
+    sampled GEMM-1024 window (int32)."""
+    from pluss_torch.models import cholesky, gemm
+
+    chol = window_sort_times(cfg, cholesky(2000), {}, True, 7, True)
+    samp = window_sort_times(cfg, gemm(1024),
+                             {"build_templates": False,
+                              "build_rowpriv": False}, False, 8, False)
+    return {"ms": chol["ms"], "device_ms": chol["device_ms"],
+            "plain_ms": chol["plain_ms"], "bound_ms": chol["bound_ms"],
+            "max_abs_err": max(chol["max_abs_err"], samp["max_abs_err"]),
+            "cholesky2000_window": chol, "sampled_gemm1024_window": samp}
+
+
 def random_events(n: int, reuse_bits: int, seed: int):
     """One trace batch of classified events on the card: log-uniform
     reuses below ``2**reuse_bits`` (int32 or int64; a few zero or
@@ -610,10 +757,11 @@ def counted(fn):
     from pluss_torch.ops.decode import decode_d24v
     from pluss_torch.ops.event_hist import event_histogram, masked_histogram
     from pluss_torch.ops.overlay_window import overlay_window
+    from pluss_torch.ops.window_sort import window_sort
 
     wrappers = {"carried_event_hist": event_histogram,
                 "masked_hist": masked_histogram, "d24v_decode": decode_d24v,
-                "overlay_window": overlay_window}
+                "overlay_window": overlay_window, "window_sort": window_sort}
     for w in wrappers.values():
         w.launches = 0
     out = fn()
@@ -650,7 +798,8 @@ def main() -> int:
     by_path: dict[str, dict[str, int]] = {}
 
     # 1. build ---------------------------------------------------------------
-    names = ("event_hist", "masked_hist", "d24v_decode", "overlay_window")
+    names = ("event_hist", "masked_hist", "d24v_decode", "overlay_window",
+             "window_sort")
     t0 = time.perf_counter()
     built = build.build(*names)
     emit({"phase": "build", "kernels": built,
@@ -695,6 +844,8 @@ def main() -> int:
                   chol.pop("err_int64"))
     kern["cholesky2000_window"] = chol
     emit({"phase": "kernel", **kern, "max_abs_err": max_err, "ok": True})
+    wsk = window_sort_phase(cfg)
+    emit({"phase": "window_sort", **wsk, "ok": True})
 
     # 3. masked event histogram vs plain at one trace batch (2^24) ----------
     n = 1 << 24
@@ -819,6 +970,7 @@ def main() -> int:
             "refs_per_s": res.max_iteration_count / (t1 - t0),
             "pos_dtype": str(pl.pos_dtype),
             "mrc_len": len(curve), "event_kernel_launches": launches,
+            "window_sort_launches": counts["window_sort"],
             "sort_windows": want, "conserved": True,
             "peak_device_gib": peak / 2**30,
             "est_sort_gib": est / 2**30}
@@ -868,6 +1020,9 @@ def main() -> int:
     check(mc["event_kernel_launches"] == plc.nests[0].n_windows == 125,
           "cholesky2000 did not launch the event kernel in each of its "
           "125 windows")
+    check(mc["window_sort_launches"] == 125,
+          f"cholesky2000: {mc['window_sort_launches']} window sorts, not "
+          f"one in each of its 125 windows")
     # the plain-version cross-check at full size when the script's time
     # allows it, else at n=1000 (its own kernel run beside it)
     n_x = 2000 if time.perf_counter() - t_start + 1.5 * mc["engine_s"] < 450 \
@@ -1036,7 +1191,13 @@ def main() -> int:
             "pluss/ops/pallas_decode.py:130", dec, dec_err),
         row("overlay_window", "pluss_torch/csrc/overlay_window.cu",
             "none: pluss/overlay.py:device_window is jnp that XLA fuses",
-            ovk, ovk["max_abs_err"], syrk1000_window=ovk)]})
+            ovk, ovk["max_abs_err"], syrk1000_window=ovk),
+        row("window_sort", "pluss_torch/csrc/window_sort.cu",
+            "none: the window sort is lax.sort (torch.sort)", wsk,
+            wsk["max_abs_err"],
+            launches_cholesky2000=mc["window_sort_launches"],
+            cholesky2000_window=wsk["cholesky2000_window"],
+            sampled_gemm1024_window=wsk["sampled_gemm1024_window"])]})
     print(card_line(), flush=True)
     for line in serve_lines:
         print(line, flush=True)
@@ -2408,7 +2569,8 @@ def telemetry_phase(tmp: str, cfg, by_path: dict, res_off, counts_off: dict,
     n = rep_off.total_count
     n_batches = n // (trace.WINDOWS_PER_BATCH * trace.TRACE_WINDOW)
     trace_counts_off = {"carried_event_hist": 0, "masked_hist": n_batches,
-                        "d24v_decode": n_batches, "overlay_window": 0}
+                        "d24v_decode": n_batches, "overlay_window": 0,
+                        "window_sort": 0}
     spec = mvt(4000)
     # an off run first: the plan memo may have dropped mvt-4000's plan
     # since phase 7, and the walls below compare runs, not plans
@@ -2737,9 +2899,9 @@ def analysis_phase(cfg, by_path: dict, sort_windows, acc_lines) -> None:
         check(detail.get("histogram_identical") is True
               and "bit-identical to engine.run" in err,
               f"{label}: prediction != card engine ({detail})")
-        want = {"carried_event_hist": sort_windows(
-            engine.plan(REGISTRY[model](n), SamplerConfig())),
-            "masked_hist": 0, "d24v_decode": 0, "overlay_window": 0}
+        sorts = sort_windows(engine.plan(REGISTRY[model](n), SamplerConfig()))
+        want = {"carried_event_hist": sorts, "masked_hist": 0,
+                "d24v_decode": 0, "overlay_window": 0, "window_sort": sorts}
         check(counts == want and dispatches <= 1,
               f"{label}: launches {counts}, the plan's {want}; "
               f"{dispatches} dispatches")
@@ -3122,7 +3284,7 @@ def autotune_phase(by_path: dict, big_path: str, part_a) -> None:
             n_batches = -(-n_refs // (g["batch_windows"] * g["window"]))
             want = {"carried_event_hist": 0, "masked_hist": 2 * n_batches,
                     "d24v_decode": 2 * n_batches * (g["wire"] == "d24v"),
-                    "overlay_window": 0}
+                    "overlay_window": 0, "window_sort": 0}
             check(p["launches"] == want,
                   f"autotune point {g}: launches {p['launches']} != {want}")
         by_path["autotune"] = {
@@ -3400,7 +3562,8 @@ def serve_phase(tmp: str, cfg, by_path: dict, trace_rep, resm,
             by_path["serve_a"] = counts
             check(engine.DEVICE_DISPATCHES - d0 == 1
                   and counts == {"carried_event_hist": 4, "masked_hist": 0,
-                                 "d24v_decode": 0, "overlay_window": 0},
+                                 "d24v_decode": 0, "overlay_window": 0,
+                                 "window_sort": 4},
                   f"serve (a): {engine.DEVICE_DISPATCHES - d0} dispatches, "
                   f"launches {counts}")
             for o, r in zip(objs, rs):
@@ -3435,9 +3598,11 @@ def serve_phase(tmp: str, cfg, by_path: dict, trace_rep, resm,
                     ("c_stage_through", {"carried_event_hist": 0,
                                          "masked_hist": 16,
                                          "d24v_decode": 16,
-                                         "overlay_window": 0}),
+                                         "overlay_window": 0,
+                                         "window_sort": 0}),
                     ("c_hit", {"carried_event_hist": 0, "masked_hist": 16,
-                               "d24v_decode": 0, "overlay_window": 0})):
+                               "d24v_decode": 0, "overlay_window": 0,
+                               "window_sort": 0})):
                 r, counts = counted(lambda: c.request(
                     {"id": label, "trace": trace_path,
                      "output": "histogram"}))

@@ -80,6 +80,7 @@ from pluss_torch.ops.reuse import (
     share_unique,
     sort_columns,
 )
+from pluss_torch.ops.window_sort import key_layout, window_sort
 from pluss_torch.resilience import faults
 from pluss_torch.resilience.errors import quarantine_artifact
 from pluss_torch.sched import ChunkSchedule
@@ -875,34 +876,45 @@ def _sort_window(dn: DeviceNest, refs, ranges, w: int, rows,
     tails update, nothing is binned or launched, and both are None.
     ``with_sorted`` adds a third item, the sorted ``(key_s, pos_s,
     span_s)`` (the sharded window captures its heads from them).
+
+    The window sorts as one packed key (:func:`window_sort`) whose widths
+    :func:`key_layout` reckons here from the plan, or, when no such key
+    fits (past 63 bits, or past one sort's entries), as full-width columns
+    (:func:`sort_columns`); the counters ``engine.sort_window.packed`` and
+    ``.two_pass`` count which.
     """
     with obs.tally_span("engine.sort_window"):
-        parts, span_of = dn.stream(refs, w, rows)
-        for b, c in ranges:
-            line, pos, _, valid = ghost_entries(last_pos[:, b:b + c], b)
-            parts.append((line, pos,
-                          torch.zeros_like(valid, dtype=torch.uint8), valid))
-        cols = [torch.cat([p[i] for p in parts], dim=1) for i in range(4)]
-        del parts   # the per-ref blocks are not held through the sort
-        key_s, pos_s, code_s, valid_s = sort_columns(cols)   # empties cols
-        span_s = span_of(code_s)
-        del code_s
-        tails = extract_tails(key_s, pos_s, valid_s,
-                              sum(c for _, c in ranges))
+        win_start = dn.win_start(w, rows)
+        n = sum(dn.entries(fr) for fr in refs)
+        n_lines = sum(c for _, c in ranges)
+        lay = key_layout(ranges, dn.pos_span(w), len(dn.spans),
+                         last_pos.shape[0], n + n_lines)
+        if lay is not None:
+            obs.counter_add("engine.sort_window.packed")
+            key_s, pos_s, span_s, valid_s = window_sort(
+                dn.parts(refs, w, rows), n, ranges, lay, win_start,
+                last_pos, dn.span_table)
+        else:
+            obs.counter_add("engine.sort_window.two_pass")
+            parts, span_of = dn.stream(refs, w, rows)
+            for b, c in ranges:
+                line, pos, _, valid = ghost_entries(last_pos[:, b:b + c], b)
+                parts.append((line, pos,
+                              torch.zeros_like(valid, dtype=torch.uint8),
+                              valid))
+            cols = [torch.cat([p[i] for p in parts], dim=1)
+                    for i in range(4)]
+            del parts   # the per-ref blocks are not held through the sort
+            key_s, pos_s, code_s, valid_s = sort_columns(cols)  # empties it
+            span_s = span_of(code_s)
+            del code_s
+        tails = extract_tails(key_s, pos_s, valid_s, n_lines)
         off = 0
         for b, c in ranges:
             last_pos[:, b:b + c] = tails[:, off:off + c]
             off += c
         if event_hist is None:
             return None, None
-        nb = dn.nb[rows]
-        if dn.clock is None:
-            win_start = (nb + w * dn.win_shift).to(dn.pdt)
-        else:
-            # bounded nest: the window's smallest position is the clock at
-            # its first stream slot
-            slot = w * dn.np_.window_rounds * dn.cfg.chunk_size
-            win_start = (nb + dn.clock[rows][:, slot]).to(dn.pdt)
         out = (event_hist(key_s, pos_s, span_s, valid_s, win_start),
                carried_events(key_s, pos_s, span_s, valid_s, win_start))
         return out + ((key_s, pos_s, span_s),) if with_sorted else out
@@ -970,6 +982,10 @@ class DeviceNest:
         self.clock = as_dev(np_.clock)
         self.rpg = as_dev(np_.rpg_hist)
         self.win_shift = np_.window_rounds * cfg.chunk_size * np_.body
+        #: every share span of the nest's refs (0 first, the ghosts'): a
+        #: sort window's span codes index them
+        self.spans = sorted({0, *(fr.ref.share_span or 0
+                                  for fr in (*np_.refs, *np_.var_refs))})
         self.all_ranges = _array_ranges(np_.refs, spec, cfg)
         self.var_ranges = _array_ranges(np_.var_refs_novl, spec, cfg)
         self.dtpl = None if np_.tpl is None else \
@@ -980,24 +996,66 @@ class DeviceNest:
         self.path = {w: (u, brefs) for u, ws, brefs in self.segments
                      for w in ws}
 
-    def stream(self, refs, w: int, rows):
-        """Window ``w`` over ``refs`` for thread ``rows``: the per-ref
-        ``[rows, n]`` (line, pos, code, valid) blocks of
-        :func:`_ref_window` in program order, and ``span_of``, which maps
-        a code column to its int32 share spans (code 0 is span 0, the
-        ghosts'): a sort carries one byte where the span takes four."""
+    def win_start(self, w: int, rows) -> torch.Tensor:
+        """``[rows]`` smallest stream position of window ``w`` in each
+        thread row, in the position dtype."""
+        nb = self.nb[rows]
+        if self.clock is None:
+            return (nb + w * self.win_shift).to(self.pdt)
+        # bounded nest: the clock at the window's first stream slot
+        slot = w * self.np_.window_rounds * self.cfg.chunk_size
+        return (nb + self.clock[rows][:, slot]).to(self.pdt)
+
+    @functools.cached_property
+    def span_table(self) -> torch.Tensor:
+        """:attr:`spans` on the device, made by the first sort window (a
+        nest walked only by templates and overlays never uploads it)."""
+        return torch.tensor(self.spans, dtype=torch.int32,
+                            device=self.device)
+
+    @functools.cached_property
+    def _pos_spans(self):
+        """Bounded nests: each window's largest position span over the
+        threads, from the clock table (a slot holds at most ``body``)."""
+        np_ = self.np_
+        c = np_.clock.reshape(self.cfg.thread_num, np_.n_windows, -1)
+        return (c[:, :, -1] - c[:, :, 0]).max(axis=0) + np_.body
+
+    def pos_span(self, w: int) -> int:
+        """A bound on the positions of window ``w``, from the plan on the
+        host: every real position of a row lies below its
+        :meth:`win_start` plus this."""
+        return self.win_shift if self.np_.clock is None \
+            else int(self._pos_spans[w])
+
+    def entries(self, fr: FlatRef) -> int:
+        """Entries of one ref's window block a row (:func:`_ref_window`'s
+        shape, padding included)."""
+        return self.np_.window_rounds * self.cfg.chunk_size * int(
+            np.prod(fr.trips[1:], dtype=np.int64))
+
+    def parts(self, refs, w: int, rows):
+        """Window ``w`` over ``refs`` for thread ``rows``: each ref's
+        ``[rows, n]`` (line, pos, code, valid) block of :func:`_ref_window`
+        in program order, each made when the caller asks for it.  A code
+        is the ref's share span's index in :attr:`spans`: a sort carries
+        one byte where the span takes four."""
         cfg, spec = self.cfg, self.spec
         bases = spec.line_bases(cfg)
         r0 = w * self.np_.window_rounds
         owned, nb = self.owned[rows], self.nb[rows]
         clock = None if self.clock is None else self.clock[rows]
-        spans = sorted({0, *(fr.ref.share_span or 0 for fr in refs)})
-        parts = [_ref_window(fr, self.np_, cfg, owned, r0, nb,
-                             bases[spec.array_index(fr.ref.array)], self.pdt,
-                             spans.index(fr.ref.share_span or 0), clock)
-                 for fr in refs]
-        return parts, lambda code: torch.tensor(
-            spans, dtype=torch.int32, device=code.device)[code.long()]
+        for fr in refs:
+            yield _ref_window(fr, self.np_, cfg, owned, r0, nb,
+                              bases[spec.array_index(fr.ref.array)],
+                              self.pdt,
+                              self.spans.index(fr.ref.share_span or 0), clock)
+
+    def stream(self, refs, w: int, rows):
+        """:meth:`parts` as a list, and ``span_of``, which maps a code
+        column to its int32 share spans (code 0 is span 0, the ghosts')."""
+        return list(self.parts(refs, w, rows)), \
+            lambda code: self.span_table[code.long()]
 
     sort_window = _sort_window
     template_window = _template_window
@@ -1350,14 +1408,15 @@ def shard_plan_cached(spec: LoopNestSpec, cfg: SamplerConfig, assignment,
 
 def _build_kernels(pl: StreamPlan, dev: torch.device) -> None:
     """Build the kernels a run of ``pl`` on ``dev`` launches when the
-    device is CUDA (the event-histogram kernel when a window sorts, the
-    overlay-window kernel when a nest has overlays): the
+    device is CUDA (the event-histogram kernel and the window sort when a
+    window sorts, the overlay-window kernel when a nest has overlays): the
     ``engine.compile`` fault site, once per run attempt."""
     faults.check("engine.compile")
     if dev.type != "cuda":
         return
     if any(np_.refs for np_ in pl.nests):
         build.load("event_hist")
+        build.load("window_sort")
     if any(np_.overlays for np_ in pl.nests):
         build.load("overlay_window")
 

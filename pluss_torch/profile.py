@@ -46,7 +46,7 @@ from pluss_torch.obs import xprof
 
 #: symbol prefixes of the port's CUDA kernels (pluss_torch/csrc/*.cu)
 PORT_KERNELS = ("carried_event_hist", "masked_hist", "d24v_",
-                "overlay_window")
+                "overlay_window", "window_sort_")
 
 
 def device_ops(events) -> list[tuple[str, float, int]]:

@@ -9,7 +9,7 @@ arguments and printed lines.  Every mode runs on the CUDA card unless
 ``--cpu`` is given; with no card and no ``--cpu`` it raises (it never
 moves to the host by itself).  The seed defaults to the clock and is
 printed, so any failure replays exactly.  Each mode's summary line ends
-with the launches of the four kernels in this process
+with the launches of the five kernels in this process
 (``launches {...}``; the serve soak adds its daemons').
 
 - **Property soak** (default): three differential properties over random
@@ -120,15 +120,16 @@ def device_of(cpu: bool):
 
 
 def _wrappers() -> dict:
-    """The four kernels' wrappers, under the names chip_smoke.py gives
+    """The five kernels' wrappers, under the names chip_smoke.py gives
     them; each counts its launches (``ops.build.count_launch``)."""
     from pluss_torch.ops.decode import decode_d24v
     from pluss_torch.ops.event_hist import event_histogram, masked_histogram
     from pluss_torch.ops.overlay_window import overlay_window
+    from pluss_torch.ops.window_sort import window_sort
 
     return {"carried_event_hist": event_histogram,
             "masked_hist": masked_histogram, "d24v_decode": decode_d24v,
-            "overlay_window": overlay_window}
+            "overlay_window": overlay_window, "window_sort": window_sort}
 
 
 def launches() -> dict[str, int]:
@@ -144,13 +145,13 @@ def launches_of_counters(counters: dict) -> dict[str, int]:
 
 
 def prebuild(dev) -> None:
-    """Build the four kernels now when ``dev`` is the card, so processes
+    """Build the five kernels now when ``dev`` is the card, so processes
     spawned later load this build instead of racing to compile it."""
     if dev.type == "cuda":
         from pluss_torch.ops import build
 
         build.build("event_hist", "masked_hist", "d24v_decode",
-                    "overlay_window")
+                    "overlay_window", "window_sort")
 
 
 def _same(got, want) -> bool:

@@ -27,6 +27,7 @@ from pluss_torch.ops.event_hist import (event_histogram,
                                         masked_histogram,
                                         masked_histogram_plain)
 from pluss_torch.ops.reuse import sort_stream
+from pluss_torch.ops.window_sort import window_sort
 
 pytestmark = pytest.mark.cuda
 
@@ -119,6 +120,81 @@ def test_event_hist_kernel_matches_plain(cuda_device, pdt):
     args = (*sorted_, torch.full((T,), ws, dtype=pdt))
     got = event_histogram(*(a.to(cuda_device) for a in args))
     assert torch.equal(got.cpu(), event_histogram_plain(*args))
+
+
+def window_blocks(seed, pdt, ranges):
+    """A random ghost-merged window on the CPU: three ``[3, n]`` ref
+    blocks (line, pos, code, valid) at distinct positions from each row's
+    ``win_start`` over the covered ``ranges`` (a tenth invalid, with any
+    line and position), and rows 1-3 of a six-row carried table with a
+    dump column (a third of the covered lines -1, the rest earlier
+    positions).  Returns ``(parts, n, win_start, last_pos, pos_span)``."""
+    rng = np.random.default_rng(seed)
+    lines = np.concatenate([np.arange(b, b + c) for b, c in ranges])
+    T, L, n = 3, 3000, 30_000
+    base = 10 * n + (5 << 31 if pdt == torch.int64 else 0)
+    ws = base + rng.integers(0, 100, T)
+    pos = np.stack([ws[t] + rng.permutation(2 * n)[:n] for t in range(T)])
+    valid = rng.random((T, n)) < 0.9
+    line = np.where(valid, rng.choice(lines, (T, n)),
+                    rng.integers(0, 1 << 24, (T, n)))
+    pos = np.where(valid, pos, rng.integers(-3, base, (T, n)))
+    code = rng.integers(0, 3, (T, n))
+    table = np.full((6, L + 1), -1, np.int64)
+    table[:, lines] = np.where(rng.random((6, len(lines))) < 1 / 3, -1,
+                               rng.integers(0, base, (6, len(lines))))
+    cut = [0, n // 5, n // 2, n]
+    parts = [(torch.from_numpy(line[:, a:b].astype(np.int32)),
+              torch.from_numpy(pos[:, a:b]).to(pdt),
+              torch.from_numpy(code[:, a:b].astype(np.uint8)),
+              torch.from_numpy(valid[:, a:b].copy()))
+             for a, b in zip(cut, cut[1:])]
+    return (parts, n, torch.from_numpy(ws).to(pdt),
+            torch.from_numpy(table).to(pdt)[1:4, :L], 2 * n)
+
+
+@pytest.mark.parametrize("pdt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("ranges", [((0, 2500),),
+                                    ((40, 1000), (1800, 1100))])
+def test_window_sort_kernels_match_plain(cuda_device, pdt, ranges):
+    from pluss_torch.ops.window_sort import (key_layout, window_sort,
+                                             window_sort_plain)
+
+    parts, n, ws, last_pos, span = window_blocks(5, pdt, ranges)
+    n_lines = sum(c for _, c in ranges)
+    lay = key_layout(ranges, span, 3, 3, n + n_lines)
+    spans = torch.tensor([0, 9, 4000], dtype=torch.int32)
+    want = window_sort_plain(iter(parts), n, ranges, lay, ws, last_pos,
+                             spans)
+    before = window_sort.launches
+    on = lambda t: t.to(cuda_device)
+    got = window_sort(iter([tuple(map(on, p)) for p in parts]), n, ranges,
+                      lay, on(ws), on(last_pos), on(spans))
+    assert window_sort.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert not want[3].all() and want[3].any()
+
+
+@pytest.mark.parametrize("model,n,sampled", [("cholesky", 48, False),
+                                             ("gemm", 64, True)])
+def test_sort_windows_pack_on_the_card(cuda_device, model, n, sampled):
+    """Every sort window of a cholesky run and a sampled GEMM runs the
+    window sort's kernels once, and the results equal the CPU's."""
+    from pluss_torch import engine, sampling
+    from pluss_torch.models import REGISTRY
+
+    spec = REGISTRY[model](n)
+    run = (lambda dev: sampling.sampled_run(
+        spec, rate=0.5, window_accesses=1 << 12, seed=3, device=dev)) \
+        if sampled else (lambda dev: engine.run(spec, device=dev,
+                                                window_accesses=1 << 12))
+    window_sort.launches = event_histogram.launches = 0
+    got = run(cuda_device)
+    assert window_sort.launches >= event_histogram.launches > 0
+    want = run("cpu")
+    np.testing.assert_array_equal(got.noshare_dense, want.noshare_dense)
+    assert got.share_raw == want.share_raw
 
 
 @pytest.mark.parametrize("wire", ["d24v", "pack"])
