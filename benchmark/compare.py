@@ -17,7 +17,9 @@ Three numbers, each over every checked prediction, each with its limit:
   histogram itself: a replay has one clock, so no CRI); 1 when the key
   sets differ.
 - ``mrc_gap``: the largest absolute gap between the two miss-ratio curves;
-  1 when their lengths differ.
+  1 when their lengths differ.  A served response carries its curve as
+  ``[c, m]`` points (:func:`mrc_points_gap`): each point is held against
+  the reference's curve at ``c``.
 
 The limits of the last two were set from chip readings of the program
 (the lower reading) and of the float32 control (the upper one); PERF.md
@@ -63,6 +65,17 @@ def mrc_gap(curve: np.ndarray, ref: np.ndarray) -> float:
         return 1.0
     return float(np.max(np.abs(np.asarray(curve, np.float64)
                                - np.asarray(ref, np.float64))))
+
+
+def mrc_points_gap(points: list, ref: np.ndarray) -> float:
+    """``mrc_gap`` of a curve sent as ``[c, m]`` points: the largest
+    ``|m - ref[c]|``; 1 when the points do not start at ``c = 0`` and end
+    at the curve's last index, or a ``c`` lies outside it."""
+    cs = [int(c) for c, _ in points]
+    if not cs or cs[0] != 0 or cs[-1] != len(ref) - 1 or \
+            min(cs) < 0 or max(cs) >= len(ref):
+        return 1.0
+    return max(abs(float(m) - float(ref[int(c)])) for c, m in points)
 
 
 def judge(numbers: dict) -> bool:

@@ -6,7 +6,8 @@ Puts the reference in the program's place with its CRI and MRC computed
 in float32, the precision below the configuration's float64 (a trace: its
 reuse histogram and MRC), and prints, for each seed, the numbers
 ``correct`` compares (against the float64 reference) for the predictions a
-run with that seed would check, on the input a run with that seed makes.
+run with that seed would check, on the input a run with that seed makes
+(a served cell: every tenant a run with that seed sends requests to).
 A sound limit lies below every one of them.  The benchmark's runs never
 run this; it needs the card.
 """
@@ -30,6 +31,10 @@ def readings(root: str, workload: str, seeds: list, device: str,
     (drawn as a run draws them, from the first ``window`` predictions)."""
     bench = harness.load_bench(root)
     _, config, mix = harness.cell_of(bench, workload, root)
+    if harness.is_serve(config):   # every tenant a run with the seed sends
+        from benchmark import serve
+        return [{"workload": workload, **r} for r in serve.control(
+            config, mix, seeds, bench["run_seconds"], device)]
     is_trace = harness.is_trace(config)
     memo, out = {}, []
     for seed in seeds:

@@ -10,7 +10,8 @@ is made of is data, found by name:
   document, the schedule, the machine numbers; :class:`Cell`), or, with
   ``"kind": "trace"``, a raw address trace (a loop nest's data references
   in program order, written by :mod:`benchmark.tracedata` in set-up;
-  :class:`TraceCell`);
+  :class:`TraceCell`), or, with ``"kind": "serve"``, the program's daemon
+  serving a pool of tenants, driven open-loop (:mod:`benchmark.serve`);
 - each per-layer metric, a reader ``benchmark/metrics/<name>.py`` with
   ``read(run) -> float | None`` over the traced window (:class:`Traced`).
 
@@ -75,6 +76,14 @@ class Traced:
         self.plan = plan              # the window's plan, or None (many)
         self.mix, self.config = mix, config
 
+    def planned(self) -> list:
+        """``(plan, mix, spec document, traced predictions)`` for each plan
+        the traced predictions ran: one, or none where they ran many."""
+        if self.plan is None:
+            return []
+        return [(self.plan, self.mix, self.config["spec"],
+                 self.traced_preds)]
+
     def span_s(self, *names: str) -> float | None:
         """Seconds of the named spans summed, or None when none ran."""
         got = [s for n, s in self.spans if n in names]
@@ -127,6 +136,12 @@ def cell_of(bench: dict, name: str, root: str) -> tuple[dict, dict, dict]:
 def is_trace(config: dict) -> bool:
     """Whether ``config`` is a raw address trace (else a loop nest)."""
     return config.get("kind") == "trace"
+
+
+def is_serve(config: dict) -> bool:
+    """Whether ``config`` is a served deployment (:mod:`benchmark.serve`,
+    driven open-loop)."""
+    return config.get("kind") == "serve"
 
 
 @contextlib.contextmanager
@@ -384,6 +399,10 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
     bench = load_bench(root)
     cell, config, mix = cell_of(bench, workload, root)
     _env(mix, root)
+    if is_serve(config):
+        from benchmark import serve
+        return serve.run(root, bench, cell, config, mix, seed, seconds,
+                         trace, t_start, device)
     with inputs(config, seed, device) as data:
         return _run(root, bench, cell, config, mix, data, seed, seconds,
                     trace, t_start, device)

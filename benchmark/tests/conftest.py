@@ -37,6 +37,36 @@ def tiny_trace_config(n: int = 60) -> dict:
     return conf
 
 
+#: each serve-pool tenant's size in the tests (the inline GEMM at the
+#: serve soak's host size)
+TINY_SERVE_N = {"gemm-1024": 16, "mvt-4000": 16, "syrk-1024": 16,
+                "inline-gemm-1024": 13}
+
+
+def tiny_serve_config() -> dict:
+    """``serve-pool`` with each tenant at :data:`TINY_SERVE_N`, its
+    schedule and every other number the configuration's."""
+    from pluss_torch.models import REGISTRY
+    from pluss_torch.spec import loop_size
+    from pluss_torch.spec_codec import spec_to_json
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "serve-pool.json")) as f:
+        conf = json.load(f)
+    conf["name"] = "serve-tiny"
+    for t in conf["tenants"]:
+        n = TINY_SERVE_N[t["name"]]
+        spec = REGISTRY[t["model"]](n)
+        doc = spec_to_json(spec)
+        if "spec" in t["request"]:
+            doc["name"] = f"tenant_gemm{n}"
+            t["request"]["spec"] = doc
+        else:
+            t["request"]["n"] = n
+        t.update(n=n, spec=doc,
+                 accesses=sum(loop_size(x) for x in spec.nests))
+    return conf
+
+
 @pytest.fixture
 def small_batches(monkeypatch):
     """The port's default replay geometry at :func:`tiny_trace_config`'s:

@@ -7,12 +7,11 @@ import functools
 import json
 import os
 import sys
-import types
 
 import pytest
 import torch
 
-from benchmark import devtrace, harness, traffic
+from benchmark import harness, traffic
 from conftest import ROOT, tiny_config
 
 
@@ -139,33 +138,6 @@ def test_a_forbidden_module_after_the_window_means_no_result(
             sys.modules.pop("jax", None)
     assert "jax" in str(e.value)
     assert capsys.readouterr().out == ""
-
-
-def test_sort_ms_counts_the_window_sort_not_unique():
-    """Kernels are tied to the operator that launched them: the window
-    sort's sorts and gathers count, ``torch.unique``'s sorts do not."""
-    cpu = torch.autograd.DeviceType.CPU
-
-    def op(name, parent=None, kernels=()):
-        return types.SimpleNamespace(
-            name=name, device_type=cpu, cpu_parent=parent,
-            kernels=[types.SimpleNamespace(name=k, duration=us)
-                     for k, us in kernels])
-    outer = op("bench.predict")
-    uniq = op("aten::_unique2", outer)
-    events = [outer, uniq,
-              op("aten::sort", outer, [("radixSort", 3000)]),
-              op("aten::gather", outer, [("gather_kernel", 2000)]),
-              op("aten::sort", uniq, [("radixSort", 5000)]),
-              op("aten::add", outer, [("add_kernel", 7000)])]
-    run = types.SimpleNamespace(launched=devtrace.launched_under(events),
-                                traced_preds=[0])
-    run.device_s_under = functools.partial(harness.Traced.device_s_under,
-                                           run)
-    reader = harness._reader("sort_ms", ROOT)
-    assert reader(run) == pytest.approx(5.0)
-    run.launched = [k for k in run.launched if k[0] == "add_kernel"]
-    assert reader(run) is None
 
 
 def test_a_mix_key_the_generator_does_not_know_is_refused():

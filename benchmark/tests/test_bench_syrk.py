@@ -12,7 +12,6 @@ import os
 import numpy as np
 import pytest
 
-import test_bench_program_spans as spans
 from benchmark import compare, harness
 from conftest import ROOT, tiny_config
 from test_bench_program_spans import _cpu_device  # noqa: F401 (a fixture)
@@ -20,13 +19,6 @@ from test_bench_reference import _ref
 
 CELL = "syrk-1024.full"
 OVERLAY_METRICS = {"overlay_window_s.host", "overlay_window_ms.host"}
-
-# test_bench_program_spans runs every cell of BENCHMARK.json on a tiny
-# stand-in of its configuration and checks the metrics that read the
-# program's spans: give it syrk's stand-in and the overlay window's two
-# metrics (the whole folder's tests are collected before any runs)
-spans.TINY["syrk-1024"] = lambda: tiny_config("syrk", 32)
-spans.PROGRAM_SPAN_METRICS |= OVERLAY_METRICS
 
 
 def _bench() -> dict:

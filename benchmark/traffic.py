@@ -26,6 +26,13 @@ says what each prediction runs:
 The set-up warms one prediction of the cell's own shape: the
 configuration's schedule, and a sampling seed no window prediction gets
 (a replay: the same trace).
+
+A served configuration (``"kind": "serve"``) takes an open loop instead,
+``"run": "open"`` (:func:`arrivals`): requests are sent on a schedule
+whether or not earlier ones have been answered, at ``"rate_per_s"``
+requests a second, one every ``1 / rate_per_s`` seconds, each to a tenant
+of the configuration; a request with no answer ``"timeout_s"`` seconds
+after it was due (default 120) has failed.  :mod:`benchmark.serve` runs it.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import numpy as np
 
 RUNS = ("full", "sampled", "replay")
 KEYS = {"run", "rate", "schedules", "plan_cache", "check", "resident_cache"}
+OPEN = "open"
+OPEN_KEYS = {"run", "rate_per_s", "timeout_s"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +65,10 @@ class Prediction:
 def check_mix(mix: dict, config: dict) -> None:
     """Refuse a mix the generator cannot run on ``config``, before any
     set-up."""
+    serve = config.get("kind") == "serve"
+    if serve or mix.get("run") == OPEN:
+        _check_open(mix, serve)
+        return
     if set(mix) - KEYS:
         raise ValueError(f"unknown traffic keys {sorted(set(mix) - KEYS)}; "
                          f"known: {sorted(KEYS)}")
@@ -74,6 +87,22 @@ def check_mix(mix: dict, config: dict) -> None:
     for s in mix.get("schedules") or ():
         if len(s) != 2 or min(s) < 1:
             raise ValueError(f"bad schedule {s!r}: [thread_num, chunk_size]")
+
+
+def _check_open(mix: dict, serve: bool) -> None:
+    if not serve:
+        raise ValueError("an 'open' mix runs only on a serve configuration")
+    if mix.get("run") != OPEN:
+        raise ValueError(f"a {mix.get('run')!r} mix cannot run on a serve "
+                         "configuration; it takes an 'open' mix")
+    if set(mix) - OPEN_KEYS:
+        raise ValueError(f"unknown open traffic keys "
+                         f"{sorted(set(mix) - OPEN_KEYS)}; known: "
+                         f"{sorted(OPEN_KEYS)}")
+    if not float(mix.get("rate_per_s", 0)) > 0:
+        raise ValueError("an open mix needs a 'rate_per_s' above 0")
+    if not float(mix.get("timeout_s", 120)) > 0:
+        raise ValueError("an open mix's 'timeout_s' is above 0")
 
 
 def _seq(seed: int, stream: int) -> np.random.Generator:
@@ -121,3 +150,19 @@ def checked(keys: list, mix: dict, seed: int) -> list:
     n = min(len(distinct), int(mix.get("check", 1)))
     pick = _seq(seed, 2).choice(len(distinct), n, replace=False)
     return [distinct[i] for i in sorted(pick.tolist())]
+
+
+def arrivals(mix: dict, n_tenants: int, seed: int,
+             seconds: float) -> list[tuple[float, int]]:
+    """An open mix's window: ``(due seconds from the window's start,
+    tenant index)`` of every request due in its first ``seconds``, in due
+    order.
+
+    ``n = round(rate_per_s * seconds)`` requests (at least 1), one every
+    ``seconds / n`` from 0.  The tenants are as near equal in number as
+    ``n`` allows, in an order drawn from the seed.  So every seed offers
+    the same arrivals and the same requests, in another order."""
+    n = max(1, round(float(mix["rate_per_s"]) * seconds))
+    due = np.arange(n) * (seconds / n)
+    tenants = _seq(seed, 5).permutation(np.arange(n) % n_tenants)
+    return list(zip(due.tolist(), tenants.tolist()))
